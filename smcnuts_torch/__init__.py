@@ -1,0 +1,22 @@
+"""smcnuts_torch: the SMC-NUTS sampler of `smcnuts_tpu`, ported to PyTorch
+and to hand-written CUDA kernels for the NVIDIA H100 (sm_90a).
+
+The JAX package stays the reference; this package imports neither it nor
+jax. Ported so far: arma, one run, the forwards-proposal L-kernel without
+tempering, multinomial resampling, and the whole-tree NUTS proposal as one
+CUDA kernel (`ops/nuts_cuda.py`) with its plain PyTorch version.
+"""
+
+__version__ = "0.1.0"
+
+from .config import SMCConfig
+from .proposals import DiagNormalProposal
+from .sampler import SMCSampler, run_smc
+
+__all__ = [
+    "DiagNormalProposal",
+    "SMCConfig",
+    "SMCSampler",
+    "run_smc",
+    "__version__",
+]

@@ -1,0 +1,103 @@
+"""Command-line entry: `python -m smcnuts_torch ...`.
+
+Prints the JSON summary of the JAX package's CLI (same keys). Flags of that
+CLI that this port does not run yet raise NotImplementedError naming their
+ROADMAP item.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+
+import torch
+
+_NOT_PORTED = {  # flag attribute -> ROADMAP item
+    "stan": "Queue 1 item 11",
+    "data": "Queue 1 item 11",
+    "stan_tile": "Queue 1 item 11",
+    "tempering": "Queue 1 item 7",
+    "adapt_step_size": "Queue 1 item 7",
+    "adapt_mass_matrix": "Queue 1 item 7",
+    "mesh": "Queue 1 item 10",
+    "checkpoint": "Queue 1 item 9",
+    "output": "Queue 1 item 9",
+}
+
+
+def main(argv=None) -> dict:
+    p = argparse.ArgumentParser(
+        prog="smcnuts_torch", description="SMC-NUTS sampler on PyTorch/CUDA"
+    )
+    p.add_argument("--model", default="arma", help="arma")
+    p.add_argument("-N", "--particles", type=int, default=512)
+    p.add_argument("-K", "--iterations", type=int, default=100)
+    p.add_argument("--step-size", type=float, default=None)
+    p.add_argument("--max-tree-depth", type=int, default=10)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--device", default="cpu", help="cpu | cuda | cuda:<i>")
+    p.add_argument("--nuts-backend", default="auto",
+                   choices=["auto", "eager", "cuda"])
+    p.add_argument(
+        "--lkernel", default="forwardsLKernel",
+        choices=["asymptoticLKernel", "forwardsLKernel", "GaussianApproxLKernel"],
+    )
+    p.add_argument("--resampling", default="multinomial",
+                   choices=["multinomial", "systematic"])
+    # Accepted so that they fail loudly, not as unknown flags.
+    p.add_argument("--stan", default=None)
+    p.add_argument("--data", default=None)
+    p.add_argument("--stan-tile", action="store_true")
+    p.add_argument("--tempering", action="store_true")
+    p.add_argument("--adapt-step-size", action="store_true")
+    p.add_argument("--adapt-mass-matrix", action="store_true")
+    p.add_argument("--mesh", action="store_true")
+    p.add_argument("--checkpoint", default=None)
+    p.add_argument("--output", default=None)
+    args = p.parse_args(argv)
+
+    for flag, item in _NOT_PORTED.items():
+        if getattr(args, flag):
+            raise NotImplementedError(
+                f"--{flag.replace('_', '-')} is not ported to smcnuts_torch "
+                f"yet (ROADMAP {item})"
+            )
+
+    from .config import SMCConfig
+    from .models import get_model
+    from .sampler import run_smc
+
+    model = get_model(args.model)
+    if args.step_size is None:
+        from .models.arma import default_step_size
+
+        args.step_size = default_step_size()
+
+    cfg = SMCConfig(
+        n_particles=args.particles, n_iterations=args.iterations,
+        step_size=args.step_size, lkernel=args.lkernel,
+        resampling=args.resampling, max_tree_depth=args.max_tree_depth,
+        save_history=args.lkernel == "asymptoticLKernel",
+        nuts_backend=args.nuts_backend,
+    )
+    generator = torch.Generator(device=torch.device(args.device))
+    generator.manual_seed(args.seed)
+    result = run_smc(model, cfg, generator)
+
+    summary = {
+        "model": args.model,
+        "lkernel": args.lkernel,
+        "N": args.particles,
+        "K": args.iterations,
+        "mean": result.mean_estimate[-1].tolist(),
+        "variance": result.variance_estimate[-1].tolist(),
+        "ess": float(result.ess[-1]),
+        "log_likelihood": float(result.log_likelihood[-1]),
+        "phi_schedule": [round(v, 4) for v in result.phi.tolist()],
+    }
+    print(json.dumps(summary, indent=1))
+    return summary
+
+
+if __name__ == "__main__":
+    main()

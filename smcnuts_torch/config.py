@@ -1,0 +1,130 @@
+"""Typed run configuration, field for field the JAX package's `SMCConfig`.
+
+The validation is the same. Two fields are renamed for this backend:
+`nuts_backend` takes "auto", "eager" or "cuda", and `pallas_compaction`
+becomes `compaction`. `xla_block_size` becomes `eager_block_size`.
+
+The port so far runs one slice of the JAX package: the forwards-proposal
+L-kernel without tempering or adaptation, multinomial resampling, and the
+fused whole-tree NUTS proposal. Every setting outside that slice raises
+`NotImplementedError` naming the ROADMAP item that will bring it, so no
+setting is ever silently ignored.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+LKERNELS = ("asymptoticLKernel", "forwardsLKernel", "GaussianApproxLKernel")
+RESAMPLERS = ("multinomial", "systematic")
+NUTS_BACKENDS = ("auto", "eager", "cuda")
+
+
+def _not_in_slice(setting: str, item: str):
+    raise NotImplementedError(
+        f"{setting} is not ported to smcnuts_torch yet (ROADMAP {item})"
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class SMCConfig:
+    n_particles: int
+    n_iterations: int
+    step_size: float
+    lkernel: str = "forwardsLKernel"
+    tempering: bool = False
+    resampling: str = "multinomial"
+    max_tree_depth: int = 10  # doublings 0..max_depth
+    ess_threshold_frac: float = 0.5  # resample when ESS < N * frac
+    tempering_alpha: float = 0.5
+    save_history: bool = True  # keep x/logw per iteration
+    adapt_step_size: bool = False
+    adapt_mass_matrix: bool = False
+    target_accept: float = 0.8
+    adapt_warmup_frac: float = 0.5
+    dtype: str = "float32"
+    # "eager": the plain PyTorch tree (`ops.nuts_cuda.nuts_tree_plain`), for
+    # CPU tensors; "cuda": the hand-written whole-tree kernel; "auto": cuda
+    # for CUDA tensors and eager for CPU tensors. Never a fallback.
+    nuts_backend: str = "auto"
+    # Lockstep bound of the eager tree; None = all particles in one pass.
+    eager_block_size: int | None = None
+    cached_loglik_min_phi: float = 1e-2  # tempered path only
+    fused_epilogue: bool = True
+    # "auto" lets the backend choose; this port's kernel runs one thread per
+    # particle and does no compaction. None/() disables; explicit split
+    # depths are not ported yet.
+    compaction: str | tuple | None = "auto"
+
+    def __post_init__(self):
+        if self.n_particles < 1:
+            raise ValueError(f"n_particles must be >= 1, got {self.n_particles}")
+        if self.n_iterations < 1:
+            raise ValueError(
+                f"n_iterations must be >= 1, got {self.n_iterations}"
+            )
+        if self.step_size <= 0:
+            raise ValueError(f"step_size must be > 0, got {self.step_size}")
+        if self.lkernel not in LKERNELS:
+            raise ValueError(
+                f"Unknown L-kernel '{self.lkernel}'; expected one of {LKERNELS}"
+            )
+        if self.resampling not in RESAMPLERS:
+            raise ValueError(
+                f"Unknown resampling scheme '{self.resampling}'; "
+                f"expected one of {RESAMPLERS}"
+            )
+        if self.nuts_backend not in NUTS_BACKENDS:
+            raise ValueError(
+                f"Unknown nuts_backend '{self.nuts_backend}'; expected one of "
+                f"{NUTS_BACKENDS}"
+            )
+        if self.eager_block_size is not None and self.eager_block_size < 1:
+            raise ValueError(
+                f"eager_block_size must be >= 1 or None, got "
+                f"{self.eager_block_size}"
+            )
+        if not 0.0 <= self.cached_loglik_min_phi < 1.0:
+            raise ValueError(
+                "cached_loglik_min_phi must be in [0, 1), got "
+                f"{self.cached_loglik_min_phi}"
+            )
+        pc = self.compaction
+        if pc is not None and pc != "auto":
+            if not (
+                isinstance(pc, tuple)
+                and all(isinstance(s, int) and s >= 1 for s in pc)
+            ):
+                raise ValueError(
+                    "compaction must be 'auto', None, or a tuple of "
+                    f"positive ints, got {pc!r}"
+                )
+        if not 0.0 < self.adapt_warmup_frac <= 1.0:
+            raise ValueError(
+                "adapt_warmup_frac must be in (0, 1], got "
+                f"{self.adapt_warmup_frac}"
+            )
+        if self.max_tree_depth < 0:
+            raise ValueError(
+                f"max_tree_depth must be >= 0, got {self.max_tree_depth}"
+            )
+        if self.dtype not in ("float32", "float64"):
+            raise ValueError(f"dtype must be float32 or float64, got {self.dtype}")
+        self._check_slice()
+
+    def _check_slice(self):
+        """Raise for every valid setting this port does not run yet."""
+        if self.lkernel != "forwardsLKernel":
+            _not_in_slice(f"lkernel={self.lkernel!r}", "Queue 1 item 7")
+        if self.tempering:
+            _not_in_slice("tempering", "Queue 1 item 7")
+        if self.adapt_step_size or self.adapt_mass_matrix:
+            _not_in_slice("adaptation", "Queue 1 item 7")
+        if self.resampling != "multinomial":
+            _not_in_slice(f"resampling={self.resampling!r}", "Queue 1 item 3")
+        if not self.fused_epilogue:
+            _not_in_slice("fused_epilogue=False", "Queue 1 item 5")
+        if self.eager_block_size is not None:
+            _not_in_slice("eager_block_size", "Queue 1 item 4")
+        if isinstance(self.compaction, tuple) and self.compaction:
+            _not_in_slice("compaction splits", "Queue 2 item 4")

@@ -1,0 +1,94 @@
+// ARMA(1,1) tempered log-density and its gradient, for one particle.
+//
+// Replaces smcnuts_tpu/ops/nuts_pallas.py::arma_tile_model(y).tile_fn, which
+// the Pallas NUTS kernel inlines. Its plain version is
+// smcnuts_torch/models/arma.py::ArmaModel.logp_and_grad. The arithmetic is
+// written op for op as that plain version runs on the card, so the two round
+// alike (the build turns off multiply-add contraction): a division by a
+// constant is a multiplication by its float reciprocal, as PyTorch's CUDA
+// division by a scalar is.
+//
+// One pass over the T observations carries the error and its three tangents
+// (d err / d mu, beta, theta) with four running sums; the loglik, the priors
+// (N(0,10), N(0,2), N(0,2), half-Cauchy(0,2.5) with the exp Jacobian) and the
+// gradients follow in closed form. y is read from shared memory, where every
+// thread reads the same address (a broadcast).
+#pragma once
+
+namespace smcnuts {
+
+struct ArmaModel {
+  static constexpr int D = 4;
+
+  const float* y;  // T observations in shared memory
+  int T;
+
+  __device__ __forceinline__ float logp_grad(const float* x, float phi, float* g) const {
+    constexpr float kLogSqrt2Pi = 0.91893853320467274178;
+    constexpr float kLogPi = 1.14472988584940017414;
+    constexpr float kLog10 = 2.30258509299404568402;
+    constexpr float kLog2 = 0.69314718055994530942;
+    constexpr float kLog2_5 = 0.91629073187415506518;
+    constexpr float kInv10 = 1.0f / 10.0f;
+    constexpr float kInv2_5 = 1.0f / 2.5f;
+    constexpr float kInv100 = 1.0f / 100.0f;
+
+    const float mu = x[0], beta = x[1], th = x[2], ls = x[3];
+    float err = (y[0] - mu) - beta * mu;
+    float emu = -1.0f - beta;
+    float eb = -mu;
+    float eth = 0.0f;
+    float s2 = err * err, smu = err * emu, sb = err * eb, sth = err * eth;
+    for (int t = 1; t < T; ++t) {
+      const float b = (y[t] - mu) - beta * y[t - 1];
+      const float err_n = b - th * err;
+      const float emu_n = -1.0f - th * emu;
+      const float eb_n = -y[t - 1] - th * eb;
+      const float eth_n = -err - th * eth;
+      err = err_n;
+      emu = emu_n;
+      eb = eb_n;
+      eth = eth_n;
+      s2 = s2 + err * err;
+      smu = smu + err * emu;
+      sb = sb + err * eb;
+      sth = sth + err * eth;
+    }
+
+    const float Tf = static_cast<float>(T);
+    const float inv_s2 = expf(-2.0f * ls);
+    const float ll = -Tf * (ls + kLogSqrt2Pi) - (0.5f * s2) * inv_s2;
+    const float gl_mu = -smu * inv_s2;
+    const float gl_beta = -sb * inv_s2;
+    const float gl_th = -sth * inv_s2;
+    const float gl_ls = s2 * inv_s2 + -Tf;
+
+    const float z = expf(ls) * kInv2_5;
+    const float mu_s = mu * kInv10, beta_s = beta * 0.5f, th_s = th * 0.5f;
+    float lprior = -0.5f * (mu_s * mu_s);
+    lprior = lprior - kLog10;
+    lprior = lprior - kLogSqrt2Pi;
+    lprior = lprior - 0.5f * (beta_s * beta_s);
+    lprior = lprior - kLog2;
+    lprior = lprior - kLogSqrt2Pi;
+    lprior = lprior - 0.5f * (th_s * th_s);
+    lprior = lprior - kLog2;
+    lprior = lprior - kLogSqrt2Pi;
+    lprior = lprior - kLogPi;
+    lprior = lprior - kLog2_5;
+    lprior = lprior - log1pf(z * z);
+    lprior = lprior + ls;
+    const float gp_mu = -mu * kInv100;
+    const float gp_beta = -beta * 0.25f;
+    const float gp_th = -th * 0.25f;
+    const float gp_ls = 1.0f - ((2.0f * z) * z) / (z * z + 1.0f);
+
+    g[0] = gp_mu + phi * gl_mu;
+    g[1] = gp_beta + phi * gl_beta;
+    g[2] = gp_th + phi * gl_th;
+    g[3] = gp_ls + phi * gl_ls;
+    return lprior + phi * ll;
+  }
+};
+
+}  // namespace smcnuts

@@ -1,0 +1,173 @@
+"""ARMA(1,1) time-series model (reference stan_models/arma/arma.stan).
+
+Unconstrained parameters x = [mu, beta, theta_ma, log_sigma];
+sigma = exp(log_sigma), with the +log_sigma Jacobian folded into the prior.
+Priors: mu ~ N(0, 10), beta ~ N(0, 2), theta ~ N(0, 2), sigma ~ Cauchy(0, 2.5)
+(half-Cauchy through the constraint). Likelihood: one-step-ahead errors
+err_1 = y_1 - (mu + beta*mu), err_t = y_t - (mu + beta*y_{t-1} + theta*err_{t-1}),
+err_t ~ N(0, sigma), scaled by the temperature phi.
+
+The data are read by path from the JAX package's asset file; reading the
+file imports nothing of that package.
+"""
+
+from __future__ import annotations
+
+import math
+import os
+
+import numpy as np
+import torch
+from torch import nn
+
+from .base import LOG_SQRT_2PI, cauchy_lpdf, normal_lpdf
+
+ASSET = os.path.join(
+    os.path.dirname(os.path.abspath(__file__)),
+    "..", "..", "smcnuts_tpu", "assets", "arma.npz",
+)
+
+_LOG_PI = float(math.log(math.pi))
+_LOG_10 = float(math.log(10.0))
+_LOG_2 = float(math.log(2.0))
+_LOG_2_5 = float(math.log(2.5))
+
+
+def load_asset() -> dict:
+    with np.load(ASSET) as data:
+        return {k: np.asarray(data[k]) for k in data.files}
+
+
+class ArmaModel(nn.Module):
+    """ARMA(1,1) target; `y` is a float64 buffer that follows `.to(device)`.
+
+    In float32 the model works on y rounded to float32, as the JAX package
+    does with x64 off."""
+
+    name = "arma"
+    dim = 4
+    constrained_dim = 4
+    param_names = ("mu", "beta", "theta", "sigma")
+
+    def __init__(self, y=None):
+        super().__init__()
+        if y is None:
+            y = load_asset()["y"]
+        y = np.asarray(y, np.float64)
+        self.register_buffer("y", torch.as_tensor(y))
+        # Host copies of the data as Python floats, per working dtype: the
+        # recurrences take them as scalars, so no step reads device memory
+        # for y and nothing syncs with the device.
+        self._y_host = {
+            torch.float32: [float(v) for v in y.astype(np.float32)],
+            torch.float64: [float(v) for v in y],
+        }
+
+    @property
+    def T(self) -> int:
+        return len(self._y_host[torch.float64])
+
+    def _data(self, x):
+        """(y as Python floats, b_t = (y_t - mu) - beta*y_{t-1} for t >= 1)."""
+        yl = self._y_host[x.dtype]
+        y = self.y.to(x.dtype)
+        mu, beta = x[:, 0:1], x[:, 1:2]
+        b = (y[None, 1:] - mu) - beta * y[None, :-1]
+        return yl, b
+
+    def logprior(self, x):
+        mu, beta, th, ls = x.unbind(-1)
+        lp = normal_lpdf(mu, 0.0, 10.0)
+        lp = lp + normal_lpdf(beta, 0.0, 2.0)
+        lp = lp + normal_lpdf(th, 0.0, 2.0)
+        lp = lp + cauchy_lpdf(torch.exp(ls), 0.0, 2.5)
+        return lp + ls  # Jacobian of sigma = exp(log_sigma)
+
+    def loglik(self, x):
+        mu, beta, th, ls = x.unbind(-1)
+        yl, b = self._data(x)
+        err = (yl[0] - mu) - beta * mu
+        s2 = err * err
+        for t in range(1, self.T):
+            err = b[:, t - 1] - th * err
+            s2 = s2 + err * err
+        return -self.T * (LOG_SQRT_2PI + ls) - 0.5 * s2 * torch.exp(-2.0 * ls)
+
+    def logp(self, x, phi=1.0):
+        return self.logprior(x) + phi * self.loglik(x)
+
+    def logp_and_grad(self, x, phi=1.0):
+        """Tempered logp and its gradient in one pass over the data.
+
+        The error recurrence and its three tangents (d err / d mu, beta,
+        theta) run together with four running sums; the loglik, the priors
+        and their gradients then follow in closed form. The arithmetic is
+        written op for op as the kernel's device function
+        (`csrc/arma_model.cuh`) and the JAX package's `arma_tile_model`, so
+        the three round alike. Columns of `e` are [err, emu, eb, eth]."""
+        mu, beta, th, ls = x.unbind(-1)
+        yl, b = self._data(x)
+        T = self.T
+        err = (yl[0] - mu) - beta * mu
+        e = torch.stack([err, -1.0 - beta, -mu, torch.zeros_like(mu)], dim=1)
+        acc = err[:, None] * e  # [s2, smu, sb, sth]
+        # Per step: e' = c - theta * e with c = [b_t, -1, -y_{t-1}, -err].
+        const = torch.stack(
+            [b, torch.full_like(b, -1.0),
+             (-self.y[:-1].to(x.dtype)).expand_as(b)], dim=2,
+        )
+        th_col = th[:, None]
+        for t in range(1, T):
+            c = torch.cat([const[:, t - 1], -e[:, 0:1]], dim=1)
+            e = c - th_col * e
+            acc = acc + e[:, 0:1] * e
+        s2, smu, sb, sth = acc.unbind(1)
+
+        inv_s2 = torch.exp(-2.0 * ls)
+        ll = -T * (LOG_SQRT_2PI + ls) - 0.5 * s2 * inv_s2
+        gl_mu = -smu * inv_s2
+        gl_beta = -sb * inv_s2
+        gl_th = -sth * inv_s2
+        gl_ls = -T + s2 * inv_s2
+
+        z = torch.exp(ls) / 2.5
+        lprior = (
+            -0.5 * (mu / 10.0) ** 2 - _LOG_10 - LOG_SQRT_2PI
+            - 0.5 * (beta / 2.0) ** 2 - _LOG_2 - LOG_SQRT_2PI
+            - 0.5 * (th / 2.0) ** 2 - _LOG_2 - LOG_SQRT_2PI
+            - _LOG_PI - _LOG_2_5 - torch.log1p(z * z)
+            + ls
+        )
+        gp_mu = -mu / 100.0
+        gp_beta = -beta / 4.0
+        gp_th = -th / 4.0
+        gp_ls = 1.0 - 2.0 * z * z / (1.0 + z * z)
+
+        logp = lprior + phi * ll
+        grad = torch.stack([
+            gp_mu + phi * gl_mu,
+            gp_beta + phi * gl_beta,
+            gp_th + phi * gl_th,
+            gp_ls + phi * gl_ls,
+        ], dim=1)
+        return logp, grad
+
+    def constrain(self, x):
+        return torch.cat([x[:, :3], torch.exp(x[:, 3:4])], dim=1)
+
+
+def make_arma(y=None) -> ArmaModel:
+    return ArmaModel(y)
+
+
+def ground_truth():
+    """Posterior mean and VARIANCE from the reference's long Stan run.
+
+    The asset's `gt_var` column is the posterior standard deviation (Stan
+    summary format), so it is squared here, as in the JAX package."""
+    data = load_asset()
+    return data["gt_mean"], np.asarray(data["gt_var"]) ** 2
+
+
+def default_step_size() -> float:
+    return float(load_asset()["step_size"])

@@ -1,0 +1,111 @@
+"""Draw sources of the NUTS proposal, shared by the kernel and its plain version.
+
+Every random number of a tree is addressed by its place in the tree, never by
+a loop trip or a thread's position, so the CUDA kernel (one thread per
+particle, each with its own early exit) and the plain version (all particles
+in lockstep) draw the same bits:
+
+    key     = (seed of the iteration, run index)
+    counter = (particle index within its run, kind, doubling j, slot l)
+
+with kind PROLOGUE (l = 0..2D-1 the Box-Muller uniforms of the momenta, l = 2D
+the slice uniform), DIRECTION and ACCEPT (one per doubling j, l = 0) and LEAF
+(the progressive-sampling uniform of leaf l of doubling j). One
+Philox4x32-10 block is computed per draw and its first word is used.
+
+Two sources:
+- PHILOX: Philox4x32-10 (Salmon et al., SC'11), the stream of the real runs.
+- ZERO_BITS: every word is 0, so every uniform is exactly 2^-24. That is what
+  the TPU PRNG of the JAX package's Pallas kernel returns in interpret mode,
+  so under this source the port reproduces that kernel's trajectories.
+
+A word w maps to u = ((w >> 8) + 1) * 2^-24 in (0, 1] (never 0, so -log u is
+finite), and normals come from the cosine branch of Box-Muller,
+sqrt(-2 log u1) * cos(2 pi u2) -- the maps of the JAX kernel.
+
+The torch version computes Philox on int64 tensors masked to 32 bits; the
+32x32-bit products are split so no intermediate leaves int64.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+PHILOX = "philox"
+ZERO_BITS = "zero_bits"
+SOURCES = (PHILOX, ZERO_BITS)
+
+PROLOGUE, DIRECTION, ACCEPT, LEAF = 0, 1, 2, 3
+
+_M0, _M1 = 0xD2511F53, 0xCD9E8D57
+_W0, _W1 = 0x9E3779B9, 0xBB67AE85
+_MASK32 = 0xFFFFFFFF
+_INV_2_24 = float(2.0**-24)
+_TWO_PI = float(2.0 * math.pi)
+
+
+def _mulhilo(m: int, c: torch.Tensor):
+    """(hi, lo) 32-bit halves of m * c for a 32-bit constant m and int64 c in
+    [0, 2^32): c is split into 16-bit halves so every partial product stays
+    below 2^49."""
+    a = m * (c & 0xFFFF)
+    b = m * (c >> 16)
+    s = a + ((b & 0xFFFF) << 16)
+    return (s >> 32) + (b >> 16), s & _MASK32
+
+
+def philox4x32_10(c0, c1, c2, c3, k0, k1):
+    """Philox4x32-10 on int64 tensors (or ints) holding 32-bit words.
+
+    Returns the four output words as int64 tensors in [0, 2^32)."""
+    def word(v):
+        return torch.as_tensor(v, dtype=torch.int64) & _MASK32
+
+    c0, c1, c2, c3 = word(c0), word(c1), word(c2), word(c3)
+    k0, k1 = word(k0), word(k1)
+    for rnd in range(10):
+        if rnd:
+            k0 = (k0 + _W0) & _MASK32
+            k1 = (k1 + _W1) & _MASK32
+        hi0, lo0 = _mulhilo(_M0, c0)
+        hi1, lo1 = _mulhilo(_M1, c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+    return c0, c1, c2, c3
+
+
+def uniform_from_words(w, dtype=torch.float32):
+    """u = ((w >> 8) + 1) * 2^-24 in (0, 1]; exact in float32."""
+    return ((w >> 8) + 1).to(dtype) * _INV_2_24
+
+
+def box_muller(u1, u2):
+    return torch.sqrt(-2.0 * torch.log(u1)) * torch.cos(_TWO_PI * u2)
+
+
+class TreeDraws:
+    """The draws of a batch of particles' trees.
+
+    seed: (B,) integer tensor, one key word per run; run/particle: (P,)
+    int64 run index and particle index within the run of each flat lane."""
+
+    def __init__(self, source, seed, run, particle, dtype=torch.float32):
+        if source not in SOURCES:
+            raise ValueError(f"Unknown draw source {source!r}; expected {SOURCES}")
+        self.source = source
+        self.dtype = dtype
+        self.n = particle.shape[0]
+        self.device = particle.device
+        self.key0 = seed.to(torch.int64)[run]
+        self.key1 = run.to(torch.int64)
+        self.particle = particle.to(torch.int64)
+
+    def uniform(self, kind: int, j: int, l: int):
+        if self.source == ZERO_BITS:
+            w = torch.zeros(self.n, dtype=torch.int64, device=self.device)
+        else:
+            w = philox4x32_10(
+                self.particle, kind, j, l, self.key0, self.key1
+            )[0]
+        return uniform_from_words(w, self.dtype)

@@ -1,0 +1,70 @@
+"""The port stands alone: `smcnuts_torch` imports neither jax nor smcnuts_tpu."""
+
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+torch.set_num_threads(2)
+
+_REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_PKG = os.path.join(_REPO, "smcnuts_torch")
+
+_MODULES = (
+    "smcnuts_torch", "smcnuts_torch.sampler", "smcnuts_torch.interop",
+    "smcnuts_torch.__main__", "smcnuts_torch.ops.nuts_cuda",
+    "smcnuts_torch.ops.draws", "smcnuts_torch.utils.timing",
+)
+
+
+def test_imports_with_jax_blocked():
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['smcnuts_tpu'] = None\n"
+        "import importlib\n"
+        f"for m in {_MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "from smcnuts_torch.models import get_model\n"
+        "get_model('arma')\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=_REPO, OMP_NUM_THREADS="2")
+    out = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        env=env, timeout=300, cwd=_REPO,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def _py_files():
+    for root, _, files in os.walk(_PKG):
+        for f in files:
+            if f.endswith(".py"):
+                yield os.path.join(root, f)
+
+
+@pytest.mark.parametrize("forbidden", ["jax", "smcnuts_tpu"])
+def test_no_source_imports(forbidden):
+    """No module of the port names jax or smcnuts_tpu in an import, even
+    inside a function (where the subprocess test would not reach it)."""
+    hits = []
+    for path in _py_files():
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            hits += [
+                (path, n) for n in names
+                if n == forbidden or n.startswith(forbidden + ".")
+            ]
+    assert not hits
