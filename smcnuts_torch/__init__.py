@@ -2,21 +2,24 @@
 and to hand-written CUDA kernels for the NVIDIA H100 (sm_90a).
 
 The JAX package stays the reference; this package imports neither it nor
-jax. Ported so far: arma, one run, the forwards-proposal L-kernel without
-tempering, multinomial resampling, and the whole-tree NUTS proposal as one
-CUDA kernel (`ops/nuts_cuda.py`) with its plain PyTorch version.
+jax. Ported so far: arma and PRMwCD, B independent runs batched into one
+NUTS launch per iteration (`run_smc_batched`), the forwards-proposal
+L-kernel without tempering, step-size and diagonal mass adaptation,
+multinomial resampling, and the whole-tree NUTS proposal as one CUDA kernel
+per model (`ops/nuts_cuda.py`) with its plain PyTorch version.
 """
 
 __version__ = "0.1.0"
 
 from .config import SMCConfig
 from .proposals import DiagNormalProposal
-from .sampler import SMCSampler, run_smc
+from .sampler import SMCSampler, run_smc, run_smc_batched
 
 __all__ = [
     "DiagNormalProposal",
     "SMCConfig",
     "SMCSampler",
     "run_smc",
+    "run_smc_batched",
     "__version__",
 ]

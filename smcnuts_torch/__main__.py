@@ -10,15 +10,11 @@ from __future__ import annotations
 import argparse
 import json
 
-import torch
-
 _NOT_PORTED = {  # flag attribute -> ROADMAP item
     "stan": "Queue 1 item 11",
     "data": "Queue 1 item 11",
     "stan_tile": "Queue 1 item 11",
     "tempering": "Queue 1 item 7",
-    "adapt_step_size": "Queue 1 item 7",
-    "adapt_mass_matrix": "Queue 1 item 7",
     "mesh": "Queue 1 item 10",
     "checkpoint": "Queue 1 item 9",
     "output": "Queue 1 item 9",
@@ -29,7 +25,7 @@ def main(argv=None) -> dict:
     p = argparse.ArgumentParser(
         prog="smcnuts_torch", description="SMC-NUTS sampler on PyTorch/CUDA"
     )
-    p.add_argument("--model", default="arma", help="arma")
+    p.add_argument("--model", default="arma", help="arma | prmwcd")
     p.add_argument("-N", "--particles", type=int, default=512)
     p.add_argument("-K", "--iterations", type=int, default=100)
     p.add_argument("--step-size", type=float, default=None)
@@ -44,13 +40,13 @@ def main(argv=None) -> dict:
     )
     p.add_argument("--resampling", default="multinomial",
                    choices=["multinomial", "systematic"])
+    p.add_argument("--adapt-step-size", action="store_true")
+    p.add_argument("--adapt-mass-matrix", action="store_true")
     # Accepted so that they fail loudly, not as unknown flags.
     p.add_argument("--stan", default=None)
     p.add_argument("--data", default=None)
     p.add_argument("--stan-tile", action="store_true")
     p.add_argument("--tempering", action="store_true")
-    p.add_argument("--adapt-step-size", action="store_true")
-    p.add_argument("--adapt-mass-matrix", action="store_true")
     p.add_argument("--mesh", action="store_true")
     p.add_argument("--checkpoint", default=None)
     p.add_argument("--output", default=None)
@@ -64,14 +60,12 @@ def main(argv=None) -> dict:
             )
 
     from .config import SMCConfig
-    from .models import get_model
+    from .models import default_step_size, get_model
     from .sampler import run_smc
 
     model = get_model(args.model)
     if args.step_size is None:
-        from .models.arma import default_step_size
-
-        args.step_size = default_step_size()
+        args.step_size = default_step_size(args.model)
 
     cfg = SMCConfig(
         n_particles=args.particles, n_iterations=args.iterations,
@@ -79,10 +73,10 @@ def main(argv=None) -> dict:
         resampling=args.resampling, max_tree_depth=args.max_tree_depth,
         save_history=args.lkernel == "asymptoticLKernel",
         nuts_backend=args.nuts_backend,
+        adapt_step_size=args.adapt_step_size,
+        adapt_mass_matrix=args.adapt_mass_matrix,
     )
-    generator = torch.Generator(device=torch.device(args.device))
-    generator.manual_seed(args.seed)
-    result = run_smc(model, cfg, generator)
+    result = run_smc(model, cfg, args.seed, args.device)
 
     summary = {
         "model": args.model,

@@ -5,8 +5,8 @@ The validation is the same. Two fields are renamed for this backend:
 becomes `compaction`. `xla_block_size` becomes `eager_block_size`.
 
 The port so far runs one slice of the JAX package: the forwards-proposal
-L-kernel without tempering or adaptation, multinomial resampling, and the
-fused whole-tree NUTS proposal. Every setting outside that slice raises
+L-kernel without tempering, step-size and diagonal mass adaptation,
+multinomial resampling, and the fused whole-tree NUTS proposal. Every setting outside that slice raises
 `NotImplementedError` naming the ROADMAP item that will bring it, so no
 setting is ever silently ignored.
 """
@@ -118,8 +118,6 @@ class SMCConfig:
             _not_in_slice(f"lkernel={self.lkernel!r}", "Queue 1 item 7")
         if self.tempering:
             _not_in_slice("tempering", "Queue 1 item 7")
-        if self.adapt_step_size or self.adapt_mass_matrix:
-            _not_in_slice("adaptation", "Queue 1 item 7")
         if self.resampling != "multinomial":
             _not_in_slice(f"resampling={self.resampling!r}", "Queue 1 item 3")
         if not self.fused_epilogue:

@@ -15,6 +15,8 @@
 // thread reads the same address (a broadcast).
 #pragma once
 
+#include "model_data.cuh"
+
 namespace smcnuts {
 
 struct ArmaModel {
@@ -22,6 +24,11 @@ struct ArmaModel {
 
   const float* y;  // T observations in shared memory
   int T;
+
+  static bool accepts(int n_data, int n_scalars) { return n_data > 0 && n_scalars == 0; }
+
+  __device__ ArmaModel(const float* data, int n_data, const ModelScalars&)
+      : y(data), T(n_data) {}
 
   __device__ __forceinline__ float logp_grad(const float* x, float phi, float* g) const {
     constexpr float kLogSqrt2Pi = 0.91893853320467274178;

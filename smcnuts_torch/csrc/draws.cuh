@@ -1,8 +1,9 @@
 // Draw sources of the NUTS kernel; the plain version is smcnuts_torch/ops/draws.py.
 //
-// A draw is addressed by its place in the tree, key (seed, run) and counter
-// (particle within its run, kind, doubling j, slot l), so it does not depend
-// on the block layout or on when a thread reaches it. One Philox4x32-10 block
+// A draw is addressed by its place in the tree, key (seed of the run's
+// iteration, 0) and counter (particle within its run, kind, doubling j, slot
+// l), so it depends neither on the block layout, nor on when a thread reaches
+// it, nor on the run's place in a batch. One Philox4x32-10 block
 // per draw; its first word is used.
 #pragma once
 
@@ -33,14 +34,13 @@ __device__ __forceinline__ uint32_t philox4x32_10_word0(
 }
 
 struct TreeDraws {
-  uint32_t key0;      // seed of the iteration's run
-  uint32_t key1;      // run index
+  uint32_t key0;      // seed of the run's iteration
   uint32_t particle;  // particle index within the run
   bool zero_bits;     // every word 0: every uniform is 2^-24
 
   // u = ((w >> 8) + 1) * 2^-24 in (0, 1]; exact in float.
   __device__ __forceinline__ float uniform(uint32_t kind, uint32_t j, uint32_t l) const {
-    const uint32_t w = zero_bits ? 0u : philox4x32_10_word0(particle, kind, j, l, key0, key1);
+    const uint32_t w = zero_bits ? 0u : philox4x32_10_word0(particle, kind, j, l, key0, 0u);
     return static_cast<float>((w >> 8) + 1u) * 5.9604644775390625e-08f;
   }
 };

@@ -6,12 +6,16 @@
 //     _nuts_pallas_batched through nuts_batch_pallas_fused;
 //   - the same kernel with the momenta given (nuts_batch_pallas), here the
 //     r != nullptr case;
-//   - arma_tile_model(y).tile_fn, the model it inlines, here ArmaModel in
-//     arma_model.cuh behind the Model template parameter.
+//   - the tile models it inlines, behind the Model template parameter:
+//     arma_tile_model(y).tile_fn as ArmaModel (arma_model.cuh) and
+//     prmwcd_tile_model(y, X, q).tile_fn as PrmwcdModel<11> (prmwcd_model.cuh).
+// One instantiation and one extern "C" entry per model; the model's data
+// reach the kernel generically (model_data.cuh).
 // Its plain PyTorch version is smcnuts_torch/ops/nuts_cuda.py::nuts_tree_plain.
 //
-// What bounds it on this card: FP32 issue and latency on the serial T=200
-// error recurrence of every leaf (each step depends on the last), and warp
+// What bounds it on this card: FP32 issue and latency in the model of every
+// leaf (arma: the serial T=200 error recurrence, each step depending on the
+// last; PRMwCD: 100 observations of ~50 operations and one expf), and warp
 // divergence, since a warp runs until its deepest tree ends while lanes stop
 // at different depths. With N=512 particles the grid is 4 blocks, so most SMs
 // are idle. The simple design does nothing about either yet: lane compaction
@@ -20,10 +24,12 @@
 //
 // Design: each thread walks its own tree with real early exit, so the TPU
 // kernel's per-lane masks become plain control flow. Run parameters (phi,
-// step size, inverse mass) are read per run at p / n_per_run, so batched runs
-// need no change. The block stages y in shared memory once. The checkpoint
-// stack, 2 x (kMaxDepth+1) x D floats a thread, lives in local memory.
-// Random numbers are addressed by their place in the tree (draws.cuh).
+// step size, inverse mass, seed) are read per run at p / n_per_run, so B runs
+// of one SMC iteration share one launch. The block stages the model's data in
+// shared memory once. The checkpoint stack, 2 x (kMaxDepth+1) x D floats a
+// thread, lives in local memory. Random numbers are addressed by their place
+// in the tree and keyed by the run's seed alone (draws.cuh), so run b of a
+// batch draws what it would draw alone.
 
 #include <cstdint>
 
@@ -31,6 +37,8 @@
 
 #include "arma_model.cuh"
 #include "draws.cuh"
+#include "model_data.cuh"
+#include "prmwcd_model.cuh"
 
 namespace smcnuts {
 
@@ -38,13 +46,15 @@ constexpr int kMaxDepth = 10;  // compile-time bound on max_depth
 constexpr int kThreads = 128;  // threads per block
 constexpr float kDivergence = 100.0f;  // nats
 constexpr float kTwoPi = 6.28318530717958647693;
+constexpr int kPrmwcdCov = 11;  // covariates of the PRMwCD instantiation (D = 13)
 constexpr int kStats = 8;  // logp0, logp_prop, accept_stat, depth, leapfrogs, delta_h, ke0, moved
 
 struct TreeArgs {
   const float* x;         // (P, D)
   const float* r;         // (P, D), or nullptr: momenta drawn in-kernel
-  const float* y;         // (T,)
-  int T;
+  const float* data;      // (n_data,): the model's block of floats
+  int n_data;
+  ModelScalars scalars;   // the model's scalar constants
   const int32_t* seed;    // (n_runs,)
   const float* phi;       // (n_runs,)
   const float* eps;       // (n_runs,)
@@ -84,20 +94,20 @@ __device__ __forceinline__ void copy(float* dst, const float* src) {
 template <class Model>
 __global__ void __launch_bounds__(kThreads) nuts_tree_kernel(const TreeArgs a) {
   constexpr int D = Model::D;
-  extern __shared__ float y_s[];
-  for (int t = threadIdx.x; t < a.T; t += blockDim.x) y_s[t] = a.y[t];
+  extern __shared__ float data_s[];
+  for (int t = threadIdx.x; t < a.n_data; t += blockDim.x) data_s[t] = a.data[t];
   __syncthreads();
 
   const int p = blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= a.total) return;  // padding threads
   const int run = p / a.n_per_run;
-  const Model model{y_s, a.T};
+  const Model model(data_s, a.n_data, a.scalars);
   const float phi = a.phi[run];
   const float eps = a.eps[run];
   float im[D];
 #pragma unroll
   for (int d = 0; d < D; ++d) im[d] = a.inv_mass[run * D + d];
-  const TreeDraws draws{static_cast<uint32_t>(a.seed[run]), static_cast<uint32_t>(run),
+  const TreeDraws draws{static_cast<uint32_t>(a.seed[run]),
                         static_cast<uint32_t>(p - run * a.n_per_run), a.zero_bits};
 
   // Prologue: momenta, start energy, slice variable.
@@ -234,30 +244,47 @@ __global__ void __launch_bounds__(kThreads) nuts_tree_kernel(const TreeArgs a) {
   a.stats[7 * P + p] = moved;
 }
 
+template <class Model>
+int launch(const float* x, const float* r, const float* data, int n_data, const float* scalars,
+           int n_scalars, const int32_t* seed, const float* phi, const float* eps,
+           const float* inv_mass, int n_runs, int n_per_run, int max_depth, int zero_bits,
+           float* x_out, float* r_out, float* stats, void* stream) {
+  if (max_depth < 0 || max_depth > kMaxDepth || n_runs < 1 || n_per_run < 1 ||
+      n_scalars < 0 || n_scalars > kMaxScalars || !Model::accepts(n_data, n_scalars)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  ModelScalars s{};
+  for (int i = 0; i < n_scalars; ++i) s.v[i] = scalars[i];
+  const TreeArgs args{x, r, data, n_data, s, seed, phi, eps, inv_mass, n_per_run,
+                      n_runs * n_per_run, max_depth, zero_bits != 0, x_out, r_out, stats};
+  const int blocks = (args.total + kThreads - 1) / kThreads;
+  const size_t smem = static_cast<size_t>(n_data) * sizeof(float);
+  nuts_tree_kernel<Model><<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(args);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace smcnuts
 
 extern "C" {
 
 int smcnuts_nuts_tree_max_depth() { return smcnuts::kMaxDepth; }
 
-// Launches one tree per particle on `stream` and returns cudaGetLastError().
-// Does not synchronise and allocates nothing: the caller owns every buffer.
-int smcnuts_nuts_tree_arma(const float* x, const float* r, const float* y, int T,
-                           const int32_t* seed, const float* phi, const float* eps,
-                           const float* inv_mass, int n_runs, int n_per_run, int max_depth,
-                           int zero_bits, float* x_out, float* r_out, float* stats,
-                           void* stream) {
-  using namespace smcnuts;
-  if (max_depth < 0 || max_depth > kMaxDepth || n_runs < 1 || n_per_run < 1 || T < 1) {
-    return static_cast<int>(cudaErrorInvalidValue);
+int smcnuts_prmwcd_n_cov() { return smcnuts::kPrmwcdCov; }
+
+// Each entry launches one tree per particle on `stream` and returns
+// cudaGetLastError(). It does not synchronise and allocates nothing: the
+// caller owns every buffer. `scalars` is a host array of n_scalars floats.
+#define SMCNUTS_ENTRY(NAME, MODEL)                                                              \
+  int NAME(const float* x, const float* r, const float* data, int n_data, const float* scalars, \
+           int n_scalars, const int32_t* seed, const float* phi, const float* eps,              \
+           const float* inv_mass, int n_runs, int n_per_run, int max_depth, int zero_bits,      \
+           float* x_out, float* r_out, float* stats, void* stream) {                            \
+    return smcnuts::launch<MODEL>(x, r, data, n_data, scalars, n_scalars, seed, phi, eps,       \
+                                  inv_mass, n_runs, n_per_run, max_depth, zero_bits, x_out,     \
+                                  r_out, stats, stream);                                        \
   }
-  const TreeArgs args{x, r, y, T, seed, phi, eps, inv_mass, n_per_run, n_runs * n_per_run,
-                      max_depth, zero_bits != 0, x_out, r_out, stats};
-  const int blocks = (args.total + kThreads - 1) / kThreads;
-  const size_t smem = static_cast<size_t>(T) * sizeof(float);
-  nuts_tree_kernel<ArmaModel>
-      <<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(args);
-  return static_cast<int>(cudaGetLastError());
-}
+
+SMCNUTS_ENTRY(smcnuts_nuts_tree_arma, smcnuts::ArmaModel)
+SMCNUTS_ENTRY(smcnuts_nuts_tree_prmwcd, smcnuts::PrmwcdModel<smcnuts::kPrmwcdCov>)
 
 }  // extern "C"

@@ -1,9 +1,11 @@
 """SMC state carried between the JAX package and this one, as numpy arrays.
 
 `carry_from_numpy` builds this package's `SMCCarry` from the fields the two
-carries share (x, logw, phi, step_size, inv_mass), for example those of a
-JAX `SMCCarry` passed through `np.asarray`; `carry_to_numpy` gives them back.
-The arma data come from the same asset file in both packages, so no model
+carries share (x, logw, phi, step_size, inv_mass and the dual-averaging
+state da), for example those of a JAX `SMCCarry` passed through
+`np.asarray`; `carry_to_numpy` gives them back. The run axis is optional: x
+(N, D) is one run, x (B, N, D) is B runs (a `jax.vmap` of the JAX carry).
+Both packages read the models' data from the same asset files, so no model
 weights need converting.
 """
 
@@ -12,30 +14,47 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .ops.adaptation import DualAveragingState, da_init
 from .sampler import SMCCarry
 
-CARRY_FIELDS = ("x", "logw", "phi", "step_size", "inv_mass")
+CARRY_FIELDS = ("x", "logw", "phi", "step_size", "inv_mass", "da")
 
 
-def carry_from_numpy(x, logw, phi, step_size, inv_mass,
+def carry_from_numpy(x, logw, phi, step_size, inv_mass, da=None,
                      device="cpu") -> SMCCarry:
-    """The carry on `device`, in the floating dtype of `x`."""
+    """The carry on `device`, in the floating dtype of `x`. `da` holds the
+    five dual-averaging fields in `DualAveragingState` order (a JAX
+    `DualAveragingState` will do); None starts them from the step size."""
     x = torch.tensor(np.asarray(x), device=device)
+    if x.dim() == 2:
+        x = x[None]
+    if x.dim() != 3:
+        raise ValueError(f"x must be (N, D) or (B, N, D), got {tuple(x.shape)}")
+    B, N, D = x.shape
 
-    def t(a):
-        return torch.tensor(np.asarray(a), dtype=x.dtype, device=device)
+    def t(a, shape):
+        return torch.tensor(np.asarray(a), dtype=x.dtype, device=device).reshape(shape)
 
-    logw = t(logw)
-    if x.dim() != 2 or logw.shape != x.shape[:1]:
-        raise ValueError(
-            f"x must be (N, D) and logw (N,), got {tuple(x.shape)} and "
-            f"{tuple(logw.shape)}"
-        )
+    step = t(step_size, (B,))
     return SMCCarry(
-        x=x, logw=logw, phi=t(phi).reshape(()),
-        step_size=t(step_size).reshape(()), inv_mass=t(inv_mass).reshape(-1),
+        x=x, logw=t(logw, (B, N)), phi=t(phi, (B,)), step_size=step,
+        inv_mass=t(inv_mass, (B, D)),
+        da=da_init(step) if da is None
+        else DualAveragingState(*(t(v, (B,)) for v in da)),
     )
 
 
-def carry_to_numpy(carry: SMCCarry) -> dict:
-    return {k: getattr(carry, k).detach().cpu().numpy() for k in CARRY_FIELDS}
+def carry_to_numpy(carry: SMCCarry, run_axis: bool = True) -> dict:
+    """The carry's fields as numpy arrays; `da` as a `DualAveragingState` of
+    arrays. With run_axis=False the carry must hold one run, and its run axis
+    is dropped."""
+    if not run_axis and carry.x.shape[0] != 1:
+        raise ValueError(f"run_axis=False needs one run, got {carry.x.shape[0]}")
+
+    def a(v):
+        v = v.detach().cpu().numpy()
+        return v if run_axis else v[0]
+
+    out = {k: a(getattr(carry, k)) for k in CARRY_FIELDS if k != "da"}
+    out["da"] = DualAveragingState(*(a(v) for v in carry.da))
+    return out

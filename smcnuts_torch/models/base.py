@@ -53,3 +53,15 @@ def normal_lpdf(x, mu, sigma):
 def cauchy_lpdf(x, mu, gamma):
     z = (x - mu) / gamma
     return -_log(math.pi * gamma) - torch.log1p(z * z)
+
+
+def inv_gamma_lpdf(x, alpha, beta):
+    return (
+        alpha * _log(beta) - math.lgamma(alpha) - (alpha + 1.0) * torch.log(x)
+        - beta / x
+    )
+
+
+def poisson_lpmf(y, mu_log):
+    """Poisson log-pmf parameterised by the log rate."""
+    return y * mu_log - torch.exp(mu_log) - torch.lgamma(y + 1.0)

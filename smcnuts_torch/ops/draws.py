@@ -5,13 +5,20 @@ a loop trip or a thread's position, so the CUDA kernel (one thread per
 particle, each with its own early exit) and the plain version (all particles
 in lockstep) draw the same bits:
 
-    key     = (seed of the iteration, run index)
+    key     = (seed of the run's iteration, 0)
     counter = (particle index within its run, kind, doubling j, slot l)
 
 with kind PROLOGUE (l = 0..2D-1 the Box-Muller uniforms of the momenta, l = 2D
 the slice uniform), DIRECTION and ACCEPT (one per doubling j, l = 0) and LEAF
 (the progressive-sampling uniform of leaf l of doubling j). One
-Philox4x32-10 block is computed per draw and its first word is used.
+Philox4x32-10 block is computed per draw and its first word is used. The key
+holds no run index, so run b of a batch draws what it would draw alone.
+
+Each run also has a stream of its own, keyed by the run's seed s as
+(s mod 2^32, s div 2^32): per SMC iteration k, the N resampling uniforms
+(counter (i, RESAMPLE, k, 0)) and the seed of the iteration's tree (counter
+(0, TREE_SEED, k, 0)). `run_draws` computes them for many iterations at once,
+so the SMC loop adds no launches for them.
 
 Two sources:
 - PHILOX: Philox4x32-10 (Salmon et al., SC'11), the stream of the real runs.
@@ -37,7 +44,8 @@ PHILOX = "philox"
 ZERO_BITS = "zero_bits"
 SOURCES = (PHILOX, ZERO_BITS)
 
-PROLOGUE, DIRECTION, ACCEPT, LEAF = 0, 1, 2, 3
+PROLOGUE, DIRECTION, ACCEPT, LEAF = 0, 1, 2, 3  # kinds of the tree's draws
+RESAMPLE, TREE_SEED = 4, 5  # kinds of a run's own stream
 
 _M0, _M1 = 0xD2511F53, 0xCD9E8D57
 _W0, _W1 = 0x9E3779B9, 0xBB67AE85
@@ -87,8 +95,9 @@ def box_muller(u1, u2):
 class TreeDraws:
     """The draws of a batch of particles' trees.
 
-    seed: (B,) integer tensor, one key word per run; run/particle: (P,)
-    int64 run index and particle index within the run of each flat lane."""
+    seed: (B,) integer tensor, the key word of each run's tree; run/particle:
+    (P,) int64 run index and particle index within the run of each flat
+    lane."""
 
     def __init__(self, source, seed, run, particle, dtype=torch.float32):
         if source not in SOURCES:
@@ -98,7 +107,6 @@ class TreeDraws:
         self.n = particle.shape[0]
         self.device = particle.device
         self.key0 = seed.to(torch.int64)[run]
-        self.key1 = run.to(torch.int64)
         self.particle = particle.to(torch.int64)
 
     def uniform(self, kind: int, j: int, l: int):
@@ -106,6 +114,27 @@ class TreeDraws:
             w = torch.zeros(self.n, dtype=torch.int64, device=self.device)
         else:
             w = philox4x32_10(
-                self.particle, kind, j, l, self.key0, self.key1
+                self.particle, kind, j, l, self.key0, 0
             )[0]
         return uniform_from_words(w, self.dtype)
+
+
+def run_draws(seeds, iterations, n, dtype=torch.float32):
+    """The resampling uniforms and tree seeds of B runs for a range of
+    iterations, from each run's own stream.
+
+    seeds: (B,) int64 tensor of run seeds in [0, 2^63); iterations: a range
+    of iteration indices (K of them). Returns uniforms (K, B, n) in [0, 1),
+    the map (w >> 8) * 2^-24, and tree seeds (K, B) int32 in [0, 2^31)."""
+    dev = seeds.device
+    k = torch.as_tensor(list(iterations), dtype=torch.int64, device=dev)
+    key0 = (seeds & _MASK32)[None, :]
+    key1 = (seeds >> 32)[None, :]
+    i = torch.arange(n, dtype=torch.int64, device=dev)
+    w = philox4x32_10(
+        i[None, None, :], RESAMPLE, k[:, None, None], 0,
+        key0[..., None], key1[..., None],
+    )[0]
+    uniforms = (w >> 8).to(dtype) * _INV_2_24
+    s = philox4x32_10(0, TREE_SEED, k[:, None], 0, key0, key1)[0]
+    return uniforms, (s & 0x7FFFFFFF).to(torch.int32)

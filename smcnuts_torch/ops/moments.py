@@ -1,18 +1,24 @@
 """Importance-sampling moment estimators (reference
-smcnuts/estimate/estimate.py:38-95)."""
+smcnuts/estimate/estimate.py:38-95), per run: x is (..., N, D) and wn
+(..., N). Sums over particles take the fixed order of `ops.reduce`."""
 
 from __future__ import annotations
 
 import torch
 
+from .reduce import row_sum
+
 
 def weighted_moments(x, wn):
     """Weighted mean wn^T x and raw (uncorrected) variance wn^T (x - mean)^2."""
-    mean = wn @ x
-    var = wn @ torch.square(x - mean)
+    xt = x.transpose(-1, -2)  # (..., D, N)
+    w = wn[..., None, :]
+    mean = row_sum(w * xt)
+    var = row_sum(w * torch.square(xt - mean[..., None]))
     return mean, var
 
 
 def estimate(model, x, wn):
     """Moments in constrained space."""
-    return weighted_moments(model.constrain(x), wn)
+    cx = model.constrain(x.reshape(-1, x.shape[-1]))
+    return weighted_moments(cx.reshape(x.shape[:-1] + cx.shape[-1:]), wn)

@@ -1,6 +1,8 @@
-"""SMC sampler: the JAX package's `sampler.py` for the slice ported so far.
+"""SMC sampler: the JAX package's `sampler.py` for the slice ported so far,
+for B independent runs at once.
 
-One iteration, in the reference's order (reference smc_sampler.py:109-140):
+One iteration, in the reference's order (reference smc_sampler.py:109-140),
+for every run:
 
     1. record the phi used this iteration
     2. normalise weights (masked logsumexp) -> wn, running log-likelihood
@@ -10,14 +12,25 @@ One iteration, in the reference's order (reference smc_sampler.py:109-140):
     7. reweight: logw += logp' - logp0 + (delta_h - (logp' - logp0)),
        the forwards L-kernel on the non-tempered fused path
     8. acceptance = share of particles that moved in EVERY dimension
+    9. adaptation, when configured: dual averaging of the step size on the
+       mean accept statistic (frozen at the averaged iterate after
+       round(adapt_warmup_frac * K) iterations) and the diagonal inverse mass
+       from the reweighted particles (JAX sampler.py:489-517)
 
 Diagnostics quirks kept from the reference: acceptance at index K is 0, and
 phi[K] is the last temperature computed.
 
-Every random number comes from one `torch.Generator` on the run's device:
-per iteration the N resampling uniforms, then the seed of the tree's draws.
-The K loop does no host sync: the resample decision is a `torch.where`, and
-the per-iteration diagnostics stay on the device until `finalize`.
+Batching: `run_smc_batched(model, cfg, seeds, device)` steps B runs through
+one NUTS launch per iteration (B*N threads); weights, ESS, resampling and
+adaptation are per run, as tensor ops over the run axis. It is the
+counterpart of `jax.vmap(run_smc)` over keys, and `run_smc` is its B = 1
+case. Every random number of run b comes from b's own seed: the initial
+particles from a `torch.Generator` seeded with it, and per iteration the
+resampling uniforms and the tree's seed from its Philox stream
+(`ops.draws.run_draws`). Every sum over particles takes the fixed order of
+`ops.reduce`. So run b of a batch equals, bit for bit, a run alone with seed
+seeds[b]. The K loop does no host sync: the resample decision is a
+`torch.where`, and the diagnostics stay on the device until `finalize`.
 """
 
 from __future__ import annotations
@@ -28,28 +41,40 @@ from typing import NamedTuple
 import torch
 
 from .config import SMCConfig
-from .ops.draws import PHILOX
+from .ops.adaptation import (
+    DualAveragingState,
+    da_init,
+    da_update,
+    mass_matrix_from_particles,
+)
+from .ops.draws import PHILOX, run_draws
 from .ops.moments import estimate as constrained_estimate
 from .ops.nuts_cuda import nuts_tree, nuts_tree_plain
+from .ops.reduce import row_mean
 from .ops.resampling import resample_if_required
 from .ops.weights import ess as compute_ess
 from .ops.weights import normalise_weights
 from .proposals import DiagNormalProposal
 
-_SEED_BOUND = 2**31 - 1
+# Bound on the elements of one `run_draws` block (iterations x runs x N).
+_DRAW_BLOCK = 1 << 22
 
 
 class SMCCarry(NamedTuple):
-    x: torch.Tensor  # (N, D) unconstrained positions
-    logw: torch.Tensor  # (N,) log weights
-    phi: torch.Tensor  # () temperature for the next proposal
-    step_size: torch.Tensor  # ()
-    inv_mass: torch.Tensor  # (D,) diagonal inverse mass
+    """The state of B runs between iterations."""
+
+    x: torch.Tensor  # (B, N, D) unconstrained positions
+    logw: torch.Tensor  # (B, N) log weights
+    phi: torch.Tensor  # (B,) temperature for the next proposal
+    step_size: torch.Tensor  # (B,)
+    inv_mass: torch.Tensor  # (B, D) diagonal inverse mass
+    da: DualAveragingState  # fields (B,)
 
 
 class SMCResult(NamedTuple):
     """Per-iteration series of length K+1 (reference smc_sampler.py:66-85),
-    as tensors on the run's device."""
+    as tensors on the run's device. From `run_smc_batched` every field leads
+    with the run axis B; from `run_smc` it has none."""
 
     mean_estimate: torch.Tensor  # (K+1, CD)
     variance_estimate: torch.Tensor  # (K+1, CD)
@@ -58,7 +83,7 @@ class SMCResult(NamedTuple):
     phi: torch.Tensor  # (K+1,)
     acceptance_rate: torch.Tensor  # (K+1,)
     resampled: torch.Tensor  # (K+1,) bool
-    step_size: torch.Tensor  # (K+1,)
+    step_size: torch.Tensor  # (K+1,) the step size after each iteration's adaptation
     x_saved: torch.Tensor | None  # (K+1, N, D) if cfg.save_history
     logw_saved: torch.Tensor | None  # (K+1, N)
     x_final: torch.Tensor  # (N, D)
@@ -104,59 +129,56 @@ def _check_momentum(momentum_proposal):
         )
 
 
-def init_state(model, cfg: SMCConfig, generator: torch.Generator,
+def init_state(model, cfg: SMCConfig, seeds, device,
                sample_proposal=None) -> SMCCarry:
     """x0 ~ sample proposal, phi0 = 1, logw0 = logp(x0, 1) - q0(x0)
-    (reference samples.py:63-88, non-tempered)."""
+    (reference samples.py:63-88, non-tempered), one run per seed. Each run
+    draws from a generator seeded with its own seed and is evaluated alone,
+    so it does not depend on the runs beside it."""
     dtype = getattr(torch, cfg.dtype)
-    device = generator.device
+    device = torch.device(device)
     if sample_proposal is None:
         sample_proposal = DiagNormalProposal(model.dim)
-    x0 = sample_proposal.rvs(generator, cfg.n_particles, dtype=dtype)
-    logw0 = model.logp(x0, 1.0) - sample_proposal.logpdf(x0)
+    xs, logws = [], []
+    for seed in seeds:
+        generator = torch.Generator(device=device).manual_seed(int(seed))
+        x0 = sample_proposal.rvs(generator, cfg.n_particles, dtype=dtype)
+        xs.append(x0)
+        logws.append((model.logp(x0, 1.0) - sample_proposal.logpdf(x0)).to(dtype))
+    B = len(xs)
+    step_size = torch.full((B,), cfg.step_size, dtype=dtype, device=device)
     return SMCCarry(
-        x=x0,
-        logw=logw0.to(dtype),
-        phi=torch.ones((), dtype=dtype, device=device),
-        step_size=torch.full((), cfg.step_size, dtype=dtype, device=device),
-        inv_mass=torch.ones(model.dim, dtype=dtype, device=device),
+        x=torch.stack(xs),
+        logw=torch.stack(logws),
+        phi=torch.ones(B, dtype=dtype, device=device),
+        step_size=step_size,
+        inv_mass=torch.ones((B, model.dim), dtype=dtype, device=device),
+        da=da_init(step_size),
     )
 
 
-def smc_step(model, cfg: SMCConfig, carry: SMCCarry,
-             generator: torch.Generator, backend: str, draws: str = PHILOX,
-             uniforms: torch.Tensor | None = None):
-    """One SMC iteration; returns (next carry, diagnostics of this one).
+def smc_step(model, cfg: SMCConfig, carry: SMCCarry, uniforms, tree_seed,
+             backend: str, draws: str = PHILOX):
+    """One SMC iteration of B runs; returns (next carry, diagnostics of this
+    one, each with a leading run axis).
 
-    `uniforms` (N,) in [0, 1) replaces the resampling draw (a test hands in
-    the JAX package's); `draws` picks the tree's draw source."""
-    n = cfg.n_particles
-    x = carry.x
-    if uniforms is None:
-        uniforms = torch.rand(
-            n, generator=generator, dtype=x.dtype, device=x.device
-        )
-    seed = torch.randint(
-        0, _SEED_BOUND, (1,), generator=generator, dtype=torch.int32,
-        device=x.device,
-    )
+    uniforms (B, N) in [0, 1) are the resampling draws and tree_seed (B,)
+    int32 the seeds of the runs' trees (`ops.draws.run_draws`; a test hands
+    in the JAX package's uniforms); `draws` picks the tree's draw source."""
     phi = carry.phi
-
     wn, log_likelihood = normalise_weights(carry.logw)
-    mean_k, var_k = constrained_estimate(model, x, wn)
+    mean_k, var_k = constrained_estimate(model, carry.x, wn)
     ess_k = compute_ess(wn)
     x_r, logw_r, did_resample = resample_if_required(
-        uniforms, x, carry.logw, wn, log_likelihood, ess_k,
+        uniforms, carry.x, carry.logw, wn, log_likelihood, ess_k,
         cfg.ess_threshold_frac,
     )
 
     tree = nuts_tree if backend == "cuda" else nuts_tree_plain
     x_new, _, st = tree(
-        model, x_r[None], seed, carry.step_size, phi, carry.inv_mass,
+        model, x_r, tree_seed, carry.step_size, phi, carry.inv_mass,
         cfg.max_tree_depth, draws,
     )
-    x_new = x_new[0]
-    st = {k: v[0] for k, v in st.items()}
 
     # Forwards L-kernel, fused: the momentum-density difference
     # L(-r'|x') - q(r) comes back as delta_h - (logp' - logp0), and on the
@@ -166,35 +188,55 @@ def smc_step(model, cfg: SMCConfig, carry: SMCCarry,
     logp_new_1, logp_old_1 = st["logp_prop"], st["logp0"]
     logw_new = logw_r + logp_new_1 - logp_old_1 + lk_minus_q
 
+    # Adaptation (JAX sampler.py:489-517). The warmup freeze uses da.count
+    # as the iteration counter, as the JAX package does.
+    accept_stat = row_mean(st["accept_stat"])
+    step_size, da = carry.step_size, carry.da
+    if cfg.adapt_step_size:
+        warmup_iters = max(1, round(cfg.adapt_warmup_frac * cfg.n_iterations))
+        in_warmup = carry.da.count < warmup_iters
+        da_new = da_update(carry.da, accept_stat, target=cfg.target_accept)
+        da = DualAveragingState(*(
+            torch.where(in_warmup, new, old) for new, old in zip(da_new, carry.da)
+        ))
+        step_size = torch.exp(
+            torch.where(in_warmup, da.log_step, da.log_step_avg)
+        )
+    inv_mass = carry.inv_mass
+    if cfg.adapt_mass_matrix:
+        wn_new, _ = normalise_weights(logw_new)
+        inv_mass = mass_matrix_from_particles(x_new, wn_new, carry.inv_mass)
+
     diag = {
         "phi": phi,
         "log_likelihood": log_likelihood,
         "ess": ess_k,
-        "acceptance": torch.mean(st["moved"]),
+        "acceptance": row_mean(st["moved"]),
         "resampled": did_resample,
-        "step_size": carry.step_size,
-        "tree_depth": torch.mean(st["depth"]),
-        "tree_leapfrogs": torch.mean(st["leapfrogs"]),
-        "accept_stat": torch.mean(st["accept_stat"]),
+        "step_size": step_size,
+        "tree_depth": row_mean(st["depth"]),
+        "tree_leapfrogs": row_mean(st["leapfrogs"]),
+        "accept_stat": accept_stat,
         "mean": mean_k,
         "var": var_k,
     }
     new_carry = SMCCarry(
         x=x_new, logw=logw_new, phi=torch.ones_like(phi),
-        step_size=carry.step_size, inv_mass=carry.inv_mass,
+        step_size=step_size, inv_mass=inv_mass, da=da,
     )
     return new_carry, diag
 
 
 def finalize(model, carry: SMCCarry, diags: list, x_hist=None,
              logw_hist=None) -> SMCResult:
-    """Append the final half-iteration at index K (smc_sampler.py:143-149)."""
+    """Append the final half-iteration at index K (smc_sampler.py:143-149);
+    every series is (B, K+1, ...)."""
     wn_f, loglik_f = normalise_weights(carry.logw)
     mean_f, var_f = constrained_estimate(model, carry.x, wn_f)
-    s = {k: torch.stack([d[k] for d in diags]) for k in _SERIES}
+    s = {k: torch.stack([d[k] for d in diags], dim=1) for k in _SERIES}
 
     def cat(seq, last):
-        return torch.cat([seq, last.reshape((1,) + seq.shape[1:]).to(seq.dtype)])
+        return torch.cat([seq, last[:, None].to(seq.dtype)], dim=1)
 
     return SMCResult(
         mean_estimate=cat(s["mean"], mean_f),
@@ -202,39 +244,63 @@ def finalize(model, carry: SMCCarry, diags: list, x_hist=None,
         ess=cat(s["ess"], compute_ess(wn_f)),
         log_likelihood=cat(s["log_likelihood"], loglik_f),
         phi=cat(s["phi"], carry.phi),
-        acceptance_rate=cat(s["acceptance"], torch.zeros_like(s["acceptance"][0])),
-        resampled=cat(s["resampled"], torch.zeros_like(s["resampled"][0])),
+        acceptance_rate=cat(s["acceptance"], torch.zeros_like(s["acceptance"][:, 0])),
+        resampled=cat(s["resampled"], torch.zeros_like(s["resampled"][:, 0])),
         step_size=cat(s["step_size"], carry.step_size),
-        x_saved=None if x_hist is None else torch.stack(x_hist),
-        logw_saved=None if logw_hist is None else torch.stack(logw_hist),
+        x_saved=None if x_hist is None else torch.stack(x_hist, dim=1),
+        logw_saved=None if logw_hist is None else torch.stack(logw_hist, dim=1),
         x_final=carry.x,
         logw_final=carry.logw,
-        tree_depth=cat(s["tree_depth"], s["tree_depth"][-1]),
-        tree_leapfrogs=cat(s["tree_leapfrogs"], s["tree_leapfrogs"][-1]),
-        accept_stat=cat(s["accept_stat"], s["accept_stat"][-1]),
+        tree_depth=cat(s["tree_depth"], s["tree_depth"][:, -1]),
+        tree_leapfrogs=cat(s["tree_leapfrogs"], s["tree_leapfrogs"][:, -1]),
+        accept_stat=cat(s["accept_stat"], s["accept_stat"][:, -1]),
     )
 
 
-def run_smc(model, cfg: SMCConfig, generator: torch.Generator,
-            sample_proposal=None, momentum_proposal=None,
-            draws: str = PHILOX) -> SMCResult:
-    """Run K iterations on the generator's device: init_state, K calls of
-    smc_step, finalize. Moves the model to that device."""
+def run_smc_batched(model, cfg: SMCConfig, seeds, device="cpu",
+                    sample_proposal=None, momentum_proposal=None,
+                    draws: str = PHILOX) -> SMCResult:
+    """Run B = len(seeds) independent SMC runs of K iterations on `device`:
+    init_state, K calls of smc_step (one NUTS launch each), finalize. Every
+    field of the result leads with B, and run b equals `run_smc` with seed
+    seeds[b]. Seeds are integers in [0, 2^63). Moves the model to the
+    device."""
     _check_momentum(momentum_proposal)
-    device = generator.device
+    device = torch.device(device)
     backend = resolve_backend(cfg, device)
     model = model.to(device)
-    carry = init_state(model, cfg, generator, sample_proposal)
+    seeds = [int(s) for s in seeds]
+    if not seeds or not all(0 <= s < 2**63 for s in seeds):
+        raise ValueError(f"seeds must be one or more integers in [0, 2^63), got {seeds}")
+    carry = init_state(model, cfg, seeds, device, sample_proposal)
+    seeds_t = torch.tensor(seeds, dtype=torch.int64, device=device)
+    B, N = carry.logw.shape
+    K = cfg.n_iterations
+    block = max(1, _DRAW_BLOCK // (B * (N + 1)))
     diags = []
     x_hist = [carry.x] if cfg.save_history else None
     logw_hist = [carry.logw] if cfg.save_history else None
-    for _ in range(cfg.n_iterations):
-        carry, diag = smc_step(model, cfg, carry, generator, backend, draws)
+    for k in range(K):
+        if k % block == 0:
+            uniforms, tree_seeds = run_draws(
+                seeds_t, range(k, min(k + block, K)), N, carry.x.dtype
+            )
+        carry, diag = smc_step(model, cfg, carry, uniforms[k % block],
+                               tree_seeds[k % block], backend, draws)
         diags.append(diag)
         if cfg.save_history:
             x_hist.append(carry.x)
             logw_hist.append(carry.logw)
     return finalize(model, carry, diags, x_hist, logw_hist)
+
+
+def run_smc(model, cfg: SMCConfig, seed: int = 0, device="cpu",
+            sample_proposal=None, momentum_proposal=None,
+            draws: str = PHILOX) -> SMCResult:
+    """One run: `run_smc_batched` with B = 1, its run axis dropped."""
+    result = run_smc_batched(model, cfg, [seed], device, sample_proposal,
+                             momentum_proposal, draws)
+    return SMCResult(*(None if v is None else v[0] for v in result))
 
 
 class SMCSampler:
@@ -263,12 +329,10 @@ class SMCSampler:
     def sample(self, seed=None) -> SMCResult:
         """Run the sampler; `run_time` is the wall time up to the results on
         the host."""
-        generator = torch.Generator(device=self.device)
-        generator.manual_seed(self.seed if seed is None else seed)
         start = time.perf_counter()
         result = run_smc(
-            self.target, self.cfg, generator,
-            sample_proposal=self._sample_proposal,
+            self.target, self.cfg, self.seed if seed is None else seed,
+            self.device, sample_proposal=self._sample_proposal,
             momentum_proposal=self._momentum_proposal,
         )
         host = {

@@ -16,7 +16,9 @@ _PKG = os.path.join(_REPO, "smcnuts_torch")
 _MODULES = (
     "smcnuts_torch", "smcnuts_torch.sampler", "smcnuts_torch.interop",
     "smcnuts_torch.__main__", "smcnuts_torch.ops.nuts_cuda",
-    "smcnuts_torch.ops.draws", "smcnuts_torch.utils.timing",
+    "smcnuts_torch.ops.draws", "smcnuts_torch.ops.adaptation",
+    "smcnuts_torch.ops.reduce", "smcnuts_torch.models.prmwcd",
+    "smcnuts_torch.utils.timing",
 )
 
 
@@ -29,7 +31,7 @@ def test_imports_with_jax_blocked():
         f"for m in {_MODULES!r}:\n"
         "    importlib.import_module(m)\n"
         "from smcnuts_torch.models import get_model\n"
-        "get_model('arma')\n"
+        "get_model('arma'); get_model('prmwcd')\n"
         "print('ok')\n"
     )
     env = dict(os.environ, PYTHONPATH=_REPO, OMP_NUM_THREADS="2")

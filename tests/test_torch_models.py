@@ -123,7 +123,7 @@ def test_model_is_module_with_buffer():
     assert m.dim == 4 and m.constrained_dim == 4
 
 
-@pytest.mark.parametrize("name", ["prmwcd", "eightschools", "logistic"])
+@pytest.mark.parametrize("name", ["gaussian", "eightschools", "logistic"])
 def test_unported_models_raise(name):
     with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
         get_model(name)

@@ -2,10 +2,11 @@
 
 Both packages start from one state (passed through `interop`). The JAX step
 runs the Pallas NUTS kernel interpreted on the CPU (zero bits), the port's
-step the plain tree with ZERO_BITS draws, and the port is handed the raw
-resampling uniforms the JAX step draws from its key split. Three iterations
-must agree at atol 1e-4 / rtol 1e-4, resampling decisions exactly. Then the
-port runs end to end on the CPU through `SMCSampler` and the CLI.
+step (one run, B = 1) the plain tree with ZERO_BITS draws, and the port is
+handed the raw resampling uniforms the JAX step draws from its key split.
+Three iterations must agree at atol 1e-4 / rtol 1e-4, resampling decisions
+exactly. Then the port runs end to end on the CPU through `SMCSampler` and
+the CLI.
 """
 
 import jax
@@ -51,13 +52,14 @@ def jax_trajectory():
         step_size=step0, inv_mass=jnp.ones(4, jnp.float32),
         da=da_init(step0, jnp.float32), key=jax.random.key(3),
     )
-    start = {k: np.asarray(getattr(carry, k)) for k in CARRY_FIELDS}
+    start = {k: jax.tree.map(np.asarray, getattr(carry, k)) for k in CARRY_FIELDS}
     uniforms, carries, diags = [], [], []
     for k in range(ITERS):
         k_res = jax.random.split(carry.key, 5)[1]
         uniforms.append(np.array(jax.random.uniform(k_res, (N,), jnp.float32)))
         carry, out = step(carry, jnp.int32(k))
-        carries.append({f: np.asarray(getattr(carry, f)) for f in CARRY_FIELDS})
+        carries.append({f: jax.tree.map(np.asarray, getattr(carry, f))
+                        for f in CARRY_FIELDS})
         d = np.asarray(out["diag"])
         diags.append(dict(zip(_DIAG_FIELDS, d[: len(_DIAG_FIELDS)]),
                           mean=d[len(_DIAG_FIELDS):len(_DIAG_FIELDS) + 4],
@@ -71,27 +73,28 @@ def test_step_matches_jax_step(jax_trajectory):
                     max_tree_depth=MAX_DEPTH)
     model = get_model("arma")
     carry = carry_from_numpy(**start)
-    gen = torch.Generator().manual_seed(0)
     resampled = []
     for k in range(ITERS):
-        carry, diag = smc_step(model, cfg, carry, gen, "eager", ZERO_BITS,
-                               uniforms=torch.as_tensor(uniforms[k]))
-        got, want = carry_to_numpy(carry), carries[k]
+        carry, diag = smc_step(model, cfg, carry,
+                               torch.as_tensor(uniforms[k])[None],
+                               torch.zeros(1, dtype=torch.int32), "eager",
+                               ZERO_BITS)
+        got, want = carry_to_numpy(carry, run_axis=False), carries[k]
         for f in CARRY_FIELDS:
             np.testing.assert_allclose(got[f], want[f], rtol=1e-4, atol=1e-4,
                                        err_msg=f"iteration {k}: {f}")
         for f in ("ess", "log_likelihood", "mean", "var", "phi", "acceptance",
-                  "tree_depth", "tree_leapfrogs", "accept_stat"):
-            np.testing.assert_allclose(diag[f].numpy(), diags[k][f], rtol=1e-4,
+                  "step_size", "tree_depth", "tree_leapfrogs", "accept_stat"):
+            np.testing.assert_allclose(diag[f][0].numpy(), diags[k][f], rtol=1e-4,
                                        atol=1e-4, err_msg=f"iteration {k}: {f}")
-        assert bool(diag["resampled"]) == bool(diags[k]["resampled"] > 0.5)
-        resampled.append(bool(diag["resampled"]))
+        assert bool(diag["resampled"][0]) == bool(diags[k]["resampled"] > 0.5)
+        resampled.append(bool(diag["resampled"][0]))
     assert any(resampled) and not all(resampled)  # both branches ran
 
 
 def test_interop_round_trip(jax_trajectory):
     start = jax_trajectory[0]
-    back = carry_to_numpy(carry_from_numpy(**start))
+    back = carry_to_numpy(carry_from_numpy(**start), run_axis=False)
     for f in CARRY_FIELDS:
         np.testing.assert_array_equal(back[f], start[f])
 
@@ -138,9 +141,9 @@ def test_cli_end_to_end_cpu(capsys):
 
 @pytest.mark.parametrize("argv", [
     ["--tempering"], ["--lkernel", "asymptoticLKernel"],
-    ["--resampling", "systematic"], ["--adapt-step-size"], ["--mesh"],
+    ["--resampling", "systematic"], ["--stan-tile"], ["--mesh"],
     ["--checkpoint", "ck.npz"], ["--stan", "m.stan"], ["--output", "o.npz"],
-    ["--model", "prmwcd"],
+    ["--model", "gaussian"],
 ], ids=lambda a: a[0])
 def test_cli_flags_outside_slice_raise(argv):
     with pytest.raises(NotImplementedError, match="ROADMAP"):

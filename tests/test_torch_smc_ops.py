@@ -3,6 +3,8 @@
 Weight normalisation, ESS, moments and multinomial resampling; the
 resampling uniforms are drawn by JAX and handed to the port, so ancestors
 must be exactly equal. Also the config's validation and its slice guard.
+The batched (B, N) forms of the same functions are held to the JAX package
+in tests/test_torch_batched.py.
 """
 
 import jax
@@ -157,8 +159,9 @@ OUT_OF_SLICE = [
     (dict(lkernel="asymptoticLKernel"), "Queue 1 item 7"),
     (dict(lkernel="GaussianApproxLKernel"), "Queue 1 item 7"),
     (dict(tempering=True), "Queue 1 item 7"),
-    (dict(adapt_step_size=True), "Queue 1 item 7"),
-    (dict(adapt_mass_matrix=True), "Queue 1 item 7"),
+    # Adaptation runs; with a strategy outside the slice it still raises.
+    (dict(adapt_step_size=True, lkernel="asymptoticLKernel"), "Queue 1 item 7"),
+    (dict(adapt_mass_matrix=True, tempering=True), "Queue 1 item 7"),
     (dict(resampling="systematic"), "Queue 1 item 3"),
     (dict(fused_epilogue=False), "Queue 1 item 5"),
     (dict(eager_block_size=4096), "Queue 1 item 4"),
@@ -171,3 +174,15 @@ OUT_OF_SLICE = [
 def test_settings_outside_slice_raise(setting, item):
     with pytest.raises(NotImplementedError, match=item):
         SMCConfig(n_particles=8, n_iterations=2, step_size=0.01, **setting)
+
+
+@pytest.mark.parametrize("setting", [
+    dict(adapt_step_size=True), dict(adapt_mass_matrix=True),
+    dict(adapt_step_size=True, adapt_mass_matrix=True, target_accept=0.5),
+], ids=lambda d: "+".join(k for k in d if k.startswith("adapt")))
+def test_adaptation_settings_accepted(setting):
+    cfg = SMCConfig(n_particles=8, n_iterations=2, step_size=0.01, **setting)
+    jax_cfg = JaxSMCConfig(n_particles=8, n_iterations=2, step_size=0.01, **setting)
+    for k in ("adapt_step_size", "adapt_mass_matrix", "target_accept",
+              "adapt_warmup_frac"):
+        assert getattr(cfg, k) == getattr(jax_cfg, k)
