@@ -5,9 +5,10 @@
 Phases, each printing its own lines; any failure raises (non-zero exit):
 
 1. device: the GPU's name, `nvidia-smi` name and power limit, versions.
-2. build: nvcc builds the NUTS kernel from smcnuts_torch/csrc (sm_90a), one
-   instantiation per model (arma, PRMwCD); prints ptxas's registers, stack
-   frame and spills for each.
+2. build: nvcc builds the NUTS kernel from smcnuts_torch/csrc (sm_90a), two
+   instantiations per model (arma, PRMwCD): the first stage, which is the
+   whole tree when nothing is staged, and the continuation stage; prints
+   ptxas's registers, stack frame and spills for each.
 3. arma kernel vs plain: `nuts_tree` (the CUDA kernel) and `nuts_tree_plain`
    on the same CUDA inputs, with zero-bits and Philox draws, phi 1.0 and 0.4
    (two runs in one launch), a non-unit inverse mass, the r-given variant at
@@ -16,9 +17,17 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
    logp0, logp_prop or delta_h differ on agreeing lanes by more than
    atol 1e-4 + rtol 1e-4; or when an output is not finite. Times both
    (CUDA events, median of 5) at N=512 and at the batched shape 25 x 512.
+   Then the staged dispatch at 25 x 512, depth 10: for Philox and zero bits,
+   the accept-reject epilogue off and on (the zero-bits cloud holds a lane
+   with a NaN density, the only kind zero bits reject), and r given, the
+   kernel with the reference's splits, with one split at every depth 1..9
+   and with all nine must equal the single kernel to the bit on every lane
+   and output, and is held to the plain version by the contract above. The
+   staged dispatch and its plain version are timed.
 4. PRMwCD kernel vs plain: the same contract and cases for the PRMwCD
    instantiation (a 13-vector inverse mass), plus the batched main path's
-   shape, 25 runs x 512 at max_depth 10, where both are timed.
+   shape, 25 runs x 512 at max_depth 10, where both are timed; then the
+   staged dispatch as in phase 3.
 5. arma main path, one run: SMCSampler(K=100, N=512, step 0.01, max depth 10)
    on the GPU, then `python -m smcnuts_torch` through its main(). Each run
    must launch the kernel exactly 100 times and the plain tree never; every
@@ -34,13 +43,34 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
    runs 0 and 24 equal single runs with their seeds, to the bit. The adapted
    run's step size is constant over the frozen iterations, and its mean
    leapfrogs per particle-iteration are below half the fixed run's. Prints
-   wall time and particle-iterations/s of each workload.
+   wall time and particle-iterations/s of each workload. Then each workload
+   again with compaction=None and with the staged dispatch in turns (none,
+   staged, staged, none): every SMCResult field equal to the bit, K
+   dispatches, K x stages kernel launches, no plain call, runs 0 and 24
+   equal to their single runs with compaction on, wall beside wall. Last,
+   PRMwCD with 100 runs and compaction="auto" for 5 iterations: past
+   COMPACTION_MIN_LANES "auto" takes the hint, and the runs equal
+   those with compaction=None.
+6b. times of the staged dispatch: each workload's K iterations are driven
+   once more through init_state and smc_step, and on the population they
+   end with, the single kernel and every candidate split tuple are timed
+   (CUDA events, median of 5), with the survivors after each split, the
+   stage launches, and the per-warp lockstep waste (lane-steps a warp walks
+   over lane-steps its trees need) from the kernel's own leapfrogs and depth
+   outputs. Each population is also tiled to 2, 4 and 16 times the lanes:
+   past the lanes the card holds at once, a warp that ends early makes room
+   for a waiting one, and compaction has something to remove.
 7. CLI: `python -m smcnuts_torch --model prmwcd --device cuda`, without and
    with --adapt-step-size --adapt-mass-matrix, through its main(): 100
    launches each and finite estimates.
 
-The second-to-last line is a JSON object describing the kernels; the last
-line is {"ok": true, "device": {...}}. Without a CUDA device, or without the
+The line before the last two repeats the card's name and power limit, the
+second-to-last line is a JSON object describing the kernels (for each: the
+launches on the main path, the error against its plain version, its time,
+the plain version's, and the least time the card could take for the same
+work, from this run's leapfrog count and bytes over the data-sheet peaks; no
+single PyTorch call builds a NUTS tree, so there is no library time); the
+last line is {"ok": true, "device": {...}}. Without a CUDA device, or without the
 repository beside it, the script fails before printing any result.
 """
 
@@ -66,6 +96,29 @@ ADAPT_TARGET = 0.5  # bench.py:176-178
 # PRMwCD at this config (experiments/output/adaptation.json): algorithmic
 # counts, independent of the device.
 JAX_LEAPFROGS = {"fixed": 322.13, "adapted": 62.74}
+# The splits of the JAX package's tile models (nuts_pallas.py:1862-1864,
+# :1985-1986): what the staged checks run with where a model's own hint for
+# this card is empty.
+REFERENCE_SPLITS = {"arma": (4,), "prmwcd": (7, 8, 9), "prmwcd_adapted": (5, 6)}
+CANDIDATE_SPLITS = (
+    tuple((s,) for s in range(1, MAX_DEPTH))
+    + ((5, 6), (6, 8), (7, 8, 9), (3, 5, 7), (2, 4, 6, 8),
+       tuple(range(1, MAX_DEPTH)))
+)
+# Single splits timed on the tiled populations of phase 6b, beside the
+# candidates of more than one split: the depths where each workload's trees end.
+WIDE_SINGLES = {"arma": ((2,), (3,), (4,)), "prmwcd": ((6,), (7,), (8,)),
+                "prmwcd_adapted": ((4,), (5,), (6,))}
+# NVIDIA's data sheet for the H100 SXM at 700 W: FP32 outside the tensor
+# cores (a multiply-add counts as two) and device memory.
+PEAK_FP32, PEAK_BYTES = 67e12, 3.35e12
+# FP32 operations of one leapfrog, counted from the sources: arma 19 a step
+# of the T = 200 recurrence (csrc/arma_model.cuh) and ~100 for the closed
+# forms and the leapfrog; PRMwCD 50 an observation x 100 (22 for eta, 22 for
+# the covariate sums, 6 more, the expf as one; csrc/prmwcd_model.cuh) and
+# ~230 for the prior, the leapfrog and the U-turn tests.
+OPS_PER_LEAPFROG = {"arma": 19 * 200 + 100, "prmwcd": 50 * 100 + 230}
+MODEL_DATA_FLOATS = {"arma": 200, "prmwcd": 100 * 12}
 
 
 def phase(name):
@@ -110,6 +163,8 @@ def reset_counts():
 
     nuts_tree.launches = 0
     nuts_tree.model_launches = {k: 0 for k in nuts_tree.model_launches}
+    nuts_tree.stage_launches = 0
+    nuts_tree.cont_launches = {k: 0 for k in nuts_tree.cont_launches}
     nuts_tree_plain.calls = 0
 
 
@@ -117,6 +172,14 @@ def read_counts():
     from smcnuts_torch.ops.nuts_cuda import nuts_tree, nuts_tree_plain
 
     return dict(nuts_tree.model_launches), nuts_tree_plain.calls
+
+
+def read_stage_counts():
+    """(kernel launches of every stage, launches of each model's
+    continuation-stage kernel) since reset_counts."""
+    from smcnuts_torch.ops.nuts_cuda import nuts_tree
+
+    return nuts_tree.stage_launches, dict(nuts_tree.cont_launches)
 
 
 def particles(n, seed, device):
@@ -150,8 +213,14 @@ def compare(label, model, args, r=None):
     """Run kernel and plain version on the same inputs; return max abs err."""
     from smcnuts_torch.ops.nuts_cuda import nuts_tree, nuts_tree_plain
 
-    out_k = nuts_tree(model, *args, r=r)
-    out_p = nuts_tree_plain(model, *args, r=r)
+    return check_outputs(label, nuts_tree(model, *args, r=r),
+                         nuts_tree_plain(model, *args, r=r))
+
+
+def check_outputs(label, out_k, out_p, nan_lanes=False, quiet=False):
+    """Hold a kernel's outputs to the plain version's by the contract of
+    phase 3; return max abs err on agreeing lanes. With nan_lanes, a value
+    that is not finite passes where the other side holds the same value."""
     torch.cuda.synchronize()
     xk, rk, sk = out_k
     xp, rp, sp = out_p
@@ -164,23 +233,53 @@ def compare(label, model, args, r=None):
     pairs.update({k: (sk[k], sp[k]) for k in sk})
     worst, diffs = 0.0, []
     for k, (a, b) in pairs.items():
-        if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
+        same = (a == b) | (torch.isnan(a) & torch.isnan(b))
+        finite = torch.isfinite(a) & torch.isfinite(b)
+        if not bool((finite | same).all() if nan_lanes else finite.all()):
             raise AssertionError(f"{label}: non-finite {k}")
-        d = (a - b).abs()
+        d = torch.where(same, torch.zeros_like(a), (a - b).abs())
         diffs.append(f"{k}={float(d.max()):.3g}")
         if k in ("x", "r", "logp0", "logp_prop", "delta_h"):
             lanes = agree if d.dim() == 2 else agree[..., None].expand_as(d)
-            bad = lanes & (d > ATOL + RTOL * b.abs())
+            bad = lanes & ~same & (d > ATOL + RTOL * b.abs())
             if bad.any():
                 raise AssertionError(
                     f"{label}: {k} differs beyond atol {ATOL} + rtol {RTOL} "
                     f"on {int(bad.sum())} values of agreeing lanes"
                 )
             worst = max(worst, float(d[lanes].max()))
-    print(f"{label}: {agree.numel()} lanes, mean depth "
-          f"{float(sk['depth'].mean()):.3f}, integer outputs agree on "
-          f"{100 * share:.3f}%; max |kernel - plain|: {', '.join(diffs)}")
+    if not quiet:
+        print(f"{label}: {agree.numel()} lanes, mean depth "
+              f"{float(sk['depth'].mean()):.3f}, integer outputs agree on "
+              f"{100 * share:.3f}%; max |kernel - plain|: {', '.join(diffs)}")
     return worst
+
+
+def bitwise_differences(a, b):
+    """Names of the outputs of two tree calls that differ in any bit (NaN
+    equal to NaN)."""
+    pairs = {"x": (a[0], b[0]), "r": (a[1], b[1])}
+    pairs.update({k: (a[2][k], b[2][k]) for k in a[2]})
+    return [k for k, (u, v) in pairs.items()
+            if not bool(((u == v) | (torch.isnan(u) & torch.isnan(v))).all())]
+
+
+def bound_ms(name, out, survivors=(), bundle_rows=0):
+    """(ms, "operations" | "bytes"): the least time the card could take for
+    the trees of `out`: their model evaluations (the kernel's own leapfrogs
+    output) x the model's operations over the FP32 peak, or the bytes moved
+    (every input read once, every output written once, and for a staged
+    dispatch every survivor's bundle column written once and read once) over
+    the memory rate, whichever is larger."""
+    x_out, _, st = out
+    B, n, D = x_out.shape
+    P = B * n
+    ops = float(st["leapfrogs"].sum()) * OPS_PER_LEAPFROG[name]
+    floats = (P * D + 3 * B + B * D + MODEL_DATA_FLOATS[name]  # inputs
+              + 2 * P * D + len(st) * P  # outputs
+              + 2 * bundle_rows * sum(survivors))
+    t_ops, t_bytes = 1e3 * ops / PEAK_FP32, 1e3 * 4 * floats / PEAK_BYTES
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
 def time_pair(label, model, args, smi):
@@ -195,9 +294,91 @@ def time_pair(label, model, args, smi):
     return k_ms, p_ms
 
 
+def staged_kernel_phase(name, model, batch_args, single_out, plain_out, smi):
+    """The staged dispatch of one model at the batched main path's shape,
+    against the single kernel (to the bit) and the plain version (by the
+    contract); returns what the kernels line says of it. single_out and
+    plain_out are the outputs for batch_args, computed by the caller."""
+    from smcnuts_torch.ops.draws import PHILOX, ZERO_BITS
+    from smcnuts_torch.ops.nuts_cuda import build_library, nuts_tree, nuts_tree_plain
+    from smcnuts_torch.utils.timing import median_ms
+
+    x, seed, step, phi, im, depth, _ = batch_args
+    dev = x.device
+    own = model.compaction_hint or REFERENCE_SPLITS[name]
+    split_sets = tuple(dict.fromkeys(
+        (own, REFERENCE_SPLITS[name]) + tuple((s,) for s in range(1, depth))
+        + (tuple(range(1, depth)),)))
+    # A lane whose start density is -inf, so that its delta_h is NaN (arma:
+    # sigma = e^200; PRMwCD: an intercept of 200): under zero bits u = 2^-24
+    # and the slice lies 16.6 nats below the start, so every finite delta_h
+    # accepts and only such a lane rejects.
+    x_nan = x.clone()
+    x_nan[0, 0, 3 if name == "arma" else 0] = 200.0
+    r = torch.randn(x.shape, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(7))
+    cases = (
+        ("philox", x, PHILOX, False, None, single_out, plain_out),
+        ("philox, acc_rej", x, PHILOX, True, None, None, None),
+        ("zero_bits", x_nan, ZERO_BITS, False, None, None, None),
+        ("zero_bits, acc_rej", x_nan, ZERO_BITS, True, None, None, None),
+        ("philox, acc_rej, r given", x, PHILOX, True, r, None, None),
+    )
+    worst = 0.0
+    for label, xc, source, acc, rc, single, plain in cases:
+        label = f"{name} staged [{label}]"
+        args = (xc, seed, step, phi, im, depth, source)
+        kw = dict(r=rc, acc_rej=acc)
+        if single is None:
+            single = nuts_tree(model, *args, **kw)
+            plain = nuts_tree_plain(model, *args, **kw)
+        worst = max(worst, check_outputs(f"{label} single kernel", single, plain,
+                                         nan_lanes=True))
+        dh, moved = single[2]["delta_h"], single[2]["moved"]
+        if source == ZERO_BITS:
+            nan = torch.isnan(dh)
+            if not (bool(nan.any()) and bool((moved[nan] == 0).all())
+                    and bool((moved[~nan] == 1).any())):
+                raise AssertionError(f"{label}: the NaN lane must not move and "
+                                     f"others must")
+            if acc and not torch.equal(single[0][nan], xc[nan]):
+                raise AssertionError(f"{label}: a rejected lane must keep its x")
+        for splits in split_sets:
+            staged = nuts_tree(model, *args, compaction=splits, **kw)
+            if splits == own:
+                survivors = survivor_counts()
+            diff = bitwise_differences(staged, single)
+            if diff:
+                raise AssertionError(f"{label}: splits {splits} differ from the "
+                                     f"single kernel in {diff}")
+            worst = max(worst, check_outputs(f"{label} splits {splits}", staged,
+                                             plain, nan_lanes=True, quiet=True))
+        print(f"{label}: {len(split_sets)} split tuples ({own}, "
+              f"{REFERENCE_SPLITS[name]}, one split at each depth "
+              f"1..{depth - 1}, all of them) equal the single kernel "
+              f"to the bit on every output; lanes that did not move "
+              f"{int((moved == 0).sum())}, NaN delta_h {int(torch.isnan(dh).sum())}; "
+              f"survivors after {own}: {survivors}")
+    staged_out = nuts_tree(model, *batch_args, compaction=own)
+    survivors = survivor_counts()
+    ms = median_ms(lambda: nuts_tree(model, *batch_args, compaction=own), repeats=5)
+    plain_ms = median_ms(
+        lambda: nuts_tree_plain(model, *batch_args, compaction=own),
+        repeats=3, warmup=0)
+    bound, bound_by = bound_ms(name, staged_out, survivors,
+                               build_library().bundle_rows(x.shape[2]))
+    print(f"time {name} staged {own}, {RUNS} x {N} x depth {depth} [philox]: "
+          f"kernel {ms:.4f} ms in {len(own) + 1} launches, plain {plain_ms:.1f} ms "
+          f"(CUDA events, median of 5 and of 3); bound {bound:.5f} ms by "
+          f"{bound_by} ({smi})")
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": bound_by}
+
+
 def arma_kernel_phase(smi):
     from smcnuts_torch.models import get_model
     from smcnuts_torch.ops.draws import PHILOX, ZERO_BITS
+    from smcnuts_torch.ops.nuts_cuda import nuts_tree, nuts_tree_plain
 
     phase("3. arma kernel vs plain")
     dev = torch.device("cuda")
@@ -227,19 +408,27 @@ def arma_kernel_phase(smi):
     batch_args = (particles(RUNS * N, 6, dev).view(RUNS, N, 4),
                   torch.arange(RUNS, dtype=torch.int32, device=dev), STEP, 1.0,
                   ones, MAX_DEPTH, PHILOX)
-    worst = max(worst, compare(
+    single_out = nuts_tree(model, *batch_args)
+    plain_out = nuts_tree_plain(model, *batch_args)
+    worst = max(worst, check_outputs(
         f"[philox] batched main path shape, {RUNS} x {N}, depth {MAX_DEPTH}",
-        model, batch_args))
+        single_out, plain_out))
     time_pair(f"arma {N} x depth {MAX_DEPTH} [philox]", model, main_args, smi)
-    times = time_pair(f"arma {RUNS} x {N} x depth {MAX_DEPTH} [philox]", model,
-                      batch_args, smi)
-    print(f"arma: max |kernel - plain| on agreeing lanes, all cases: {worst:.3g}")
-    return worst, times
+    ms, plain_ms = time_pair(f"arma {RUNS} x {N} x depth {MAX_DEPTH} [philox]",
+                             model, batch_args, smi)
+    bound, bound_by = bound_ms("arma", single_out)
+    print(f"arma: max |kernel - plain| on agreeing lanes, all cases: {worst:.3g}; "
+          f"bound at {RUNS} x {N}: {bound:.5f} ms by {bound_by}")
+    whole = {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+             "bound_ms": bound, "bound_by": bound_by}
+    return whole, staged_kernel_phase("arma", model, batch_args, single_out,
+                                      plain_out, smi)
 
 
 def prmwcd_kernel_phase(smi):
     from smcnuts_torch.models import get_model
     from smcnuts_torch.ops.draws import PHILOX, ZERO_BITS
+    from smcnuts_torch.ops.nuts_cuda import nuts_tree, nuts_tree_plain
 
     phase("4. PRMwCD kernel vs plain")
     dev = torch.device("cuda")
@@ -265,13 +454,20 @@ def prmwcd_kernel_phase(smi):
     batch_args = (prmwcd_particles((RUNS, N), 5, dev),
                   torch.arange(RUNS, dtype=torch.int32, device=dev), STEP, 1.0,
                   ones, MAX_DEPTH, PHILOX)
-    worst = max(worst, compare(
+    single_out = nuts_tree(model, *batch_args)
+    plain_out = nuts_tree_plain(model, *batch_args)
+    worst = max(worst, check_outputs(
         f"[philox] batched main path shape, {RUNS} x {N}, depth {MAX_DEPTH}",
-        model, batch_args))
-    times = time_pair(f"PRMwCD {RUNS} x {N} x depth {MAX_DEPTH} [philox]", model,
-                      batch_args, smi)
-    print(f"PRMwCD: max |kernel - plain| on agreeing lanes, all cases: {worst:.3g}")
-    return worst, times
+        single_out, plain_out))
+    ms, plain_ms = time_pair(f"PRMwCD {RUNS} x {N} x depth {MAX_DEPTH} [philox]",
+                             model, batch_args, smi)
+    bound, bound_by = bound_ms("prmwcd", single_out)
+    print(f"PRMwCD: max |kernel - plain| on agreeing lanes, all cases: {worst:.3g}; "
+          f"bound at {RUNS} x {N}: {bound:.5f} ms by {bound_by}")
+    whole = {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+             "bound_ms": bound, "bound_by": bound_by}
+    return whole, staged_kernel_phase("prmwcd", model, batch_args, single_out,
+                                      plain_out, smi)
 
 
 def check_run(label, mean, means_ok_sd):
@@ -378,25 +574,150 @@ def parity_bands(label, name, final_mean, final_var):
         raise AssertionError(f"{label}: outside the PARITY bands")
 
 
+WORKLOADS = (  # label, model, adapted
+    ("arma", "arma", False),
+    ("prmwcd", "prmwcd", False),
+    ("prmwcd_adapted", "prmwcd", True),
+)
+
+
+def workload_config(adapt):
+    from smcnuts_torch import SMCConfig
+
+    return SMCConfig(
+        n_particles=N, n_iterations=K, step_size=STEP,
+        max_tree_depth=MAX_DEPTH, save_history=False,
+        adapt_step_size=adapt, adapt_mass_matrix=adapt,
+        target_accept=ADAPT_TARGET if adapt else 0.8,
+    )
+
+
+def compaction_on(label, name, model, cfg, res_auto, smi):
+    """One workload with compaction=None and with the staged dispatch, in
+    turns (none, staged, staged, none), through run_smc_batched: every field
+    of the results equal to the bit (and to the "auto" result), K dispatches
+    and K x stages kernel launches with no plain call, runs 0 and the last
+    equal to their single runs with compaction on. Returns the launches of
+    the continuation-stage kernel in the first staged run."""
+    import dataclasses
+
+    from smcnuts_torch import run_smc, run_smc_batched
+    from smcnuts_torch.sampler import resolve_compaction
+    from smcnuts_torch.utils.timing import CudaTimer
+
+    auto = resolve_compaction(cfg, model, RUNS * N)
+    hint = (model.compaction_hint_adapted if cfg.adapt_step_size
+            else model.compaction_hint)
+    splits = hint or REFERENCE_SPLITS[label]
+    stages = len(splits) + 1
+    cfgs = {"none": dataclasses.replace(cfg, compaction=None),
+            "staged": dataclasses.replace(cfg, compaction=splits)}
+    walls, results, cont = {"none": [], "staged": []}, {}, None
+    for turn in ("none", "staged", "staged", "none"):
+        reset_counts()
+        with CudaTimer() as t:
+            res = run_smc_batched(model, cfgs[turn], SEEDS, "cuda")
+            res.mean_estimate[:, K].cpu()
+        walls[turn].append(t.ms)
+        counts, plain_calls = read_counts()
+        stage_launches, cont_counts = read_stage_counts()
+        want = K * (stages if turn == "staged" else 1)
+        if (counts[name] != K or plain_calls != 0 or stage_launches != want
+                or cont_counts[name] != want - K):
+            raise AssertionError(
+                f"{label} compaction {turn}: {counts} dispatches, "
+                f"{stage_launches} kernel launches ({cont_counts} of the "
+                f"continuation kernel), {plain_calls} plain calls; expected "
+                f"{K}, {want}, {want - K}, 0")
+        if turn == "staged" and cont is None:
+            cont = cont_counts
+        results[turn] = res
+    for turn, res in results.items():
+        diff = [f for f, v in res_auto._asdict().items()
+                if v is not None and not torch.equal(v, getattr(res, f))]
+        if diff:
+            raise AssertionError(f"{label}: compaction {turn} differs from "
+                                 f"\"auto\" in {diff}")
+    for b in (0, RUNS - 1):
+        one = run_smc(model, cfgs["staged"], SEEDS[b], "cuda")
+        diff = [f for f, v in one._asdict().items()
+                if v is not None and not torch.equal(v, getattr(results["staged"], f)[b])]
+        if diff:
+            raise AssertionError(f"{label}: staged run {b} differs from its "
+                                 f"single run in {diff}")
+    print(f"{label}: \"auto\" at {RUNS * N} lanes is {auto or 'the single kernel'}"
+          f", the model's hint {hint or 'none'}; staged with "
+          f"{splits}: every SMCResult field equals compaction=None to the bit; "
+          f"{K} dispatches, {K * stages} kernel launches, no plain call; runs 0 "
+          f"and {RUNS - 1} equal their single runs")
+    print(f"{label}: wall in turns, compaction=None "
+          f"{', '.join(f'{v:.1f}' for v in walls['none'])} ms, staged {splits} "
+          f"{', '.join(f'{v:.1f}' for v in walls['staged'])} ms (CUDA events, "
+          f"results on the host; {smi})")
+    return cont
+
+
+def wide_auto_run(smi, tiles=4, k=5):
+    """PRMwCD with tiles x RUNS runs and the default compaction="auto": past
+    COMPACTION_MIN_LANES "auto" must take the model's hint, so k
+    iterations are k dispatches of len(hint) + 1 kernel launches, and equal
+    the same runs with compaction=None to the bit. Returns the launches of
+    the continuation-stage kernel."""
+    import dataclasses
+
+    from smcnuts_torch import run_smc_batched
+    from smcnuts_torch.models import get_model
+    from smcnuts_torch.models.base import COMPACTION_MIN_LANES
+    from smcnuts_torch.sampler import resolve_compaction
+    from smcnuts_torch.utils.timing import CudaTimer
+
+    model = get_model("prmwcd")
+    cfg = dataclasses.replace(workload_config(False), n_iterations=k)
+    seeds = list(range(tiles * RUNS))
+    splits = resolve_compaction(cfg, model, len(seeds) * N)
+    if len(seeds) * N <= COMPACTION_MIN_LANES or splits != model.compaction_hint:
+        raise AssertionError(f"\"auto\" at {len(seeds) * N} lanes gave {splits}")
+    results, walls = {}, {}
+    for compaction in ("auto", None, None, "auto"):
+        reset_counts()
+        with CudaTimer() as t:
+            res = run_smc_batched(
+                model, dataclasses.replace(cfg, compaction=compaction), seeds, "cuda")
+            res.mean_estimate[:, k].cpu()
+        walls.setdefault(compaction, []).append(t.ms)
+        counts, plain_calls = read_counts()
+        stage_launches, cont = read_stage_counts()
+        want = k * (len(splits) + 1 if compaction else 1)
+        if counts["prmwcd"] != k or stage_launches != want or plain_calls != 0:
+            raise AssertionError(
+                f"wide run, compaction={compaction}: {counts} dispatches, "
+                f"{stage_launches} kernel launches, {plain_calls} plain calls")
+        if compaction:
+            cont_auto = cont["prmwcd"]
+        results[compaction] = res
+    diff = [f for f, v in results[None]._asdict().items()
+            if v is not None and not torch.equal(v, getattr(results["auto"], f))]
+    if diff:
+        raise AssertionError(f"wide run: \"auto\" differs from None in {diff}")
+    print(f"prmwcd, {len(seeds)} runs x N={N} x K={k} ({len(seeds) * N} lanes, "
+          f"past COMPACTION_MIN_LANES {COMPACTION_MIN_LANES}): \"auto\" "
+          f"is {splits}, {k} dispatches of {len(splits) + 1} kernel launches, "
+          f"every field equal to compaction=None; wall in turns, auto "
+          f"{', '.join(f'{v:.1f}' for v in walls['auto'])} ms, None "
+          f"{', '.join(f'{v:.1f}' for v in walls[None])} ms (CUDA events; {smi})")
+    return cont_auto
+
+
 def batched_phase(smi):
-    from smcnuts_torch import SMCConfig, run_smc, run_smc_batched
+    from smcnuts_torch import run_smc, run_smc_batched
     from smcnuts_torch.models import get_model
     from smcnuts_torch.utils.timing import CudaTimer
 
     phase(f"6. batched workloads, {RUNS} runs x N={N} x K={K}")
-    workloads = (
-        ("arma", "arma", False),
-        ("prmwcd", "prmwcd", False),
-        ("prmwcd_adapted", "prmwcd", True),
-    )
     launches, leapfrogs = {"arma": 0, "prmwcd": 0}, {}
-    for label, name, adapt in workloads:
-        cfg = SMCConfig(
-            n_particles=N, n_iterations=K, step_size=STEP,
-            max_tree_depth=MAX_DEPTH, save_history=False,
-            adapt_step_size=adapt, adapt_mass_matrix=adapt,
-            target_accept=ADAPT_TARGET if adapt else 0.8,
-        )
+    cont_launches = {"arma": 0, "prmwcd": 0}
+    for label, name, adapt in WORKLOADS:
+        cfg = workload_config(adapt)
         model = get_model(name)
         reset_counts()
         t0 = time.perf_counter()
@@ -442,13 +763,89 @@ def batched_phase(smi):
                                      f"run in {diff}")
         print(f"{label}: runs 0 and {RUNS - 1} equal single runs with their "
               f"seeds, bit for bit")
+        staged = compaction_on(label, name, model, cfg, res, smi)
+        for k, v in staged.items():
+            cont_launches[k] += v
+    cont_launches["prmwcd"] += wide_auto_run(smi)
     fixed, adapted = leapfrogs["prmwcd"], leapfrogs["prmwcd_adapted"]
     print(f"PRMwCD leapfrogs per particle-iteration: fixed {fixed:.2f}, adapted "
           f"{adapted:.2f} (the JAX package counted {JAX_LEAPFROGS['fixed']} and "
           f"{JAX_LEAPFROGS['adapted']}, experiments/output/adaptation.json)")
     if not adapted < 0.5 * fixed:
         raise AssertionError("adaptation did not shorten the PRMwCD trees")
-    return launches
+    return launches, cont_launches
+
+
+def survivor_counts():
+    """Lanes still at work after each split of the last dispatch."""
+    from smcnuts_torch.ops.nuts_cuda import nuts_tree
+
+    return [] if nuts_tree.survivors is None else nuts_tree.survivors.tolist()
+
+
+def candidate_times(label, model, args, smi, candidates=None):
+    """Time the single kernel and each candidate split tuple on one
+    population (CUDA events, median of 5), the single kernel first and
+    last; print survivors, launches and the per-warp lockstep waste."""
+    from smcnuts_torch.ops.nuts_cuda import lockstep_waste, nuts_tree
+    from smcnuts_torch.utils.timing import median_ms
+
+    single = nuts_tree(model, *args)
+    depth, leapfrogs = single[2]["depth"], single[2]["leapfrogs"]
+    hist = torch.bincount(depth.reshape(-1).int()).tolist()
+    print(f"{label}: {depth.numel()} lanes, mean depth {float(depth.mean()):.3f}, "
+          f"leapfrogs per lane {float(leapfrogs.mean()):.2f}, lanes by depth {hist}")
+    rows = []
+    for splits in ((),) + tuple(candidates or CANDIDATE_SPLITS) + ((),):
+        staged = nuts_tree(model, *args, compaction=splits)
+        survivors = survivor_counts()
+        if bitwise_differences(staged, single):
+            raise AssertionError(f"{label}: splits {splits} differ from the "
+                                 f"single kernel")
+        ms = median_ms(lambda: nuts_tree(model, *args, compaction=splits), repeats=5)
+        walked, needed = lockstep_waste(leapfrogs, depth, splits)
+        rows.append((splits, ms))
+        print(f"  {label} splits {splits or 'none'}: {ms:.4f} ms, "
+              f"{len(splits) + 1} launches, survivors {survivors}, waste at "
+              f"width 32 {walked / needed:.4f} ({walked} / {needed} lane-steps)")
+    best = min(rows, key=lambda row: row[1])
+    print(f"{label}: fastest {best[0] or 'none'} at {best[1]:.4f} ms; single "
+          f"kernel {rows[0][1]:.4f} and {rows[-1][1]:.4f} ms ({smi})")
+
+
+def staged_times_phase(smi):
+    from smcnuts_torch.models import get_model
+    from smcnuts_torch.ops.draws import PHILOX, run_draws
+    from smcnuts_torch.sampler import init_state, smc_step
+
+    phase(f"6b. times of the staged dispatch on each workload's population, "
+          f"{RUNS} x {N}, depth {MAX_DEPTH}")
+    dev = torch.device("cuda")
+    seeds_t = torch.tensor(SEEDS, dtype=torch.int64, device=dev)
+    for label, name, adapt in WORKLOADS:
+        cfg = workload_config(adapt)
+        model = get_model(name).to(dev)
+        carry = init_state(model, cfg, SEEDS, dev)
+        uniforms, tree_seeds = run_draws(seeds_t, range(K + 1), N, carry.x.dtype)
+        for k in range(K):
+            carry, _ = smc_step(model, cfg, carry, uniforms[k], tree_seeds[k], "cuda")
+        print(f"{label}: population after {K} iterations, step size mean "
+              f"{float(carry.step_size.mean()):.5f}, inverse mass from "
+              f"{float(carry.inv_mass.min()):.4g} to {float(carry.inv_mass.max()):.4g}")
+        args = (carry.x, tree_seeds[K], carry.step_size, 1.0, carry.inv_mass,
+                MAX_DEPTH, PHILOX)
+        candidate_times(label, model, args, smi)
+        # The same population tiled over more runs, each with its own seed.
+        # Once the lanes exceed what the card holds at once, a warp that ends
+        # early makes room for a waiting one.
+        few = tuple(c for c in CANDIDATE_SPLITS if len(c) > 1) + WIDE_SINGLES[label]
+        for tiles in (2, 4, 16):
+            wide = (carry.x.repeat(tiles, 1, 1),
+                    torch.arange(tiles * RUNS, dtype=torch.int32, device=dev),
+                    carry.step_size.repeat(tiles), 1.0,
+                    carry.inv_mass.repeat(tiles, 1), MAX_DEPTH, PHILOX)
+            candidate_times(f"{label} x {tiles} ({tiles * RUNS} x {N})", model,
+                            wide, smi, few)
 
 
 def cli_phase():
@@ -474,34 +871,37 @@ def main():
     name, smi = device_phase()
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     build_phase()
-    arma_worst, (arma_ms, arma_plain_ms) = arma_kernel_phase(smi)
-    prm_worst, (prm_ms, prm_plain_ms) = prmwcd_kernel_phase(smi)
+    arma, arma_staged = arma_kernel_phase(smi)
+    prmwcd, prmwcd_staged = prmwcd_kernel_phase(smi)
     arma_launches = main_path_phase(smi)
-    batched = batched_phase(smi)
+    batched, cont = batched_phase(smi)
+    staged_times_phase(smi)
     prm_cli = cli_phase()
-    print(json.dumps({"kernels": [
-        {
-            "name": "nuts_tree_arma",
-            "route": "cuda",
-            "source": "smcnuts_torch/csrc/nuts_tree.cu",
-            "replaces": "smcnuts_tpu/ops/nuts_pallas.py:154",
-            "launches": arma_launches + batched["arma"],
-            "max_abs_err": arma_worst,
-            "ms": arma_ms,
-            "plain_ms": arma_plain_ms,
-        },
-        {
-            "name": "nuts_tree_prmwcd",
-            "route": "cuda",
-            "source": "smcnuts_torch/csrc/prmwcd_model.cuh",
-            # K3, inlined into the K1 instantiation this entry launches.
-            "replaces": "smcnuts_tpu/ops/nuts_pallas.py:1803",
-            "launches": batched["prmwcd"] + prm_cli,
-            "max_abs_err": prm_worst,
-            "ms": prm_ms,
-            "plain_ms": prm_plain_ms,
-        },
-    ]}))
+    source = "smcnuts_torch/csrc/nuts_tree.cu"
+    # No single PyTorch call builds a NUTS tree, so no kernel has a library time.
+    kernels = [
+        dict(name="nuts_tree_arma", route="cuda", source=source,
+             replaces="smcnuts_tpu/ops/nuts_pallas.py:154",
+             launches=arma_launches + batched["arma"], **arma),
+        # K3, inlined into the K1 instantiation this entry launches.
+        dict(name="nuts_tree_prmwcd", route="cuda",
+             source="smcnuts_torch/csrc/prmwcd_model.cuh",
+             replaces="smcnuts_tpu/ops/nuts_pallas.py:1803",
+             launches=batched["prmwcd"] + prm_cli, **prmwcd),
+        # K4: the continuation-stage instantiations of the staged dispatch.
+        dict(name="nuts_tree_arma_staged", route="cuda", source=source,
+             replaces="smcnuts_tpu/ops/nuts_pallas.py:794",
+             launches=cont["arma"], **arma_staged),
+        dict(name="nuts_tree_prmwcd_staged", route="cuda", source=source,
+             replaces="smcnuts_tpu/ops/nuts_pallas.py:794",
+             launches=cont["prmwcd"], **prmwcd_staged),
+    ]
+    for kernel in kernels:
+        kernel["library_ms"] = None
+        if kernel["launches"] < 1:
+            raise AssertionError(f"{kernel['name']}: the main path never launched it")
+    print(smi)
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),
     }}))

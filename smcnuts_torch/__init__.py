@@ -5,8 +5,10 @@ The JAX package stays the reference; this package imports neither it nor
 jax. Ported so far: arma and PRMwCD, B independent runs batched into one
 NUTS launch per iteration (`run_smc_batched`), the forwards-proposal
 L-kernel without tempering, step-size and diagonal mass adaptation,
-multinomial resampling, and the whole-tree NUTS proposal as one CUDA kernel
-per model (`ops/nuts_cuda.py`) with its plain PyTorch version.
+multinomial resampling, and the whole-tree NUTS proposal as a CUDA kernel per
+model (`ops/nuts_cuda.py`), run whole or in stages with lane compaction
+inside the kernel, with its plain PyTorch version. The entry points run on
+the card unless the caller asks for "cpu".
 """
 
 __version__ = "0.1.0"

@@ -31,7 +31,9 @@ def main(argv=None) -> dict:
     p.add_argument("--step-size", type=float, default=None)
     p.add_argument("--max-tree-depth", type=int, default=10)
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--device", default="cpu", help="cpu | cuda | cuda:<i>")
+    p.add_argument("--device", default="cuda",
+                   help="cuda | cuda:<i> | cpu (default cuda; never falls "
+                        "back to the CPU)")
     p.add_argument("--nuts-backend", default="auto",
                    choices=["auto", "eager", "cuda"])
     p.add_argument(

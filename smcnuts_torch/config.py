@@ -6,7 +6,8 @@ becomes `compaction`. `xla_block_size` becomes `eager_block_size`.
 
 The port so far runs one slice of the JAX package: the forwards-proposal
 L-kernel without tempering, step-size and diagonal mass adaptation,
-multinomial resampling, and the fused whole-tree NUTS proposal. Every setting outside that slice raises
+multinomial resampling, and the fused whole-tree NUTS proposal, as one kernel
+or staged with lane compaction. Every setting outside that slice raises
 `NotImplementedError` naming the ROADMAP item that will bring it, so no
 setting is ever silently ignored.
 """
@@ -51,9 +52,10 @@ class SMCConfig:
     eager_block_size: int | None = None
     cached_loglik_min_phi: float = 1e-2  # tempered path only
     fused_epilogue: bool = True
-    # "auto" lets the backend choose; this port's kernel runs one thread per
-    # particle and does no compaction. None/() disables; explicit split
-    # depths are not ported yet.
+    # Doublings after which the tree build pauses and the lanes still at
+    # work are packed densely (the staged dispatch of `ops.nuts_cuda`), on
+    # both backends. "auto" takes the model's hint
+    # (`sampler.resolve_compaction`); None or () runs the single kernel.
     compaction: str | tuple | None = "auto"
 
     def __post_init__(self):
@@ -124,5 +126,3 @@ class SMCConfig:
             _not_in_slice("fused_epilogue=False", "Queue 1 item 5")
         if self.eager_block_size is not None:
             _not_in_slice("eager_block_size", "Queue 1 item 4")
-        if isinstance(self.compaction, tuple) and self.compaction:
-            _not_in_slice("compaction splits", "Queue 2 item 4")

@@ -11,7 +11,11 @@
 
 namespace smcnuts {
 
-enum DrawKind : uint32_t { kPrologue = 0, kDirection = 1, kAccept = 2, kLeaf = 3 };
+// Kinds 4 and 5 address a run's own stream (resampling uniforms, tree seeds;
+// ops/draws.py), so the epilogue's accept-reject draw takes 6.
+enum DrawKind : uint32_t {
+  kPrologue = 0, kDirection = 1, kAccept = 2, kLeaf = 3, kAccRej = 6
+};
 
 __device__ __forceinline__ uint32_t philox4x32_10_word0(
     uint32_t c0, uint32_t c1, uint32_t c2, uint32_t c3, uint32_t k0, uint32_t k1) {

@@ -20,7 +20,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from .base import LOG_SQRT_2PI, cauchy_lpdf, normal_lpdf
+from .base import EVERY_DEPTH, LOG_SQRT_2PI, cauchy_lpdf, normal_lpdf
 
 ASSET = os.path.join(
     os.path.dirname(os.path.abspath(__file__)),
@@ -48,6 +48,8 @@ class ArmaModel(nn.Module):
     dim = 4
     constrained_dim = 4
     param_names = ("mu", "beta", "theta", "sigma")
+    compaction_hint = EVERY_DEPTH  # measured on an H100, see models/base.py
+    compaction_hint_adapted = EVERY_DEPTH
 
     def __init__(self, y=None):
         super().__init__()

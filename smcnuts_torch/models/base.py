@@ -10,6 +10,18 @@ in the JAX package.
 
 `logp_and_grad` is written in closed form, not by autograd: it is the plain
 version of the model that the CUDA NUTS kernel inlines.
+
+A model also carries its compaction hints, the splits that
+`SMCConfig(compaction="auto")` takes for it (`sampler.resolve_compaction`):
+`compaction_hint` at a fixed step size and `compaction_hint_adapted` under
+step-size adaptation at `ADAPTED_HINT_TARGET`, both used only for dispatches
+of more than `COMPACTION_MIN_LANES` trees. An empty hint means the single
+kernel. The values are measurements on an NVIDIA H100 (`chip_smoke.py` phase
+6b prints them; PERF.md keeps them). There a stage costs one launch and one
+pass over the survivors' carriers, with no sort or gather between stages, so
+for all three measured workloads a split after every doubling (`EVERY_DEPTH`)
+was the fastest or within 5% of the fastest at 51,200 lanes and the fastest
+at 204,800; the hints are that tuple.
 """
 
 from __future__ import annotations
@@ -20,6 +32,15 @@ from typing import Protocol, Sequence
 import torch
 
 LOG_SQRT_2PI = float(0.5 * math.log(2.0 * math.pi))
+# The target_accept at which every model's adapted hint was measured.
+ADAPTED_HINT_TARGET = 0.5
+# A hint pays only for dispatches of more lanes (runs x particles) than this:
+# the H100's 132 SMs x the NUTS kernel's 128 threads a block. Up to one block
+# an SM no warp waits for another, and a dispatch lasts as long as its deepest
+# tree, staged or not (measured at 12,800 lanes; at 25,600 staging gains 5-9%).
+COMPACTION_MIN_LANES = 132 * 128
+# A split after every doubling below the largest max_tree_depth (10).
+EVERY_DEPTH = tuple(range(1, 10))
 
 
 class Model(Protocol):
@@ -27,6 +48,8 @@ class Model(Protocol):
     dim: int
     constrained_dim: int
     param_names: Sequence[str]
+    compaction_hint: tuple
+    compaction_hint_adapted: tuple
 
     def logprior(self, x: torch.Tensor) -> torch.Tensor: ...
 

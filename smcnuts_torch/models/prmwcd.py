@@ -21,7 +21,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from .base import inv_gamma_lpdf, poisson_lpmf
+from .base import EVERY_DEPTH, inv_gamma_lpdf, poisson_lpmf
 
 ASSET = os.path.join(
     os.path.dirname(os.path.abspath(__file__)),
@@ -40,6 +40,8 @@ class PrmwcdModel(nn.Module):
     float32, as the JAX package does with x64 off."""
 
     name = "prmwcd"
+    compaction_hint = EVERY_DEPTH  # measured on an H100, see models/base.py
+    compaction_hint_adapted = EVERY_DEPTH
 
     def __init__(self, y=None, X=None, q=None):
         super().__init__()

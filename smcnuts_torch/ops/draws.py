@@ -10,7 +10,8 @@ in lockstep) draw the same bits:
 
 with kind PROLOGUE (l = 0..2D-1 the Box-Muller uniforms of the momenta, l = 2D
 the slice uniform), DIRECTION and ACCEPT (one per doubling j, l = 0) and LEAF
-(the progressive-sampling uniform of leaf l of doubling j). One
+(the progressive-sampling uniform of leaf l of doubling j) and ACC_REJ (the
+epilogue's accept-reject uniform of the asymptotic strategy, j = l = 0). One
 Philox4x32-10 block is computed per draw and its first word is used. The key
 holds no run index, so run b of a batch draws what it would draw alone.
 
@@ -46,6 +47,7 @@ SOURCES = (PHILOX, ZERO_BITS)
 
 PROLOGUE, DIRECTION, ACCEPT, LEAF = 0, 1, 2, 3  # kinds of the tree's draws
 RESAMPLE, TREE_SEED = 4, 5  # kinds of a run's own stream
+ACC_REJ = 6  # the tree's accept-reject draw; 4 and 5 stay the run stream's
 
 _M0, _M1 = 0xD2511F53, 0xCD9E8D57
 _W0, _W1 = 0x9E3779B9, 0xBB67AE85

@@ -8,7 +8,8 @@ for every run:
     2. normalise weights (masked logsumexp) -> wn, running log-likelihood
     3. estimates at index k from the *entering* weights
     4. ESS; 5. resample if ESS < N/2, before the proposal
-    6. whole-tree NUTS proposal at temperature phi (momenta drawn inside)
+    6. whole-tree NUTS proposal at temperature phi (momenta drawn inside),
+       as one kernel or staged with lane compaction (cfg.compaction)
     7. reweight: logw += logp' - logp0 + (delta_h - (logp' - logp0)),
        the forwards L-kernel on the non-tempered fused path
     8. acceptance = share of particles that moved in EVERY dimension
@@ -41,6 +42,7 @@ from typing import NamedTuple
 import torch
 
 from .config import SMCConfig
+from .models.base import ADAPTED_HINT_TARGET, COMPACTION_MIN_LANES
 from .ops.adaptation import (
     DualAveragingState,
     da_init,
@@ -116,6 +118,44 @@ def resolve_backend(cfg: SMCConfig, device: torch.device) -> str:
     return backend
 
 
+def resolve_device(device) -> torch.device:
+    """The device of a run. The entry points default to the card: asking
+    for a CUDA device where there is none raises, it never carries on on the
+    CPU. The CPU is used only when the caller names it."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device '{device}' was asked for (the default) but no CUDA device "
+            "is available; pass device='cpu' (--device cpu) to run on the CPU"
+        )
+    return device
+
+
+def resolve_compaction(cfg: SMCConfig, model, n_lanes: int) -> tuple:
+    """The splits of the staged NUTS dispatch for this configuration and
+    `n_lanes` = B x N trees per dispatch: an explicit tuple as given, None or
+    () none, and "auto" the model's hint.
+
+    A hint is a measurement at one regime of tree depths and widths.
+    `compaction_hint` was measured at a fixed step size.
+    `compaction_hint_adapted` was measured under step-size adaptation at
+    target_accept = ADAPTED_HINT_TARGET, and another target settles on
+    another step size and other depths, so there "auto" takes no hint of
+    either kind and runs the single kernel. Either hint pays only past
+    COMPACTION_MIN_LANES, one block of the kernel on every SM: up to there
+    no warp waits for another and a dispatch lasts as long as its deepest
+    tree, staged or not, so "auto" runs the single kernel there too."""
+    if cfg.compaction != "auto":
+        return tuple(cfg.compaction or ())
+    if n_lanes <= COMPACTION_MIN_LANES:
+        return ()
+    if not cfg.adapt_step_size:
+        return tuple(getattr(model, "compaction_hint", ()))
+    if cfg.target_accept == ADAPTED_HINT_TARGET:
+        return tuple(getattr(model, "compaction_hint_adapted", ()))
+    return ()
+
+
 def _check_momentum(momentum_proposal):
     if momentum_proposal is None:
         return
@@ -178,6 +218,7 @@ def smc_step(model, cfg: SMCConfig, carry: SMCCarry, uniforms, tree_seed,
     x_new, _, st = tree(
         model, x_r, tree_seed, carry.step_size, phi, carry.inv_mass,
         cfg.max_tree_depth, draws,
+        compaction=resolve_compaction(cfg, model, x_r.shape[0] * x_r.shape[1]),
     )
 
     # Forwards L-kernel, fused: the momentum-density difference
@@ -257,16 +298,17 @@ def finalize(model, carry: SMCCarry, diags: list, x_hist=None,
     )
 
 
-def run_smc_batched(model, cfg: SMCConfig, seeds, device="cpu",
+def run_smc_batched(model, cfg: SMCConfig, seeds, device="cuda",
                     sample_proposal=None, momentum_proposal=None,
                     draws: str = PHILOX) -> SMCResult:
     """Run B = len(seeds) independent SMC runs of K iterations on `device`:
     init_state, K calls of smc_step (one NUTS launch each), finalize. Every
     field of the result leads with B, and run b equals `run_smc` with seed
     seeds[b]. Seeds are integers in [0, 2^63). Moves the model to the
-    device."""
+    device. The device defaults to the card and is never replaced by the
+    CPU: without a CUDA device the call raises unless "cpu" is asked for."""
     _check_momentum(momentum_proposal)
-    device = torch.device(device)
+    device = resolve_device(device)
     backend = resolve_backend(cfg, device)
     model = model.to(device)
     seeds = [int(s) for s in seeds]
@@ -294,7 +336,7 @@ def run_smc_batched(model, cfg: SMCConfig, seeds, device="cpu",
     return finalize(model, carry, diags, x_hist, logw_hist)
 
 
-def run_smc(model, cfg: SMCConfig, seed: int = 0, device="cpu",
+def run_smc(model, cfg: SMCConfig, seed: int = 0, device="cuda",
             sample_proposal=None, momentum_proposal=None,
             draws: str = PHILOX) -> SMCResult:
     """One run: `run_smc_batched` with B = 1, its run axis dropped."""
@@ -310,7 +352,7 @@ class SMCSampler:
     def __init__(self, K, N, target, step_size, sample_proposal=None,
                  momentum_proposal=None, lkernel="forwardsLKernel",
                  tempering=False, seed=0, config: SMCConfig | None = None,
-                 device="cpu"):
+                 device="cuda"):
         if config is None:
             config = SMCConfig(
                 n_particles=N, n_iterations=K, step_size=step_size,

@@ -159,7 +159,8 @@ def test_adapted_steps_match_jax_step(jax_adapted_trajectory):
 def test_cli_adaptation_flags_cpu():
     summary = torch_main(["--model", "prmwcd", "-N", "16", "-K", "2",
                           "--max-tree-depth", "2", "--adapt-step-size",
-                          "--adapt-mass-matrix", "--seed", "4"])
+                          "--adapt-mass-matrix", "--seed", "4",
+                          "--device", "cpu"])
     assert len(summary["mean"]) == 13
     assert np.all(np.isfinite(summary["mean"] + summary["variance"]))
 
@@ -176,5 +177,5 @@ def test_cli_takes_the_models_step_size(monkeypatch):
     monkeypatch.setattr(torch_sampler, "run_smc", spy)
     monkeypatch.setattr(torch_prmwcd, "default_step_size", lambda: 0.02)
     torch_main(["--model", "prmwcd", "-N", "8", "-K", "1", "--max-tree-depth",
-                "1", "--adapt-mass-matrix"])
+                "1", "--adapt-mass-matrix", "--device", "cpu"])
     assert seen == {"model": "prmwcd", "step": 0.02, "adapt": (False, True)}

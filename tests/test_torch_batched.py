@@ -163,11 +163,11 @@ def test_run_smc_batched_equals_single_runs(name, adapt):
                     adapt_step_size=adapt, adapt_mass_matrix=adapt,
                     target_accept=0.5)
     seeds = [5, 7, 11]
-    res = run_smc_batched(get_model(name), cfg, seeds)
+    res = run_smc_batched(get_model(name), cfg, seeds, "cpu")
     assert res.mean_estimate.shape[:2] == (3, K + 1)
     assert res.x_saved.shape == (3, K + 1, n, get_model(name).dim)
     for b, seed in enumerate(seeds):
-        one = run_smc(get_model(name), cfg, seed)
+        one = run_smc(get_model(name), cfg, seed, "cpu")
         for f, v in one._asdict().items():
             torch.testing.assert_close(v, getattr(res, f)[b], rtol=0, atol=0,
                                        equal_nan=True, msg=f)

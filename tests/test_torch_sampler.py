@@ -118,20 +118,23 @@ def test_sampler_end_to_end_cpu():
     cfg = SMCConfig(n_particles=n, n_iterations=K, step_size=0.01,
                     max_tree_depth=MAX_DEPTH)
     calls = nuts_tree_plain.calls
-    sampler = SMCSampler(K, n, get_model("arma"), 0.01, config=cfg, seed=1)
+    sampler = SMCSampler(K, n, get_model("arma"), 0.01, config=cfg, seed=1,
+                         device="cpu")
     res = sampler.sample()
     assert nuts_tree_plain.calls == calls + K
     _check_series(res, K, n)
     assert res.x_saved.shape == (K + 1, n, 4)
     assert sampler.acceptance_rate.shape == (K + 1,)
     assert len(sampler.resampled) == K + 1
-    again = SMCSampler(K, n, get_model("arma"), 0.01, config=cfg, seed=1).sample()
+    again = SMCSampler(K, n, get_model("arma"), 0.01, config=cfg, seed=1,
+                       device="cpu").sample()
     torch.testing.assert_close(again.x_final, res.x_final, rtol=0, atol=0)
 
 
 def test_cli_end_to_end_cpu(capsys):
     summary = torch_main(["--model", "arma", "-N", "64", "-K", "5",
-                          "--max-tree-depth", str(MAX_DEPTH), "--seed", "2"])
+                          "--max-tree-depth", str(MAX_DEPTH), "--seed", "2",
+                          "--device", "cpu"])
     assert set(summary) == {"model", "lkernel", "N", "K", "mean", "variance",
                             "ess", "log_likelihood", "phi_schedule"}
     assert summary["phi_schedule"] == [1.0] * 6
@@ -147,7 +150,7 @@ def test_cli_end_to_end_cpu(capsys):
 ], ids=lambda a: a[0])
 def test_cli_flags_outside_slice_raise(argv):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        torch_main(["-N", "8", "-K", "1"] + argv)
+        torch_main(["-N", "8", "-K", "1", "--device", "cpu"] + argv)
 
 
 def test_backend_resolution():
@@ -166,6 +169,7 @@ def test_backend_resolution():
 def test_float64_eager_run_cpu():
     cfg = SMCConfig(n_particles=16, n_iterations=2, step_size=0.01,
                     max_tree_depth=2, dtype="float64")
-    res = SMCSampler(2, 16, get_model("arma"), 0.01, config=cfg).sample()
+    res = SMCSampler(2, 16, get_model("arma"), 0.01, config=cfg,
+                     device="cpu").sample()
     assert res.x_final.dtype == torch.float64
     _check_series(res, 2, 16)

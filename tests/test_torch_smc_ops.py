@@ -165,7 +165,6 @@ OUT_OF_SLICE = [
     (dict(resampling="systematic"), "Queue 1 item 3"),
     (dict(fused_epilogue=False), "Queue 1 item 5"),
     (dict(eager_block_size=4096), "Queue 1 item 4"),
-    (dict(compaction=(4,)), "Queue 2 item 4"),
 ]
 
 
