@@ -1,14 +1,18 @@
 """Drive the PyTorch/CUDA port (`smcnuts_torch`) on one NVIDIA GPU and check it.
 
     python3 chip_smoke.py        # from the repository root; one GPU
+    python3 chip_smoke.py --only autodiff,strategies,cli   # some phases, while
+                                 # developing: prints no kernels line, no "ok"
 
 Phases, each printing its own lines; any failure raises (non-zero exit):
 
 1. device: the GPU's name, `nvidia-smi` name and power limit, versions.
 2. build: nvcc builds the NUTS kernel from smcnuts_torch/csrc (sm_90a), two
-   instantiations per model (arma, PRMwCD): the first stage, which is the
-   whole tree when nothing is staged, and the continuation stage; prints
-   ptxas's registers, stack frame and spills for each.
+   instantiations per entry (arma, PRMwCD, the Gaussian at D = 2, 3 and 5,
+   eight schools, logistic): the first stage, which is the whole tree when
+   nothing is staged, and the continuation stage; prints ptxas's registers,
+   stack frame and spills for each, and fails if the build took more than a
+   minute.
 3. arma kernel vs plain: `nuts_tree` (the CUDA kernel) and `nuts_tree_plain`
    on the same CUDA inputs, with zero-bits and Philox draws, phi 1.0 and 0.4
    (two runs in one launch), a non-unit inverse mass, the r-given variant at
@@ -16,14 +20,15 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
    fewer than 99.9% of lanes agree on depth, leapfrogs and moved; when x, r,
    logp0, logp_prop or delta_h differ on agreeing lanes by more than
    atol 1e-4 + rtol 1e-4; or when an output is not finite. Times both
-   (CUDA events, median of 5) at N=512 and at the batched shape 25 x 512.
+   (CUDA events; the kernel's median of 5, the plain version's of 3) at N=512
+   and at the batched shape 25 x 512.
    Then the staged dispatch at 25 x 512, depth 10: for Philox and zero bits,
    the accept-reject epilogue off and on (the zero-bits cloud holds a lane
    with a NaN density, the only kind zero bits reject), and r given, the
    kernel with the reference's splits, with one split at every depth 1..9
    and with all nine must equal the single kernel to the bit on every lane
    and output, and is held to the plain version by the contract above. The
-   staged dispatch and its plain version are timed.
+   staged dispatch (median of 5) and its plain version (one call) are timed.
 4. PRMwCD kernel vs plain: the same contract and cases for the PRMwCD
    instantiation (a 13-vector inverse mass), plus the batched main path's
    shape, 25 runs x 512 at max_depth 10, where both are timed; then the
@@ -47,7 +52,9 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
    again with compaction=None and with the staged dispatch in turns (none,
    staged, staged, none): every SMCResult field equal to the bit, K
    dispatches, K x stages kernel launches, no plain call, runs 0 and 24
-   equal to their single runs with compaction on, wall beside wall. Last,
+   equal to their single runs with compaction on, wall beside wall; and the
+   first 20 iterations of its loop under torch.profiler (device kernels an
+   iteration, device busy time, idle share). Last,
    PRMwCD with 100 runs and compaction="auto" for 5 iterations: past
    COMPACTION_MIN_LANES "auto" takes the hint, and the runs equal
    those with compaction=None.
@@ -62,7 +69,36 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
    for a waiting one, and compaction has something to remove.
 7. CLI: `python -m smcnuts_torch --model prmwcd --device cuda`, without and
    with --adapt-step-size --adapt-mass-matrix, through its main(): 100
-   launches each and finite estimates.
+   launches each and finite estimates; then `--model eightschools --lkernel
+   asymptoticLKernel` (tempering on, as the CLI sets it): one launch per
+   iteration and a schedule that ends at 1.
+8. the Gaussian, eight-schools and logistic kernels vs plain: the contract
+   and cases of phases 3 and 4 for each of the three models whose gradient
+   the JAX package takes by autodiff inside its kernel and this port writes
+   out by hand, on a dispersed synthetic cloud: zero bits and Philox, phi 1.0
+   and 0.4, a non-unit inverse mass, r given at depth 0, the batched shape
+   25 x 512 at depth 10 (timed), then the staged dispatch as in phase 3
+   (accept-reject off and on, a lane with a -inf density, r given; every
+   split tuple equal to the single kernel to the bit). Last, each model's
+   single kernel and a few split tuples timed at 100 x 512 lanes at the step
+   size of its run in phase 9: what the models' compaction hints rest on.
+9. the three strategies, full width, through `run_smc_batched` with 25 runs:
+   arma and PRMwCD at N=512, K=100, depth 10 with the asymptotic L-kernel
+   (tempering, saved history) and the Gaussian-approximation L-kernel, inside
+   the PARITY bands; the tempered Gaussian (D=3, prior variance 9, N=2048,
+   K=20, step 0.5, depth 5, forwards L-kernel) with final moments within
+   4 standard errors / 25% of the closed form; eight schools (N=1024, K=30,
+   step 0.2, depth 6, forwards L-kernel, tempered) with 3 < mu < 6 and
+   2 < tau < 6; logistic regression (N=1024, K=30, step 0.1, depth 6,
+   asymptotic) held, by the PARITY bands (3 MC standard errors + 0.1
+   reference sd on the means, 3 MC se + 40% on the variances), to one long
+   run of the plain tree on the card (N=4096, K=25, forwards L-kernel). The
+   loop of the arma and PRMwCD runs is also profiled on its first 20
+   iterations (device kernels an iteration, device busy time, idle share). Each run: exactly K
+   dispatches and no plain call; a tempered schedule starts above 0, never
+   decreases and ends at 1; runs 0 and 24 equal their single runs to the
+   bit; for the asymptotic strategy the estimates made inside the loop
+   (save_history=False) equal those from the saved history to the bit.
 
 The line before the last two repeats the card's name and power limit, the
 second-to-last line is a JSON object describing the kernels (for each: the
@@ -98,8 +134,10 @@ ADAPT_TARGET = 0.5  # bench.py:176-178
 JAX_LEAPFROGS = {"fixed": 322.13, "adapted": 62.74}
 # The splits of the JAX package's tile models (nuts_pallas.py:1862-1864,
 # :1985-1986): what the staged checks run with where a model's own hint for
-# this card is empty.
-REFERENCE_SPLITS = {"arma": (4,), "prmwcd": (7, 8, 9), "prmwcd_adapted": (5, 6)}
+# this card is empty. The JAX package gives the three autodiff models none;
+# (3, 6) is this script's choice for them.
+REFERENCE_SPLITS = {"arma": (4,), "prmwcd": (7, 8, 9), "prmwcd_adapted": (5, 6),
+                    "gaussian": (3, 6), "eightschools": (3, 6), "logistic": (3, 6)}
 CANDIDATE_SPLITS = (
     tuple((s,) for s in range(1, MAX_DEPTH))
     + ((5, 6), (6, 8), (7, 8, 9), (3, 5, 7), (2, 4, 6, 8),
@@ -117,12 +155,47 @@ PEAK_FP32, PEAK_BYTES = 67e12, 3.35e12
 # forms and the leapfrog; PRMwCD 50 an observation x 100 (22 for eta, 22 for
 # the covariate sums, 6 more, the expf as one; csrc/prmwcd_model.cuh) and
 # ~230 for the prior, the leapfrog and the U-turn tests.
-OPS_PER_LEAPFROG = {"arma": 19 * 200 + 100, "prmwcd": 50 * 100 + 230}
-MODEL_DATA_FLOATS = {"arma": 200, "prmwcd": 100 * 12}
+# The three autodiff models, with ~17 D + 30 for the leapfrog, the kinetic
+# energy and the U-turn tests: Gaussian (D = 3, with a prior) 53 in the
+# density and gradient (csrc/gaussian_model.cuh); eight schools 22 a school
+# x 8 and ~25 around them (csrc/eightschools_model.cuh); logistic 44 an
+# observation x 64 (15 for eta, 16 for the covariate sums, the expf, log1pf
+# and division as one each) and ~60 for the prior and the gradient
+# (csrc/logistic_model.cuh).
+OPS_PER_LEAPFROG = {"arma": 19 * 200 + 100, "prmwcd": 50 * 100 + 230,
+                    "gaussian": 53 + 81, "eightschools": 22 * 8 + 25 + 200,
+                    "logistic": 44 * 64 + 60 + 166}
+MODEL_DATA_FLOATS = {"arma": 200, "prmwcd": 100 * 12, "gaussian": 9,
+                     "eightschools": 24, "logistic": 64 * 9}
+# The three models whose in-kernel gradient is written out by hand (the JAX
+# package differentiates the named tile density inside its kernel,
+# nuts_pallas.py:1094): the step size of the synthetic cloud's trees, and the
+# settings of the full-width run (tests/test_nuts_pallas.py:309-353 for the
+# first two).
+GAUSSIAN = dict(mean=(1.0, -2.0, 3.0), var=(0.5, 2.0, 1.0), prior_var=(9.0, 9.0, 9.0))
+AUTODIFF_MODELS = {
+    "gaussian": dict(density="smcnuts_tpu/models/gaussian.py:70", cloud_step=0.02,
+                     n=2048, k=20, step=0.5, depth=5, lkernel="forwardsLKernel"),
+    "eightschools": dict(density="smcnuts_tpu/models/eightschools.py:44",
+                         cloud_step=0.02, n=1024, k=30, step=0.2, depth=6,
+                         lkernel="forwardsLKernel"),
+    "logistic": dict(density="smcnuts_tpu/models/logistic.py:44", cloud_step=0.01,
+                     n=1024, k=30, step=0.1, depth=6, lkernel="asymptoticLKernel"),
+}
+REF_K = 25  # iterations of the logistic reference run on the plain tree
+# (coordinate, value) that gives a lane a start density of -inf, per model.
+NAN_LANE = {"arma": (3, 200.0), "prmwcd": (0, 200.0), "gaussian": (0, 1e20),
+            "eightschools": (1, 200.0), "logistic": (0, 1e20)}
+
+
+_PHASE_CLOCK = [time.perf_counter()]
 
 
 def phase(name):
-    print(f"\n== {name}", flush=True)
+    now = time.perf_counter()
+    print(f"\n== {name}  [+{now - _PHASE_CLOCK[0]:.0f} s since the last phase]",
+          flush=True)
+    _PHASE_CLOCK[0] = now
 
 
 def device_phase():
@@ -150,7 +223,14 @@ def build_phase():
     lib = build_library()
     print(f"built {os.path.relpath(lib.path)} in {lib.build_seconds:.1f} s "
           f"(load {time.perf_counter() - t0:.1f} s), kernel max_depth "
-          f"{lib.max_depth}, PRMwCD covariates {lib.prmwcd_n_cov}")
+          f"{lib.max_depth}, PRMwCD covariates {lib.prmwcd_n_cov}, schools "
+          f"{lib.eightschools_j}, logistic covariates {lib.logistic_dim}")
+    n_inst = sum("Compiling entry" in line for line in lib.log.splitlines())
+    if lib.build_seconds > 60.0:
+        raise AssertionError(f"the build of {n_inst} instantiations took "
+                             f"{lib.build_seconds:.1f} s, more than a minute")
+    print(f"{n_inst} kernel instantiations (first stage and continuation of "
+          f"each entry)")
     for line in lib.log.splitlines():
         if ("Compiling entry" in line or "registers" in line or "spill" in line
                 or "stack frame" in line):
@@ -283,14 +363,16 @@ def bound_ms(name, out, survivors=(), bundle_rows=0):
 
 
 def time_pair(label, model, args, smi):
-    """(kernel ms, plain ms): CUDA events, median of 5 after one warmup."""
+    """(kernel ms, plain ms): CUDA events; the kernel's median of 5 after one
+    warmup, the plain version's median of 3 (the caller has just run it on
+    these inputs, and one run takes seconds)."""
     from smcnuts_torch.ops.nuts_cuda import nuts_tree, nuts_tree_plain
     from smcnuts_torch.utils.timing import median_ms
 
     k_ms = median_ms(lambda: nuts_tree(model, *args), repeats=5)
-    p_ms = median_ms(lambda: nuts_tree_plain(model, *args), repeats=5)
+    p_ms = median_ms(lambda: nuts_tree_plain(model, *args), repeats=3, warmup=0)
     print(f"time {label}: kernel {k_ms:.4f} ms, plain {p_ms:.1f} ms "
-          f"(CUDA events, median of 5; {smi})")
+          f"(CUDA events, median of 5 and of 3; {smi})")
     return k_ms, p_ms
 
 
@@ -310,11 +392,12 @@ def staged_kernel_phase(name, model, batch_args, single_out, plain_out, smi):
         (own, REFERENCE_SPLITS[name]) + tuple((s,) for s in range(1, depth))
         + (tuple(range(1, depth)),)))
     # A lane whose start density is -inf, so that its delta_h is NaN (arma:
-    # sigma = e^200; PRMwCD: an intercept of 200): under zero bits u = 2^-24
-    # and the slice lies 16.6 nats below the start, so every finite delta_h
-    # accepts and only such a lane rejects.
+    # sigma = e^200; PRMwCD: an intercept of 200; eight schools: tau = e^200;
+    # Gaussian and logistic: a coordinate of 1e20, whose square overflows):
+    # under zero bits u = 2^-24 and the slice lies 16.6 nats below the start,
+    # so every finite delta_h accepts and only such a lane rejects.
     x_nan = x.clone()
-    x_nan[0, 0, 3 if name == "arma" else 0] = 200.0
+    x_nan[0, 0, NAN_LANE[name][0]] = NAN_LANE[name][1]
     r = torch.randn(x.shape, device=dev,
                     generator=torch.Generator(device=dev).manual_seed(7))
     cases = (
@@ -364,12 +447,12 @@ def staged_kernel_phase(name, model, batch_args, single_out, plain_out, smi):
     ms = median_ms(lambda: nuts_tree(model, *batch_args, compaction=own), repeats=5)
     plain_ms = median_ms(
         lambda: nuts_tree_plain(model, *batch_args, compaction=own),
-        repeats=3, warmup=0)
+        repeats=1, warmup=0)
     bound, bound_by = bound_ms(name, staged_out, survivors,
                                build_library().bundle_rows(x.shape[2]))
     print(f"time {name} staged {own}, {RUNS} x {N} x depth {depth} [philox]: "
           f"kernel {ms:.4f} ms in {len(own) + 1} launches, plain {plain_ms:.1f} ms "
-          f"(CUDA events, median of 5 and of 3); bound {bound:.5f} ms by "
+          f"(CUDA events, median of 5 and one call); bound {bound:.5f} ms by "
           f"{bound_by} ({smi})")
     return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound, "bound_by": bound_by}
@@ -763,9 +846,8 @@ def batched_phase(smi):
                                      f"run in {diff}")
         print(f"{label}: runs 0 and {RUNS - 1} equal single runs with their "
               f"seeds, bit for bit")
-        staged = compaction_on(label, name, model, cfg, res, smi)
-        for k, v in staged.items():
-            cont_launches[k] += v
+        cont_launches[name] += compaction_on(label, name, model, cfg, res, smi)[name]
+        profile_call(label, model, cfg, smi)
     cont_launches["prmwcd"] += wide_auto_run(smi)
     fixed, adapted = leapfrogs["prmwcd"], leapfrogs["prmwcd_adapted"]
     print(f"PRMwCD leapfrogs per particle-iteration: fixed {fixed:.2f}, adapted "
@@ -849,7 +931,7 @@ def staged_times_phase(smi):
 
 
 def cli_phase():
-    phase("7. CLI, PRMwCD")
+    phase("7. CLI, PRMwCD and eight schools")
     launches = 0
     for extra in ([], ["--adapt-step-size", "--adapt-mass-matrix"]):
         reset_counts()
@@ -864,30 +946,375 @@ def cli_phase():
         if not all(math.isfinite(v) for v in summary["mean"] + summary["variance"]):
             raise AssertionError("the CLI estimates are not finite")
         launches += counts["prmwcd"]
+    # The asymptotic strategy through the CLI, which turns tempering on for it.
+    k = 8
+    reset_counts()
+    summary = quiet_cli(["--model", "eightschools", "-N", "128", "-K", str(k),
+                         "--lkernel", "asymptoticLKernel", "--step-size", "0.2",
+                         "--max-tree-depth", "5", "--device", "cuda"])
+    counts, plain_calls = read_counts()
+    print(f"CLI --model eightschools --lkernel asymptoticLKernel: kernel launches "
+          f"{counts}, plain calls {plain_calls}; phi schedule "
+          f"{summary['phi_schedule']}; final mu {summary['mean'][0]:.3f}, tau "
+          f"{summary['mean'][1]:.3f}")
+    phis = summary["phi_schedule"]
+    if counts["eightschools"] != k or sum(counts.values()) != k or plain_calls != 0:
+        raise AssertionError("the CLI run did not run the kernel once per iteration")
+    if not (0 < phis[0] and phis[-1] == 1.0 and phis == sorted(phis)
+            and all(math.isfinite(v) for v in summary["mean"] + summary["variance"])):
+        raise AssertionError("the CLI run's schedule or estimates are wrong")
+    return launches, counts["eightschools"]
+
+
+def autodiff_model(name):
+    from smcnuts_torch.models import get_model, make_gaussian
+
+    return make_gaussian(**GAUSSIAN) if name == "gaussian" else get_model(name)
+
+
+def autodiff_cloud(name, shape, seed, device):
+    """A dispersed cloud (..., D) for one of the three models: three quarters
+    of each run at one scale around the centre, one quarter at three times
+    it. Gaussian: the target's own mean and sd; eight schools: around
+    mu 4.4, log tau 1.2, tt 0 with sd 3, 0.5, 1; logistic: N(0, 0.7^2)."""
+    if name == "gaussian":
+        centre = list(GAUSSIAN["mean"])
+        sd = [v ** 0.5 for v in GAUSSIAN["var"]]
+    elif name == "eightschools":
+        centre, sd = [4.4, 1.2] + [0.0] * 8, [3.0, 0.5] + [1.0] * 8
+    else:
+        centre, sd = [0.0] * 8, [0.7] * 8
+    g = torch.Generator(device=device).manual_seed(seed)
+    z = torch.randn(*shape, len(centre), generator=g, device=device)
+    scale = torch.ones(shape, device=device)
+    scale[..., : shape[-1] // 4] = 3.0
+    return (torch.tensor(centre, device=device)
+            + scale[..., None] * torch.tensor(sd, device=device) * z).contiguous()
+
+
+def autodiff_kernel_phase(name, smi):
+    """Phase 8 for one model; returns what the kernels line says of it."""
+    from smcnuts_torch.ops.draws import PHILOX, ZERO_BITS
+    from smcnuts_torch.ops.nuts_cuda import nuts_tree, nuts_tree_plain
+
+    dev = torch.device("cuda")
+    model = autodiff_model(name).to(dev)
+    D = model.dim
+    step = AUTODIFF_MODELS[name]["cloud_step"]
+    ones = torch.ones(D, device=dev)
+    im = torch.linspace(0.5, 2.0, D, device=dev)
+    seed2 = torch.tensor([11, 12], dtype=torch.int32, device=dev)
+    worst = 0.0
+    for source in (ZERO_BITS, PHILOX):
+        worst = max(worst, compare(
+            f"{name} [{source}] phi 1.0 | 0.4, 2 runs x 1024, depth 6", model,
+            (autodiff_cloud(name, (2, 1024), 1, dev), seed2, step,
+             torch.tensor([1.0, 0.4], device=dev), ones, 6, source)))
+        worst = max(worst, compare(
+            f"{name} [{source}] {D}-vector inv_mass, 2048, depth 6", model,
+            (autodiff_cloud(name, (1, 2048), 2, dev), 13, step, 1.0, im, 6, source)))
+    r = torch.randn(1, 2048, D, generator=torch.Generator(device=dev).manual_seed(3),
+                    device=dev)
+    worst = max(worst, compare(
+        f"{name} [zero_bits] r given, 2048, depth 0", model,
+        (autodiff_cloud(name, (1, 2048), 4, dev), 0, step, 0.7, im, 0, ZERO_BITS),
+        r=r))
+    batch_args = (autodiff_cloud(name, (RUNS, N), 5, dev),
+                  torch.arange(RUNS, dtype=torch.int32, device=dev), step, 1.0,
+                  ones, MAX_DEPTH, PHILOX)
+    single_out = nuts_tree(model, *batch_args)
+    plain_out = nuts_tree_plain(model, *batch_args)
+    worst = max(worst, check_outputs(
+        f"{name} [philox] batched shape, {RUNS} x {N}, depth {MAX_DEPTH}",
+        single_out, plain_out))
+    ms, plain_ms = time_pair(f"{name} {RUNS} x {N} x depth {MAX_DEPTH} [philox]",
+                             model, batch_args, smi)
+    bound, bound_by = bound_ms(name, single_out)
+    staged = staged_kernel_phase(name, model, batch_args, single_out, plain_out, smi)
+    worst = max(worst, staged["max_abs_err"])
+    print(f"{name}: max |kernel - plain| on agreeing lanes, all cases, staged "
+          f"included: {worst:.3g}; bound at {RUNS} x {N}: {bound:.5f} ms by "
+          f"{bound_by}; staged dispatch {staged['ms']:.4f} ms")
+    # What the model's compaction hint rests on: 100 x 512 lanes at the step
+    # size of the model's own run.
+    cfg = AUTODIFF_MODELS[name]
+    wide = (autodiff_cloud(name, (4 * RUNS, N), 6, dev),
+            torch.arange(4 * RUNS, dtype=torch.int32, device=dev), cfg["step"],
+            1.0, ones, cfg["depth"], PHILOX)
+    candidate_times(f"{name} {4 * RUNS} x {N}, step {cfg['step']}, depth "
+                    f"{cfg['depth']}", model, wide, smi,
+                    ((1,), (2,), (3,), (1, 2), (2, 4), tuple(range(1, cfg["depth"]))))
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": bound_by}
+
+
+def autodiff_kernels_phase(smi):
+    phase("8. Gaussian, eight-schools and logistic kernels vs plain")
+    return {name: autodiff_kernel_phase(name, smi) for name in AUTODIFF_MODELS}
+
+
+def estimates_band(label, got_mean, got_var, ref_mean, ref_var):
+    """The PARITY bands of `parity_bands` against a reference run's moments."""
+    m, v = got_mean.double().cpu(), got_var.double().cpu()
+    ref_mean, ref_var = ref_mean.double().cpu(), ref_var.double().cpu()
+    r = m.shape[0]
+    mean_err = (m.mean(0) - ref_mean).abs()
+    mean_band = 3.0 * m.std(0) / r ** 0.5 + 0.1 * ref_var.sqrt()
+    var_err = (v.mean(0) - ref_var).abs()
+    var_band = 3.0 * v.std(0) / r ** 0.5 + 0.40 * ref_var.abs()
+    print(f"{label}: MC mean {[round(float(a), 4) for a in m.mean(0)]}, "
+          f"reference {[round(float(a), 4) for a in ref_mean]}")
+    print(f"{label}: |MC mean - reference| / band "
+          f"{[round(float(a), 3) for a in mean_err / mean_band]}, variances "
+          f"{[round(float(a), 3) for a in var_err / var_band]}")
+    if not (bool((mean_err <= mean_band).all()) and bool((var_err <= var_band).all())):
+        raise AssertionError(f"{label}: outside the bands (3 MC se + 0.1 sd; "
+                             f"3 MC se + 40%)")
+
+
+PROFILE_ITERATIONS = 20
+
+
+def profile_call(label, model, cfg, smi):
+    """Where an iteration's time goes: the first PROFILE_ITERATIONS iterations
+    of the SMC loop with RUNS runs (`smc_step` on the state of `init_state`,
+    as `run_smc_batched` drives it), once timed with CUDA events, then again
+    under torch.profiler (device activity only; the profiler slows the host,
+    so the wall time is the first pass's). Prints the device kernels per
+    iteration, the device's busy time and its idle share of the wall time. A
+    measurement, not a check: without device events it says so and goes on."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from smcnuts_torch.ops.draws import PHILOX, recycle_draws, run_draws
+    from smcnuts_torch.sampler import init_state, smc_step
+    from smcnuts_torch.utils.timing import CudaTimer
+
+    k = min(PROFILE_ITERATIONS, cfg.n_iterations)
+    model = model.to("cuda")
+    start = init_state(model, cfg, SEEDS, "cuda")
+    seeds = torch.tensor(SEEDS, dtype=torch.int64, device="cuda")
+    n = cfg.n_particles
+    uniforms, tree_seeds = run_draws(seeds, range(k), n, start.x.dtype)
+    streaming = cfg.is_asymptotic and not cfg.save_history
+    recycle = recycle_draws(seeds, range(k), n, start.x.dtype) if streaming else None
+
+    def loop():
+        carry = start
+        for i in range(k):
+            carry, _ = smc_step(model, cfg, carry, uniforms[i], tree_seeds[i], "cuda",
+                                PHILOX, recycle[i] if streaming else None)
+        torch.cuda.synchronize()
+
+    loop()
+    with CudaTimer() as t:
+        loop()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        loop()
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    kernels = [e for e in events if not e.name.startswith(("Memcpy", "Memset"))]
+    if not kernels:
+        print(f"{label}: torch.profiler recorded no device event; launches per "
+              f"iteration and idle share not measured")
+        return
+    busy_ms = sum(e.time_range.elapsed_us() for e in events) / 1e3
+    tree_ms = sum(e.time_range.elapsed_us() for e in kernels
+                  if "nuts_tree_kernel" in e.name) / 1e3
+    print(f"{label}: iterations 0..{k - 1} of the loop, {RUNS} runs: "
+          f"{t.ms / k:.3f} ms an iteration (CUDA events, unprofiled); under "
+          f"torch.profiler {len(kernels) / k:.1f} device kernels an iteration, "
+          f"device busy {busy_ms / k:.3f} ms an iteration, idle share "
+          f"{1.0 - busy_ms / t.ms:.3f}; the NUTS kernel {tree_ms / k:.3f} ms an "
+          f"iteration, {tree_ms / busy_ms:.3f} of the device time ({smi})")
+
+
+def strategy_run(label, name, model, cfg, smi, profiled=False):
+    """One full-width configuration through run_smc_batched with RUNS runs:
+    K dispatches, no plain call, finite series, the tempered schedule, runs 0
+    and the last equal to their single runs, and for the asymptotic strategy
+    the estimates of the other save_history mode equal to the bit. Returns
+    (result, kernel launches of the batched run)."""
+    import dataclasses
+
+    from smcnuts_torch import run_smc, run_smc_batched
+    from smcnuts_torch.utils.timing import CudaTimer
+
+    k = cfg.n_iterations
+    reset_counts()
+    t0 = time.perf_counter()
+    with CudaTimer() as t:
+        res = run_smc_batched(model, cfg, SEEDS, "cuda")
+        res.mean_estimate[:, k].cpu()
+    host_s = time.perf_counter() - t0
+    counts, plain_calls = read_counts()
+    stage_launches, _ = read_stage_counts()
+    if counts[name] != k or sum(counts.values()) != k or plain_calls != 0:
+        raise AssertionError(f"{label}: {counts} dispatches, {plain_calls} plain "
+                             f"calls; expected {k} and 0")
+    check_series(label, res, k)
+    if float(res.acceptance_rate[:, k].abs().max()) != 0.0:
+        raise AssertionError(f"{label}: acceptance[K] must be 0")
+    phi = res.phi
+    if cfg.tempering:
+        if not (bool((phi[:, 0] > 0).all()) and bool((phi[:, 1:] >= phi[:, :-1]).all())
+                and bool((phi[:, k] == 1).all())):
+            raise AssertionError(f"{label}: the schedule must start above 0, "
+                                 f"never decrease and end at 1")
+        reached = (phi < 1).sum(1)
+        sched = (f"phi[0] from {float(phi[:, 0].min()):.4g} to "
+                 f"{float(phi[:, 0].max()):.4g}, 1 reached after "
+                 f"{int(reached.min())} to {int(reached.max())} iterations")
+    else:
+        if not bool((phi == 1).all()):
+            raise AssertionError(f"{label}: phi must stay 1 without tempering")
+        sched = "phi = 1"
+    rate = RUNS * cfg.n_particles * k / (t.ms / 1000.0)
+    print(f"{label}: {k} dispatches ({stage_launches} kernel launches), no plain "
+          f"call; wall {t.ms:.1f} ms (CUDA events, results on the host; host clock "
+          f"{host_s:.3f} s), {rate:.0f} particle-iterations/s ({smi})")
+    print(f"{label}: {sched}; mean tree depth "
+          f"{float(res.tree_depth[:, :k].mean()):.3f}, leapfrogs per "
+          f"particle-iteration {float(res.tree_leapfrogs[:, :k].mean()):.2f}, "
+          f"acceptance {float(res.acceptance_rate[:, :k].mean()):.3f}, resampled "
+          f"{int(res.resampled.sum())}/{RUNS * k}, final ESS mean "
+          f"{float(res.ess[:, k].mean()):.1f}")
+    for b in (0, RUNS - 1):
+        one = run_smc(model, cfg, SEEDS[b], "cuda")
+        diff = [f for f, v in one._asdict().items()
+                if v is not None and not torch.equal(v, getattr(res, f)[b])]
+        if diff:
+            raise AssertionError(f"{label}: run {b} differs from its single run "
+                                 f"in {diff}")
+    same = f"runs 0 and {RUNS - 1} equal their single runs, bit for bit"
+    if cfg.is_asymptotic:
+        other = run_smc_batched(
+            model, dataclasses.replace(cfg, save_history=not cfg.save_history),
+            SEEDS, "cuda")
+        diff = [f for f in ("mean_estimate", "variance_estimate", "phi", "x_final",
+                            "logw_final", "ess")
+                if not torch.equal(getattr(other, f), getattr(res, f))]
+        if diff:
+            raise AssertionError(f"{label}: save_history={not cfg.save_history} "
+                                 f"differs in {diff}")
+        same += ("; the recycled estimates made inside the loop equal those "
+                 "from the saved history, bit for bit")
+    print(f"{label}: {same}")
+    if profiled:
+        profile_call(label, model, cfg, smi)
+    return res, counts[name]
+
+
+def strategies_phase(smi):
+    from smcnuts_torch import SMCConfig, run_smc
+    from smcnuts_torch.models import get_model, tempered_moments
+
+    phase(f"9. the three strategies, full width, {RUNS} runs each")
+    launches = {}
+
+    def add(name, n):
+        launches[name] = launches.get(name, 0) + n
+
+    for name in ("arma", "prmwcd"):
+        for lkernel in ("asymptoticLKernel", "GaussianApproxLKernel"):
+            asym = lkernel == "asymptoticLKernel"
+            cfg = SMCConfig(n_particles=N, n_iterations=K, step_size=STEP,
+                            lkernel=lkernel, tempering=asym, save_history=asym,
+                            max_tree_depth=MAX_DEPTH)
+            label = f"{name} {lkernel}"
+            res, n = strategy_run(label, name, get_model(name), cfg, smi,
+                                  profiled=True)
+            add(name, n)
+            parity_bands(label, name, res.mean_estimate[:, K].cpu(),
+                         res.variance_estimate[:, K])
+
+    for name, c in AUTODIFF_MODELS.items():
+        cfg = SMCConfig(n_particles=c["n"], n_iterations=c["k"], step_size=c["step"],
+                        lkernel=c["lkernel"], tempering=True, save_history=False,
+                        max_tree_depth=c["depth"])
+        label = f"{name} {c['lkernel']} tempered"
+        res, n = strategy_run(label, name, autodiff_model(name), cfg, smi)
+        add(name, n)
+        k = c["k"]
+        mean, var = res.mean_estimate[:, k].double().cpu(), res.variance_estimate[:, k].double().cpu()
+        if name == "gaussian":
+            # tests/test_nuts_pallas.py:326-330, for every run.
+            want_mean, want_var = tempered_moments(
+                GAUSSIAN["mean"], GAUSSIAN["var"], GAUSSIAN["prior_var"], 1.0)
+            want_mean, want_var = torch.as_tensor(want_mean), torch.as_tensor(want_var)
+            ess = res.ess[:, k].double().cpu()
+            se = (want_var.max() / ess).sqrt()
+            z = ((mean - want_mean).abs() / se[:, None]).max()
+            rel = ((var - want_var).abs() / want_var).max()
+            print(f"{label}: closed-form mean {want_mean.tolist()}, variance "
+                  f"{want_var.tolist()}; over {RUNS} runs the worst |mean error| "
+                  f"is {float(z):.3f} se, the worst relative variance error "
+                  f"{float(rel):.4f}, the least final ESS {float(ess.min()):.1f}")
+            if not (float(ess.min()) > 1000 and float(z) <= 4.0 and float(rel) <= 0.25):
+                raise AssertionError(f"{label}: outside ESS > 1000, 4 se, rtol 0.25")
+        elif name == "eightschools":
+            mu, tau = mean[:, 0], mean[:, 1]
+            print(f"{label}: mu from {float(mu.min()):.3f} to {float(mu.max()):.3f}, "
+                  f"tau from {float(tau.min()):.3f} to {float(tau.max()):.3f} "
+                  f"over {RUNS} runs")
+            if not (bool(((3.0 < mu) & (mu < 6.0)).all())
+                    and bool(((2.0 < tau) & (tau < 6.0)).all())):
+                raise AssertionError(f"{label}: outside 3 < mu < 6, 2 < tau < 6")
+        else:
+            # The reference: one long run of the plain tree on the card.
+            long_cfg = SMCConfig(n_particles=4096, n_iterations=REF_K, step_size=c["step"],
+                                 max_tree_depth=c["depth"], save_history=False,
+                                 nuts_backend="eager")
+            reset_counts()
+            ref = run_smc(autodiff_model(name), long_cfg, 12345, "cuda")
+            counts, plain_calls = read_counts()
+            if sum(counts.values()) != 0 or plain_calls != REF_K:
+                raise AssertionError(f"{label}: the reference run must take the "
+                                     f"plain tree: {counts}, {plain_calls}")
+            estimates_band(f"{label} vs plain-tree run (N=4096, K={REF_K}, forwards)",
+                           mean, var, ref.mean_estimate[REF_K],
+                           ref.variance_estimate[REF_K])
     return launches
 
 
+def partial_run(only, smi):
+    """The phases named in `only` (after device and build), for development:
+    no kernels line and no "ok" line, so it cannot pass for the whole run."""
+    phases = {"arma": arma_kernel_phase, "prmwcd": prmwcd_kernel_phase,
+              "main": main_path_phase, "batched": batched_phase,
+              "staged_times": staged_times_phase, "cli": lambda smi: cli_phase(),
+              "autodiff": autodiff_kernels_phase, "strategies": strategies_phase}
+    for key in only:
+        phases[key](smi)
+    print(f"\nchip_smoke: partial run of {only} passed; no result line")
+
+
 def main():
+    started = time.perf_counter()
     name, smi = device_phase()
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     build_phase()
+    if len(sys.argv) == 3 and sys.argv[1] == "--only":
+        return partial_run(sys.argv[2].split(","), smi)
     arma, arma_staged = arma_kernel_phase(smi)
     prmwcd, prmwcd_staged = prmwcd_kernel_phase(smi)
     arma_launches = main_path_phase(smi)
     batched, cont = batched_phase(smi)
     staged_times_phase(smi)
-    prm_cli = cli_phase()
+    prm_cli, schools_cli = cli_phase()
+    autodiff = autodiff_kernels_phase(smi)
+    strategies = strategies_phase(smi)
+    strategies["eightschools"] += schools_cli
     source = "smcnuts_torch/csrc/nuts_tree.cu"
     # No single PyTorch call builds a NUTS tree, so no kernel has a library time.
     kernels = [
         dict(name="nuts_tree_arma", route="cuda", source=source,
              replaces="smcnuts_tpu/ops/nuts_pallas.py:154",
-             launches=arma_launches + batched["arma"], **arma),
+             launches=arma_launches + batched["arma"] + strategies["arma"], **arma),
         # K3, inlined into the K1 instantiation this entry launches.
         dict(name="nuts_tree_prmwcd", route="cuda",
              source="smcnuts_torch/csrc/prmwcd_model.cuh",
              replaces="smcnuts_tpu/ops/nuts_pallas.py:1803",
-             launches=batched["prmwcd"] + prm_cli, **prmwcd),
+             launches=batched["prmwcd"] + prm_cli + strategies["prmwcd"], **prmwcd),
         # K4: the continuation-stage instantiations of the staged dispatch.
         dict(name="nuts_tree_arma_staged", route="cuda", source=source,
              replaces="smcnuts_tpu/ops/nuts_pallas.py:794",
@@ -896,10 +1323,20 @@ def main():
              replaces="smcnuts_tpu/ops/nuts_pallas.py:794",
              launches=cont["prmwcd"], **prmwcd_staged),
     ]
+    # K6: the densities the JAX package differentiates inside its kernel
+    # (elementwise_tile_model), each inlined into its own K1 instantiation.
+    kernels += [
+        dict(name=f"nuts_tree_{model}", route="cuda",
+             source=f"smcnuts_torch/csrc/{model}_model.cuh",
+             replaces="smcnuts_tpu/ops/nuts_pallas.py:1094",
+             launches=strategies[model], **autodiff[model])
+        for model in AUTODIFF_MODELS
+    ]
     for kernel in kernels:
         kernel["library_ms"] = None
         if kernel["launches"] < 1:
             raise AssertionError(f"{kernel['name']}: the main path never launched it")
+    print(f"\nchip_smoke: all phases passed in {time.perf_counter() - started:.0f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

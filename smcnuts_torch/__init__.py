@@ -2,10 +2,12 @@
 and to hand-written CUDA kernels for the NVIDIA H100 (sm_90a).
 
 The JAX package stays the reference; this package imports neither it nor
-jax. Ported so far: arma and PRMwCD, B independent runs batched into one
-NUTS launch per iteration (`run_smc_batched`), the forwards-proposal
-L-kernel without tempering, step-size and diagonal mass adaptation,
-multinomial resampling, and the whole-tree NUTS proposal as a CUDA kernel per
+jax. Ported so far: five models (arma, PRMwCD, the analytic Gaussian, eight
+schools, logistic regression), B independent runs batched into one NUTS
+launch per iteration (`run_smc_batched`), the three L-kernel strategies
+(asymptotic with tempered recycling, forwards, Gaussian approximation),
+adaptive tempering, step-size and diagonal mass adaptation, multinomial and
+systematic resampling, and the whole-tree NUTS proposal as a CUDA kernel per
 model (`ops/nuts_cuda.py`), run whole or in stages with lane compaction
 inside the kernel, with its plain PyTorch version. The entry points run on
 the card unless the caller asks for "cpu".

@@ -1,8 +1,11 @@
 """Command-line entry: `python -m smcnuts_torch ...`.
 
-Prints the JSON summary of the JAX package's CLI (same keys). Flags of that
-CLI that this port does not run yet raise NotImplementedError naming their
-ROADMAP item.
+Prints the JSON summary of the JAX package's CLI (same keys) for the models
+arma, prmwcd, eightschools and logistic, with any of the three L-kernel
+strategies, `--tempering` (always on with the asymptotic strategy, as in that
+CLI) and either resampling scheme. The flags of that CLI that this port does
+not run yet (the Stan frontend, the mesh, checkpoints, the output file) raise
+NotImplementedError naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -14,7 +17,6 @@ _NOT_PORTED = {  # flag attribute -> ROADMAP item
     "stan": "Queue 1 item 11",
     "data": "Queue 1 item 11",
     "stan_tile": "Queue 1 item 11",
-    "tempering": "Queue 1 item 7",
     "mesh": "Queue 1 item 10",
     "checkpoint": "Queue 1 item 9",
     "output": "Queue 1 item 9",
@@ -25,7 +27,7 @@ def main(argv=None) -> dict:
     p = argparse.ArgumentParser(
         prog="smcnuts_torch", description="SMC-NUTS sampler on PyTorch/CUDA"
     )
-    p.add_argument("--model", default="arma", help="arma | prmwcd")
+    p.add_argument("--model", default="arma", help="arma | prmwcd | eightschools | logistic")
     p.add_argument("-N", "--particles", type=int, default=512)
     p.add_argument("-K", "--iterations", type=int, default=100)
     p.add_argument("--step-size", type=float, default=None)
@@ -42,13 +44,13 @@ def main(argv=None) -> dict:
     )
     p.add_argument("--resampling", default="multinomial",
                    choices=["multinomial", "systematic"])
+    p.add_argument("--tempering", action="store_true")
     p.add_argument("--adapt-step-size", action="store_true")
     p.add_argument("--adapt-mass-matrix", action="store_true")
     # Accepted so that they fail loudly, not as unknown flags.
     p.add_argument("--stan", default=None)
     p.add_argument("--data", default=None)
     p.add_argument("--stan-tile", action="store_true")
-    p.add_argument("--tempering", action="store_true")
     p.add_argument("--mesh", action="store_true")
     p.add_argument("--checkpoint", default=None)
     p.add_argument("--output", default=None)
@@ -67,11 +69,14 @@ def main(argv=None) -> dict:
 
     model = get_model(args.model)
     if args.step_size is None:
+        # The step size stored with the model's data; 0.5 without one (the
+        # reference's default, run_experiments.py:87-90).
         args.step_size = default_step_size(args.model)
 
     cfg = SMCConfig(
         n_particles=args.particles, n_iterations=args.iterations,
         step_size=args.step_size, lkernel=args.lkernel,
+        tempering=args.tempering or args.lkernel == "asymptoticLKernel",
         resampling=args.resampling, max_tree_depth=args.max_tree_depth,
         save_history=args.lkernel == "asymptoticLKernel",
         nuts_backend=args.nuts_backend,

@@ -4,12 +4,13 @@ The validation is the same. Two fields are renamed for this backend:
 `nuts_backend` takes "auto", "eager" or "cuda", and `pallas_compaction`
 becomes `compaction`. `xla_block_size` becomes `eager_block_size`.
 
-The port so far runs one slice of the JAX package: the forwards-proposal
-L-kernel without tempering, step-size and diagonal mass adaptation,
-multinomial resampling, and the fused whole-tree NUTS proposal, as one kernel
-or staged with lane compaction. Every setting outside that slice raises
-`NotImplementedError` naming the ROADMAP item that will bring it, so no
-setting is ever silently ignored.
+The port runs the JAX package's fused proposal path: the three L-kernel
+strategies (asymptotic, forwards, Gaussian approximation), adaptive tempering,
+step-size and diagonal mass adaptation, multinomial and systematic resampling,
+and the whole-tree NUTS proposal as one kernel or staged with lane compaction.
+The two settings still outside it (the unfused proposal path and the
+block-bounded eager tree) raise `NotImplementedError` naming the ROADMAP item
+that will bring them, so no setting is ever silently ignored.
 """
 
 from __future__ import annotations
@@ -38,7 +39,10 @@ class SMCConfig:
     max_tree_depth: int = 10  # doublings 0..max_depth
     ess_threshold_frac: float = 0.5  # resample when ESS < N * frac
     tempering_alpha: float = 0.5
-    save_history: bool = True  # keep x/logw per iteration
+    # Keep x/logw per iteration. With the asymptotic strategy, False makes
+    # the tempered-recycling estimates inside the loop (the same estimates,
+    # O(N D) memory instead of (K+1) N D).
+    save_history: bool = True
     adapt_step_size: bool = False
     adapt_mass_matrix: bool = False
     target_accept: float = 0.8
@@ -50,7 +54,10 @@ class SMCConfig:
     nuts_backend: str = "auto"
     # Lockstep bound of the eager tree; None = all particles in one pass.
     eager_block_size: int | None = None
-    cached_loglik_min_phi: float = 1e-2  # tempered path only
+    # Below this temperature the tempered non-asymptotic path evaluates the
+    # log-likelihood directly instead of recovering it from the tree's cached
+    # density (`sampler._recover_loglik`); 0.0 disables.
+    cached_loglik_min_phi: float = 1e-2
     fused_epilogue: bool = True
     # Doublings after which the tree build pauses and the lanes still at
     # work are packed densely (the staged dispatch of `ops.nuts_cuda`), on
@@ -116,13 +123,11 @@ class SMCConfig:
 
     def _check_slice(self):
         """Raise for every valid setting this port does not run yet."""
-        if self.lkernel != "forwardsLKernel":
-            _not_in_slice(f"lkernel={self.lkernel!r}", "Queue 1 item 7")
-        if self.tempering:
-            _not_in_slice("tempering", "Queue 1 item 7")
-        if self.resampling != "multinomial":
-            _not_in_slice(f"resampling={self.resampling!r}", "Queue 1 item 3")
         if not self.fused_epilogue:
             _not_in_slice("fused_epilogue=False", "Queue 1 item 5")
         if self.eager_block_size is not None:
             _not_in_slice("eager_block_size", "Queue 1 item 4")
+
+    @property
+    def is_asymptotic(self) -> bool:
+        return self.lkernel == "asymptoticLKernel"

@@ -8,13 +8,19 @@
 //   - the same kernel with the momenta given (nuts_batch_pallas), here the
 //     r != nullptr case;
 //   - the tile models it inlines, behind the Model template parameter:
-//     arma_tile_model(y).tile_fn as ArmaModel (arma_model.cuh) and
-//     prmwcd_tile_model(y, X, q).tile_fn as PrmwcdModel<11> (prmwcd_model.cuh);
+//     arma_tile_model(y).tile_fn as ArmaModel (arma_model.cuh),
+//     prmwcd_tile_model(y, X, q).tile_fn as PrmwcdModel<11> (prmwcd_model.cuh),
+//     and elementwise_tile_model (in-kernel jax.vjp) over the gaussian,
+//     eightschools and logistic densities as GaussianModel<2|3|5>
+//     (gaussian_model.cuh), EightSchoolsModel<8> (eightschools_model.cuh) and
+//     LogisticModel<8> (logistic_model.cuh), each with its gradient written
+//     out by hand;
 //   - the compacted multi-stage dispatch: _nuts_kernel with start_depth,
 //     stop_depth, cont_in and cont_out (nuts_pallas.py:154-259, :503-562) and
 //     the sort-and-gather glue between its stages (:775-915).
-// Two instantiations and one extern "C" entry per model: the first stage
-// (prologue; the whole tree when its stop depth is the maximum depth) and the
+// Two instantiations and one extern "C" entry per model, seven entries for the
+// five models (the Gaussian once per dimension): the first stage (prologue;
+// the whole tree when its stop depth is the maximum depth) and the
 // continuation stage. The model's data reach the kernel generically
 // (model_data.cuh).
 // Its plain PyTorch version is smcnuts_torch/ops/nuts_cuda.py::nuts_tree_plain.
@@ -65,6 +71,9 @@
 
 #include "arma_model.cuh"
 #include "draws.cuh"
+#include "eightschools_model.cuh"
+#include "gaussian_model.cuh"
+#include "logistic_model.cuh"
 #include "model_data.cuh"
 #include "prmwcd_model.cuh"
 
@@ -75,6 +84,8 @@ constexpr int kThreads = 128;  // threads per block
 constexpr float kDivergence = 100.0f;  // nats
 constexpr float kTwoPi = 6.28318530717958647693;
 constexpr int kPrmwcdCov = 11;  // covariates of the PRMwCD instantiation (D = 13)
+constexpr int kSchools = 8;     // schools of the eight-schools instantiation (D = 10)
+constexpr int kLogisticDim = 8; // covariates of the logistic instantiation
 constexpr int kStats = 8;  // logp0, logp_prop, accept_stat, depth, leapfrogs, delta_h, ke0, moved
 
 // Rows of the bundle a stage hands to the next: the lane index (its bits),
@@ -403,6 +414,10 @@ int smcnuts_nuts_tree_max_depth() { return smcnuts::kMaxDepth; }
 
 int smcnuts_prmwcd_n_cov() { return smcnuts::kPrmwcdCov; }
 
+int smcnuts_eightschools_j() { return smcnuts::kSchools; }
+
+int smcnuts_logistic_dim() { return smcnuts::kLogisticDim; }
+
 int smcnuts_nuts_tree_bundle_rows(int dim) { return smcnuts::bundle_rows(dim); }
 
 // Each entry launches one stage of one tree per particle on `stream`
@@ -427,5 +442,11 @@ int smcnuts_nuts_tree_bundle_rows(int dim) { return smcnuts::bundle_rows(dim); }
 
 SMCNUTS_ENTRY(smcnuts_nuts_tree_arma, smcnuts::ArmaModel)
 SMCNUTS_ENTRY(smcnuts_nuts_tree_prmwcd, smcnuts::PrmwcdModel<smcnuts::kPrmwcdCov>)
+// The Gaussian's dimensions: the list of ops/nuts_cuda.py::GAUSSIAN_DIMS.
+SMCNUTS_ENTRY(smcnuts_nuts_tree_gaussian2, smcnuts::GaussianModel<2>)
+SMCNUTS_ENTRY(smcnuts_nuts_tree_gaussian3, smcnuts::GaussianModel<3>)
+SMCNUTS_ENTRY(smcnuts_nuts_tree_gaussian5, smcnuts::GaussianModel<5>)
+SMCNUTS_ENTRY(smcnuts_nuts_tree_eightschools, smcnuts::EightSchoolsModel<smcnuts::kSchools>)
+SMCNUTS_ENTRY(smcnuts_nuts_tree_logistic, smcnuts::LogisticModel<smcnuts::kLogisticDim>)
 
 }  // extern "C"

@@ -1,9 +1,9 @@
 """SMC state carried between the JAX package and this one, as numpy arrays.
 
 `carry_from_numpy` builds this package's `SMCCarry` from the fields the two
-carries share (x, logw, phi, step_size, inv_mass and the dual-averaging
-state da), for example those of a JAX `SMCCarry` passed through
-`np.asarray`; `carry_to_numpy` gives them back. The run axis is optional: x
+carries share (x, logw, phi, step_size, inv_mass, the dual-averaging state
+da and, for the asymptotic strategy, loglik), for example those of a JAX
+`SMCCarry` passed through `np.asarray`; `carry_to_numpy` gives them back. The run axis is optional: x
 (N, D) is one run, x (B, N, D) is B runs (a `jax.vmap` of the JAX carry).
 Both packages read the models' data from the same asset files, so no model
 weights need converting.
@@ -21,10 +21,13 @@ CARRY_FIELDS = ("x", "logw", "phi", "step_size", "inv_mass", "da")
 
 
 def carry_from_numpy(x, logw, phi, step_size, inv_mass, da=None,
-                     device="cpu") -> SMCCarry:
+                     loglik=None, device="cpu") -> SMCCarry:
     """The carry on `device`, in the floating dtype of `x`. `da` holds the
     five dual-averaging fields in `DualAveragingState` order (a JAX
-    `DualAveragingState` will do); None starts them from the step size."""
+    `DualAveragingState` will do); None starts them from the step size.
+    `loglik` is the untempered log-likelihood of x that the asymptotic
+    strategy carries (the JAX carry holds it with save_history=False; this
+    package's always), None for the other strategies."""
     x = torch.tensor(np.asarray(x), device=device)
     if x.dim() == 2:
         x = x[None]
@@ -41,13 +44,14 @@ def carry_from_numpy(x, logw, phi, step_size, inv_mass, da=None,
         inv_mass=t(inv_mass, (B, D)),
         da=da_init(step) if da is None
         else DualAveragingState(*(t(v, (B,)) for v in da)),
+        loglik=None if loglik is None else t(loglik, (B, N)),
     )
 
 
 def carry_to_numpy(carry: SMCCarry, run_axis: bool = True) -> dict:
     """The carry's fields as numpy arrays; `da` as a `DualAveragingState` of
-    arrays. With run_axis=False the carry must hold one run, and its run axis
-    is dropped."""
+    arrays, and `loglik` when the carry holds it. With run_axis=False the
+    carry must hold one run, and its run axis is dropped."""
     if not run_axis and carry.x.shape[0] != 1:
         raise ValueError(f"run_axis=False needs one run, got {carry.x.shape[0]}")
 
@@ -57,4 +61,6 @@ def carry_to_numpy(carry: SMCCarry, run_axis: bool = True) -> dict:
 
     out = {k: a(getattr(carry, k)) for k in CARRY_FIELDS if k != "da"}
     out["da"] = DualAveragingState(*(a(v) for v in carry.da))
+    if carry.loglik is not None:
+        out["loglik"] = a(carry.loglik)
     return out

@@ -18,8 +18,11 @@ holds no run index, so run b of a batch draws what it would draw alone.
 Each run also has a stream of its own, keyed by the run's seed s as
 (s mod 2^32, s div 2^32): per SMC iteration k, the N resampling uniforms
 (counter (i, RESAMPLE, k, 0)) and the seed of the iteration's tree (counter
-(0, TREE_SEED, k, 0)). `run_draws` computes them for many iterations at once,
-so the SMC loop adds no launches for them.
+(0, TREE_SEED, k, 0)), and the N uniforms of the asymptotic strategy's
+tempered-recycling estimate at index k (counter (i, RECYCLE, k, 0)), the same
+whether the estimate is made inside the loop or from the saved history.
+`run_draws` and `recycle_draws` compute them for many iterations at once, so
+the SMC loop adds no launches for them.
 
 Two sources:
 - PHILOX: Philox4x32-10 (Salmon et al., SC'11), the stream of the real runs.
@@ -48,6 +51,7 @@ SOURCES = (PHILOX, ZERO_BITS)
 PROLOGUE, DIRECTION, ACCEPT, LEAF = 0, 1, 2, 3  # kinds of the tree's draws
 RESAMPLE, TREE_SEED = 4, 5  # kinds of a run's own stream
 ACC_REJ = 6  # the tree's accept-reject draw; 4 and 5 stay the run stream's
+RECYCLE = 7  # a run's stream: the resampling of the recycled estimate
 
 _M0, _M1 = 0xD2511F53, 0xCD9E8D57
 _W0, _W1 = 0x9E3779B9, 0xBB67AE85
@@ -128,15 +132,27 @@ def run_draws(seeds, iterations, n, dtype=torch.float32):
     seeds: (B,) int64 tensor of run seeds in [0, 2^63); iterations: a range
     of iteration indices (K of them). Returns uniforms (K, B, n) in [0, 1),
     the map (w >> 8) * 2^-24, and tree seeds (K, B) int32 in [0, 2^31)."""
+    k = torch.as_tensor(list(iterations), dtype=torch.int64, device=seeds.device)
+    uniforms = _run_uniforms(seeds, RESAMPLE, iterations, n, dtype)
+    s = philox4x32_10(0, TREE_SEED, k[:, None], 0, (seeds & _MASK32)[None, :],
+                      (seeds >> 32)[None, :])[0]
+    return uniforms, (s & 0x7FFFFFFF).to(torch.int32)
+
+
+def _run_uniforms(seeds, kind, iterations, n, dtype):
+    """(K, B, n) uniforms in [0, 1), the map (w >> 8) * 2^-24, from each
+    run's own stream at counters (i, kind, k, 0)."""
     dev = seeds.device
     k = torch.as_tensor(list(iterations), dtype=torch.int64, device=dev)
-    key0 = (seeds & _MASK32)[None, :]
-    key1 = (seeds >> 32)[None, :]
     i = torch.arange(n, dtype=torch.int64, device=dev)
     w = philox4x32_10(
-        i[None, None, :], RESAMPLE, k[:, None, None], 0,
-        key0[..., None], key1[..., None],
+        i[None, None, :], kind, k[:, None, None], 0,
+        (seeds & _MASK32)[None, :, None], (seeds >> 32)[None, :, None],
     )[0]
-    uniforms = (w >> 8).to(dtype) * _INV_2_24
-    s = philox4x32_10(0, TREE_SEED, k[:, None], 0, key0, key1)[0]
-    return uniforms, (s & 0x7FFFFFFF).to(torch.int32)
+    return (w >> 8).to(dtype) * _INV_2_24
+
+
+def recycle_draws(seeds, iterations, n, dtype=torch.float32):
+    """The uniforms (K, B, n) in [0, 1) of the tempered-recycling estimates at
+    the given estimate indices, from each run's own stream."""
+    return _run_uniforms(seeds, RECYCLE, iterations, n, dtype)

@@ -1,25 +1,38 @@
-"""SMC sampler: the JAX package's `sampler.py` for the slice ported so far,
-for B independent runs at once.
+"""SMC sampler: the JAX package's `sampler.py` on its fused proposal path,
+for B independent runs at once, with the three L-kernel strategies and
+adaptive tempering.
 
 One iteration, in the reference's order (reference smc_sampler.py:109-140),
 for every run:
 
     1. record the phi used this iteration
     2. normalise weights (masked logsumexp) -> wn, running log-likelihood
-    3. estimates at index k from the *entering* weights
-    4. ESS; 5. resample if ESS < N/2, before the proposal
-    6. whole-tree NUTS proposal at temperature phi (momenta drawn inside),
-       as one kernel or staged with lane compaction (cfg.compaction)
-    7. reweight: logw += logp' - logp0 + (delta_h - (logp' - logp0)),
-       the forwards L-kernel on the non-tempered fused path
-    8. acceptance = share of particles that moved in EVERY dimension
-    9. adaptation, when configured: dual averaging of the step size on the
+    3. estimates at index k from the *entering* weights (the asymptotic
+       strategy without saved history: the tempered-recycling estimate)
+    4. ESS; 5. resample if ESS < N/2 (multinomial or systematic), before the
+       proposal
+    6. whole-tree NUTS proposal at temperature phi (momenta drawn inside,
+       the accept-reject in its epilogue for the asymptotic strategy), as one
+       kernel or staged with lane compaction (cfg.compaction)
+    7. with tempering, the next temperature from the proposed positions by
+       ESS bisection, on the log-likelihood recovered from the tree's cached
+       density
+    8. reweight. Asymptotic: logw += (phi' - phi) loglik on the PRE-proposal
+       positions. Otherwise logw += logp1' - logp1 + (L - q): forwards
+       L-kernel L - q = delta_h - (logp' - logp0), which without tempering
+       collapses the increment to delta_h; Gaussian L-kernel L from the
+       population and q(r0) from ke0
+    9. acceptance = share of particles that moved in EVERY dimension
+   10. adaptation, when configured: dual averaging of the step size on the
        mean accept statistic (frozen at the averaged iterate after
        round(adapt_warmup_frac * K) iterations) and the diagonal inverse mass
        from the reweighted particles (JAX sampler.py:489-517)
 
-Diagnostics quirks kept from the reference: acceptance at index K is 0, and
-phi[K] is the last temperature computed.
+Quirks kept from the reference: acceptance at index K is 0; phi[K] is the
+last temperature computed; the asymptotic strategy overwrites ALL estimates
+with the tempered-recycling estimates (smc_sampler.py:152-153), from the
+saved history after the loop or, with save_history=False, inside it: the two
+draw the same uniforms and agree to the bit.
 
 Batching: `run_smc_batched(model, cfg, seeds, device)` steps B runs through
 one NUTS launch per iteration (B*N threads); weights, ESS, resampling and
@@ -30,8 +43,13 @@ particles from a `torch.Generator` seeded with it, and per iteration the
 resampling uniforms and the tree's seed from its Philox stream
 (`ops.draws.run_draws`). Every sum over particles takes the fixed order of
 `ops.reduce`. So run b of a batch equals, bit for bit, a run alone with seed
-seeds[b]. The K loop does no host sync: the resample decision is a
-`torch.where`, and the diagnostics stay on the device until `finalize`.
+seeds[b]; what a model computes outside the tree (logprior, loglik) is
+evaluated one run at a time for the same reason. The K loop does no host
+sync: the resample decision and the temperature bisection's short-circuit are
+`torch.where`s, the guard of the recovered log-likelihood evaluates both
+sides and selects per run, and the diagnostics stay on the device until
+`finalize`. (The Gaussian L-kernel's three small factorisations are library
+calls, made per run; `torch.linalg.pinv` checks its status on the host.)
 """
 
 from __future__ import annotations
@@ -42,18 +60,20 @@ from typing import NamedTuple
 import torch
 
 from .config import SMCConfig
-from .models.base import ADAPTED_HINT_TARGET, COMPACTION_MIN_LANES
+from .models.base import ADAPTED_HINT_TARGET, COMPACTION_MIN_LANES, LOG_SQRT_2PI
 from .ops.adaptation import (
     DualAveragingState,
     da_init,
     da_update,
     mass_matrix_from_particles,
 )
-from .ops.draws import PHILOX, run_draws
+from .ops.draws import PHILOX, recycle_draws, run_draws
+from .ops.lkernels import gaussian_lkernel_logpdf
 from .ops.moments import estimate as constrained_estimate
 from .ops.nuts_cuda import nuts_tree, nuts_tree_plain
-from .ops.reduce import row_mean
-from .ops.resampling import resample_if_required
+from .ops.reduce import row_mean, row_sum
+from .ops.resampling import multinomial_take_rows, resample_if_required
+from .ops.tempering import next_temperature
 from .ops.weights import ess as compute_ess
 from .ops.weights import normalise_weights
 from .proposals import DiagNormalProposal
@@ -71,6 +91,9 @@ class SMCCarry(NamedTuple):
     step_size: torch.Tensor  # (B,)
     inv_mass: torch.Tensor  # (B, D) diagonal inverse mass
     da: DualAveragingState  # fields (B,)
+    # Asymptotic strategy only (None otherwise): the untempered
+    # log-likelihood of x, which the tempered-recycling estimates need.
+    loglik: torch.Tensor | None = None  # (B, N)
 
 
 class SMCResult(NamedTuple):
@@ -169,65 +192,164 @@ def _check_momentum(momentum_proposal):
         )
 
 
+def _per_run(fn, x):
+    """fn (a model's logprior or loglik, (N, D) -> (N,)) on each run of x
+    (B, N, D) alone: a model's own sums and products may pick their order
+    from the shape, and a run must not depend on the runs beside it."""
+    return torch.stack([fn(x[b]) for b in range(x.shape[0])]).to(x.dtype)
+
+
+def _recover_loglik(model, phi, logp_at_phi, logprior, positions, min_phi):
+    """The untempered log-likelihood from a tree-cached tempered log-density,
+    loglik = (logp(x, phi) - logprior(x)) / phi (phi > 0 always: tempering
+    starts from a bisection result in (0, 1]).
+
+    The division amplifies the float32 rounding of the cached density by
+    1 / phi (300x at the first tempered phi ~ 3e-3 seen in practice), so for
+    the runs with phi < min_phi the value is a direct `model.loglik`
+    instead. Both sides are evaluated and selected per run, with no host
+    sync, which is what the JAX package's `lax.cond` lowers to under `vmap`.
+    Only the tempered non-asymptotic path asks for the guard: there the value
+    enters the phi = 1 reweight unscaled, while the asymptotic path consumes
+    it through phi-scaled differences where the amplification cancels."""
+    cached = (logp_at_phi - logprior) / phi[:, None]
+    if min_phi <= 0.0:
+        return cached
+    direct = _per_run(model.loglik, positions)
+    return torch.where((phi < min_phi)[:, None], direct, cached)
+
+
+def _recycled_estimate(model, uniforms, x, logw, loglik, phi_k):
+    """One tempered-recycling estimate per run (reference
+    estimate_from_tempered.py:24-55): a fresh multinomial resample by the
+    weights, which target pi_{phi_k}, then the importance correction to pi by
+    (1 - phi_k) loglik. x (..., N, D); uniforms, logw and loglik (..., N);
+    phi_k (...). The loop and the saved-history pass share it."""
+    wn, _ = normalise_weights(logw)
+    x_r, loglik_r = multinomial_take_rows(wn, uniforms, [x, loglik])
+    wn_corr, _ = normalise_weights((1.0 - phi_k)[..., None] * loglik_r)
+    return constrained_estimate(model, x_r, wn_corr)
+
+
 def init_state(model, cfg: SMCConfig, seeds, device,
                sample_proposal=None) -> SMCCarry:
-    """x0 ~ sample proposal, phi0 = 1, logw0 = logp(x0, 1) - q0(x0)
-    (reference samples.py:63-88, non-tempered), one run per seed. Each run
-    draws from a generator seeded with its own seed and is evaluated alone,
-    so it does not depend on the runs beside it."""
+    """x0 ~ sample proposal; phi0 = 1, or with tempering a full ESS bisection
+    on the prior draws from phi_old = 0 (reference samples.py:82);
+    logw0 = logp(x0, phi0) - q0(x0) (samples.py:63-88); one run per seed.
+    Each run draws from a generator seeded with its own seed and its
+    densities are evaluated alone, so it does not depend on the runs beside
+    it; the bisection is one call in which every run has its own interval."""
     dtype = getattr(torch, cfg.dtype)
     device = torch.device(device)
     if sample_proposal is None:
         sample_proposal = DiagNormalProposal(model.dim)
-    xs, logws = [], []
-    for seed in seeds:
-        generator = torch.Generator(device=device).manual_seed(int(seed))
-        x0 = sample_proposal.rvs(generator, cfg.n_particles, dtype=dtype)
-        xs.append(x0)
-        logws.append((model.logp(x0, 1.0) - sample_proposal.logpdf(x0)).to(dtype))
+    generators = [torch.Generator(device=device).manual_seed(int(s)) for s in seeds]
+    xs = [sample_proposal.rvs(g, cfg.n_particles, dtype=dtype) for g in generators]
+    loglik = None
+    if cfg.tempering or cfg.is_asymptotic:
+        loglik = torch.stack([model.loglik(x0).to(dtype) for x0 in xs])
+    if cfg.tempering:
+        # One bisection for all runs: each run's interval is its own.
+        phi = next_temperature(loglik, 0.0, cfg.n_particles,
+                               alpha=cfg.tempering_alpha)
+    else:
+        phi = torch.ones(len(xs), dtype=dtype, device=device)
+    logws = [(model.logp(x0, phi[b]) - sample_proposal.logpdf(x0)).to(dtype)
+             for b, x0 in enumerate(xs)]
     B = len(xs)
     step_size = torch.full((B,), cfg.step_size, dtype=dtype, device=device)
     return SMCCarry(
         x=torch.stack(xs),
         logw=torch.stack(logws),
-        phi=torch.ones(B, dtype=dtype, device=device),
+        phi=phi,
         step_size=step_size,
         inv_mass=torch.ones((B, model.dim), dtype=dtype, device=device),
         da=da_init(step_size),
+        loglik=loglik if cfg.is_asymptotic else None,
     )
 
 
 def smc_step(model, cfg: SMCConfig, carry: SMCCarry, uniforms, tree_seed,
-             backend: str, draws: str = PHILOX):
+             backend: str, draws: str = PHILOX, recycle_uniforms=None):
     """One SMC iteration of B runs; returns (next carry, diagnostics of this
     one, each with a leading run axis).
 
     uniforms (B, N) in [0, 1) are the resampling draws and tree_seed (B,)
     int32 the seeds of the runs' trees (`ops.draws.run_draws`; a test hands
-    in the JAX package's uniforms); `draws` picks the tree's draw source."""
+    in the JAX package's uniforms); `draws` picks the tree's draw source.
+    recycle_uniforms (B, N) are the draws of this iteration's
+    tempered-recycling estimate (`ops.draws.recycle_draws`), needed by the
+    asymptotic strategy with save_history=False only."""
     phi = carry.phi
+    n = carry.x.shape[1]
+    asymptotic = cfg.is_asymptotic
     wn, log_likelihood = normalise_weights(carry.logw)
-    mean_k, var_k = constrained_estimate(model, carry.x, wn)
+    if asymptotic and not cfg.save_history:
+        # The entering (x, logw, loglik, phi) are what the saved-history pass
+        # reads at index k, and the uniforms are those it draws there.
+        mean_k, var_k = _recycled_estimate(
+            model, recycle_uniforms, carry.x, carry.logw, carry.loglik, phi)
+    else:
+        mean_k, var_k = constrained_estimate(model, carry.x, wn)
     ess_k = compute_ess(wn)
     x_r, logw_r, did_resample = resample_if_required(
         uniforms, carry.x, carry.logw, wn, log_likelihood, ess_k,
-        cfg.ess_threshold_frac,
+        cfg.ess_threshold_frac, cfg.resampling,
     )
 
+    # With acc_rej the kernel's epilogue ran the asymptotic strategy's
+    # accept-reject: x_new, r_new and logp_prop are the state after it.
     tree = nuts_tree if backend == "cuda" else nuts_tree_plain
-    x_new, _, st = tree(
+    x_new, r_new, st = tree(
         model, x_r, tree_seed, carry.step_size, phi, carry.inv_mass,
-        cfg.max_tree_depth, draws,
+        cfg.max_tree_depth, draws, acc_rej=asymptotic,
         compaction=resolve_compaction(cfg, model, x_r.shape[0] * x_r.shape[1]),
     )
 
-    # Forwards L-kernel, fused: the momentum-density difference
-    # L(-r'|x') - q(r) comes back as delta_h - (logp' - logp0), and on the
-    # non-tempered path (phi = 1) the tree's cached endpoint densities are
-    # the phi = 1 values, so the increment collapses to delta_h.
-    lk_minus_q = st["delta_h"] - (st["logp_prop"] - st["logp0"])
-    logp_new_1, logp_old_1 = st["logp_prop"], st["logp0"]
-    logw_new = logw_r + logp_new_1 - logp_old_1 + lk_minus_q
+    # The next temperature, from the proposed positions. The untempered
+    # log-likelihood at both endpoints comes from the tree's cached densities
+    # and an O(D) logprior: no model evaluation outside the tree, but for the
+    # guarded recovery on the tempered non-asymptotic path.
+    tempered = cfg.tempering or asymptotic
+    guard = cfg.cached_loglik_min_phi if cfg.tempering and not asymptotic else 0.0
+    if tempered:
+        logprior_new = _per_run(model.logprior, x_new)
+        logprior_old = _per_run(model.logprior, x_r)
+        loglik_new = _recover_loglik(model, phi, st["logp_prop"], logprior_new,
+                                     x_new, guard)
+    if cfg.tempering:
+        phi_next = next_temperature(loglik_new, phi, n, alpha=cfg.tempering_alpha)
+    else:
+        phi_next = torch.ones_like(phi)
+
+    if asymptotic:
+        # The move leaves pi_phi invariant and carries no weight change; only
+        # the temperature increment on the PRE-proposal positions does
+        # (reference samples.py:169-180).
+        loglik_old = _recover_loglik(model, phi, st["logp0"], logprior_old,
+                                     x_r, 0.0)
+        logw_new = logw_r + (phi_next - phi)[:, None] * loglik_old
+    else:
+        # The momentum-density difference L(-r'|x') - q(r) from the fused
+        # outputs. Forwards L-kernel: the N(0, M) constants cancel and
+        # ke(r0) - ke(r') = delta_h - (logp' - logp0). Gaussian L-kernel:
+        # q(r0) = -ke0 + 0.5 sum log inv_mass - D log sqrt(2 pi).
+        if cfg.lkernel == "forwardsLKernel":
+            lk_minus_q = st["delta_h"] - (st["logp_prop"] - st["logp0"])
+        else:
+            q_r = (-st["ke0"]
+                   + (0.5 * row_sum(torch.log(carry.inv_mass)))[:, None]
+                   - model.dim * LOG_SQRT_2PI)
+            lk_minus_q = gaussian_lkernel_logpdf(r_new, x_new) - q_r
+        if not cfg.tempering:
+            # phi is 1, so the tree's cached endpoint densities are the
+            # phi = 1 values (forwards: the increment collapses to delta_h).
+            logp_new_1, logp_old_1 = st["logp_prop"], st["logp0"]
+        else:
+            logp_new_1 = logprior_new + loglik_new
+            logp_old_1 = logprior_old + _recover_loglik(
+                model, phi, st["logp0"], logprior_old, x_r, guard)
+        logw_new = logw_r + logp_new_1 - logp_old_1 + lk_minus_q
 
     # Adaptation (JAX sampler.py:489-517). The warmup freeze uses da.count
     # as the iteration counter, as the JAX package does.
@@ -262,29 +384,54 @@ def smc_step(model, cfg: SMCConfig, carry: SMCCarry, uniforms, tree_seed,
         "var": var_k,
     }
     new_carry = SMCCarry(
-        x=x_new, logw=logw_new, phi=torch.ones_like(phi),
+        x=x_new, logw=logw_new, phi=phi_next,
         step_size=step_size, inv_mass=inv_mass, da=da,
+        loglik=loglik_new if asymptotic else None,
     )
     return new_carry, diag
 
 
-def finalize(model, carry: SMCCarry, diags: list, x_hist=None,
-             logw_hist=None) -> SMCResult:
+def finalize(model, cfg: SMCConfig, carry: SMCCarry, diags: list,
+             x_hist=None, logw_hist=None, loglik_hist=None,
+             recycle_uniforms=None) -> SMCResult:
     """Append the final half-iteration at index K (smc_sampler.py:143-149);
-    every series is (B, K+1, ...)."""
+    every series is (B, K+1, ...).
+
+    The asymptotic strategy replaces ALL estimates by the tempered-recycling
+    ones (smc_sampler.py:152-153). With the history saved (x_hist, logw_hist
+    and loglik_hist, lists of K+1 entries) they are made here in one pass
+    over the K+1 saved states, from recycle_uniforms (B, K+1, N). Without it
+    the loop made those of 0..K-1 and only index K, the final state, is made
+    here, from recycle_uniforms (B, N). The uniforms of index k are the same
+    either way (`ops.draws.recycle_draws`), and so are the estimates."""
     wn_f, loglik_f = normalise_weights(carry.logw)
-    mean_f, var_f = constrained_estimate(model, carry.x, wn_f)
     s = {k: torch.stack([d[k] for d in diags], dim=1) for k in _SERIES}
 
     def cat(seq, last):
         return torch.cat([seq, last[:, None].to(seq.dtype)], dim=1)
 
+    phi_series = cat(s["phi"], carry.phi)
+    if cfg.is_asymptotic and cfg.save_history:
+        mean_est, var_est = _recycled_estimate(
+            model, recycle_uniforms, torch.stack(x_hist, dim=1),
+            torch.stack(logw_hist, dim=1), torch.stack(loglik_hist, dim=1),
+            phi_series,
+        )
+    else:
+        if cfg.is_asymptotic:
+            mean_f, var_f = _recycled_estimate(
+                model, recycle_uniforms, carry.x, carry.logw, carry.loglik,
+                carry.phi)
+        else:
+            mean_f, var_f = constrained_estimate(model, carry.x, wn_f)
+        mean_est, var_est = cat(s["mean"], mean_f), cat(s["var"], var_f)
+
     return SMCResult(
-        mean_estimate=cat(s["mean"], mean_f),
-        variance_estimate=cat(s["var"], var_f),
+        mean_estimate=mean_est,
+        variance_estimate=var_est,
         ess=cat(s["ess"], compute_ess(wn_f)),
         log_likelihood=cat(s["log_likelihood"], loglik_f),
-        phi=cat(s["phi"], carry.phi),
+        phi=phi_series,
         acceptance_rate=cat(s["acceptance"], torch.zeros_like(s["acceptance"][:, 0])),
         resampled=cat(s["resampled"], torch.zeros_like(s["resampled"][:, 0])),
         step_size=cat(s["step_size"], carry.step_size),
@@ -318,22 +465,38 @@ def run_smc_batched(model, cfg: SMCConfig, seeds, device="cuda",
     seeds_t = torch.tensor(seeds, dtype=torch.int64, device=device)
     B, N = carry.logw.shape
     K = cfg.n_iterations
+    dtype = carry.x.dtype
     block = max(1, _DRAW_BLOCK // (B * (N + 1)))
+    streaming = cfg.is_asymptotic and not cfg.save_history
     diags = []
     x_hist = [carry.x] if cfg.save_history else None
     logw_hist = [carry.logw] if cfg.save_history else None
+    loglik_hist = [carry.loglik] if cfg.save_history and cfg.is_asymptotic else None
+    recycle = None
     for k in range(K):
         if k % block == 0:
-            uniforms, tree_seeds = run_draws(
-                seeds_t, range(k, min(k + block, K)), N, carry.x.dtype
-            )
-        carry, diag = smc_step(model, cfg, carry, uniforms[k % block],
-                               tree_seeds[k % block], backend, draws)
+            ks = range(k, min(k + block, K))
+            uniforms, tree_seeds = run_draws(seeds_t, ks, N, dtype)
+            if streaming:
+                recycle = recycle_draws(seeds_t, ks, N, dtype)
+        carry, diag = smc_step(
+            model, cfg, carry, uniforms[k % block], tree_seeds[k % block],
+            backend, draws, recycle[k % block] if streaming else None)
         diags.append(diag)
         if cfg.save_history:
             x_hist.append(carry.x)
             logw_hist.append(carry.logw)
-    return finalize(model, carry, diags, x_hist, logw_hist)
+            if loglik_hist is not None:
+                loglik_hist.append(carry.loglik)
+    if streaming:
+        recycle = recycle_draws(seeds_t, [K], N, dtype)[0]
+    elif cfg.is_asymptotic:
+        recycle = torch.cat([
+            recycle_draws(seeds_t, range(k, min(k + block, K + 1)), N, dtype)
+            for k in range(0, K + 1, block)
+        ]).transpose(0, 1)
+    return finalize(model, cfg, carry, diags, x_hist, logw_hist, loglik_hist,
+                    recycle)
 
 
 def run_smc(model, cfg: SMCConfig, seed: int = 0, device="cuda",

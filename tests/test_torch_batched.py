@@ -122,14 +122,16 @@ def test_run_draws_are_the_runs_own():
 
 
 def _fields(carry):
-    out = {k: v for k, v in carry._asdict().items() if k != "da"}
+    out = {k: v for k, v in carry._asdict().items()
+           if k != "da" and v is not None}
     out.update({f"da.{k}": v for k, v in carry.da._asdict().items()})
     return out
 
 
 def _run(carry, b):
     return carry._replace(
-        **{k: v[b:b + 1] for k, v in carry._asdict().items() if k != "da"},
+        **{k: v[b:b + 1] for k, v in carry._asdict().items()
+           if k != "da" and v is not None},
         da=type(carry.da)(*(v[b:b + 1] for v in carry.da)),
     )
 

@@ -18,7 +18,10 @@ _MODULES = (
     "smcnuts_torch.__main__", "smcnuts_torch.ops.nuts_cuda",
     "smcnuts_torch.ops.draws", "smcnuts_torch.ops.adaptation",
     "smcnuts_torch.ops.reduce", "smcnuts_torch.models.prmwcd",
-    "smcnuts_torch.utils.timing",
+    "smcnuts_torch.utils.timing", "smcnuts_torch.ops.lkernels",
+    "smcnuts_torch.ops.tempering", "smcnuts_torch.ops.resampling",
+    "smcnuts_torch.models.gaussian", "smcnuts_torch.models.eightschools",
+    "smcnuts_torch.models.logistic",
 )
 
 
@@ -30,8 +33,10 @@ def test_imports_with_jax_blocked():
         "import importlib\n"
         f"for m in {_MODULES!r}:\n"
         "    importlib.import_module(m)\n"
-        "from smcnuts_torch.models import get_model\n"
+        "from smcnuts_torch.models import get_model, make_gaussian\n"
         "get_model('arma'); get_model('prmwcd')\n"
+        "get_model('eightschools'); get_model('logistic')\n"
+        "make_gaussian([0.0, 1.0], [1.0, 2.0], [4.0, 4.0])\n"
         "print('ok')\n"
     )
     env = dict(os.environ, PYTHONPATH=_REPO, OMP_NUM_THREADS="2")
@@ -70,3 +75,30 @@ def test_no_source_imports(forbidden):
                 if n == forbidden or n.startswith(forbidden + ".")
             ]
     assert not hits
+
+
+def test_chip_smoke_imports_neither():
+    """The chip script names jax and smcnuts_tpu in no import."""
+    with open(os.path.join(_REPO, "chip_smoke.py")) as f:
+        tree = ast.parse(f.read())
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.append(node.module or "")
+    assert not [n for n in names
+                if n.split(".")[0] in ("jax", "jaxlib", "smcnuts_tpu")]
+    assert any(n.startswith("smcnuts_torch") for n in names)
+
+
+def test_kernel_sources_of_every_model_are_in_the_package():
+    """Each in-kernel model has its device function beside the kernel that
+    includes it."""
+    csrc = os.path.join(_PKG, "csrc")
+    with open(os.path.join(csrc, "nuts_tree.cu")) as f:
+        kernel = f.read()
+    for model in ("arma", "prmwcd", "gaussian", "eightschools", "logistic"):
+        assert os.path.isfile(os.path.join(csrc, f"{model}_model.cuh")), model
+        assert f'#include "{model}_model.cuh"' in kernel
+        assert f"smcnuts_nuts_tree_{model}" in kernel

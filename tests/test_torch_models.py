@@ -6,14 +6,17 @@ float64: the closed-form gradient against torch.autograd of the port's own
 logp (JAX's x64 mode is process-global, so the f64 check stays in torch).
 """
 
+from types import SimpleNamespace
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from smcnuts_torch.models import ArmaModel, get_model
+from smcnuts_torch.models import ArmaModel, get_model, make_gaussian
 from smcnuts_torch.models.arma import default_step_size, ground_truth
+from smcnuts_torch.ops.nuts_cuda import _model_data
 from smcnuts_tpu.models import make_arma
 from smcnuts_tpu.models.arma import default_step_size as jax_default_step_size
 from smcnuts_tpu.models.arma import ground_truth as jax_ground_truth
@@ -125,5 +128,16 @@ def test_model_is_module_with_buffer():
 
 @pytest.mark.parametrize("name", ["gaussian", "eightschools", "logistic"])
 def test_unported_models_raise(name):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        get_model(name)
+    """The three models run; what still raises is a shape of them that the
+    CUDA kernel is not instantiated for (ROADMAP Queue 2 item 6), and a name
+    the registry does not know."""
+    lib = SimpleNamespace(prmwcd_n_cov=11, eightschools_j=8, logistic_dim=8)
+    model = {
+        "gaussian": lambda: make_gaussian(np.zeros(4), np.ones(4)),
+        "eightschools": lambda: get_model(name, y=np.zeros(5), sigma=np.ones(5)),
+        "logistic": lambda: get_model(name, X=np.zeros((16, 3)), y=np.zeros(16)),
+    }[name]()
+    with pytest.raises(NotImplementedError, match="Queue 2 item 6"):
+        _model_data(model, lib)
+    with pytest.raises(KeyError, match="Unknown model"):
+        get_model(name + "_")

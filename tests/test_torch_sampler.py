@@ -143,10 +143,13 @@ def test_cli_end_to_end_cpu(capsys):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--tempering"], ["--lkernel", "asymptoticLKernel"],
-    ["--resampling", "systematic"], ["--stan-tile"], ["--mesh"],
+    # The strategy, tempering, resampling and model flags run; beside a flag
+    # that is still outside the port they do not hide it.
+    ["--tempering", "--checkpoint", "ck.npz"],
+    ["--lkernel", "asymptoticLKernel", "--mesh"],
+    ["--resampling", "systematic", "--stan", "m.stan"], ["--stan-tile"], ["--mesh"],
     ["--checkpoint", "ck.npz"], ["--stan", "m.stan"], ["--output", "o.npz"],
-    ["--model", "gaussian"],
+    ["--model", "eightschools", "--output", "o.npz"], ["--data", "d.json"],
 ], ids=lambda a: a[0])
 def test_cli_flags_outside_slice_raise(argv):
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -2,7 +2,10 @@
 
 Weight normalisation, ESS, moments and multinomial resampling; the
 resampling uniforms are drawn by JAX and handed to the port, so ancestors
-must be exactly equal. Also the config's validation and its slice guard.
+must be exactly equal. Also the config's validation and its guard for the two
+settings still outside the port. Systematic resampling, tempering and the
+L-kernels have files of their own (tests/test_torch_tempering.py,
+tests/test_torch_lkernels.py).
 The batched (B, N) forms of the same functions are held to the JAX package
 in tests/test_torch_batched.py.
 """
@@ -156,13 +159,16 @@ def test_config_validation_matches_jax(bad):
 
 
 OUT_OF_SLICE = [
-    (dict(lkernel="asymptoticLKernel"), "Queue 1 item 7"),
-    (dict(lkernel="GaussianApproxLKernel"), "Queue 1 item 7"),
-    (dict(tempering=True), "Queue 1 item 7"),
-    # Adaptation runs; with a strategy outside the slice it still raises.
-    (dict(adapt_step_size=True, lkernel="asymptoticLKernel"), "Queue 1 item 7"),
-    (dict(adapt_mass_matrix=True, tempering=True), "Queue 1 item 7"),
-    (dict(resampling="systematic"), "Queue 1 item 3"),
+    # The strategies, tempering and systematic resampling run; beside a
+    # setting that is still outside the port they do not hide it.
+    (dict(lkernel="asymptoticLKernel", fused_epilogue=False), "Queue 1 item 5"),
+    (dict(lkernel="GaussianApproxLKernel", eager_block_size=64), "Queue 1 item 4"),
+    (dict(tempering=True, fused_epilogue=False), "Queue 1 item 5"),
+    (dict(adapt_step_size=True, lkernel="asymptoticLKernel", eager_block_size=64),
+     "Queue 1 item 4"),
+    (dict(adapt_mass_matrix=True, tempering=True, fused_epilogue=False),
+     "Queue 1 item 5"),
+    (dict(resampling="systematic", eager_block_size=64), "Queue 1 item 4"),
     (dict(fused_epilogue=False), "Queue 1 item 5"),
     (dict(eager_block_size=4096), "Queue 1 item 4"),
 ]
@@ -185,3 +191,18 @@ def test_adaptation_settings_accepted(setting):
     for k in ("adapt_step_size", "adapt_mass_matrix", "target_accept",
               "adapt_warmup_frac"):
         assert getattr(cfg, k) == getattr(jax_cfg, k)
+
+
+@pytest.mark.parametrize("setting", [
+    dict(lkernel="asymptoticLKernel"), dict(lkernel="GaussianApproxLKernel"),
+    dict(tempering=True), dict(resampling="systematic"),
+    dict(lkernel="asymptoticLKernel", tempering=True, save_history=False,
+         resampling="systematic", adapt_step_size=True),
+], ids=lambda d: "+".join(str(v) for v in d.values()))
+def test_strategy_settings_accepted(setting):
+    cfg = SMCConfig(n_particles=8, n_iterations=2, step_size=0.01, **setting)
+    jax_cfg = JaxSMCConfig(n_particles=8, n_iterations=2, step_size=0.01, **setting)
+    for k in setting:
+        assert getattr(cfg, k) == getattr(jax_cfg, k)
+    assert cfg.is_asymptotic == jax_cfg.is_asymptotic
+    assert cfg.cached_loglik_min_phi == jax_cfg.cached_loglik_min_phi == 1e-2
