@@ -3,16 +3,19 @@
     python3 chip_smoke.py        # from the repository root; one GPU
     python3 chip_smoke.py --only autodiff,strategies,cli   # some phases, while
                                  # developing: prints no kernels line, no "ok"
+    (phase keys: arma, prmwcd, main, batched, staged_times, cli, autodiff,
+    strategies, fused_kernel, eager, unfused, wide_eager)
 
 Phases, each printing its own lines; any failure raises (non-zero exit):
 
 1. device: the GPU's name, `nvidia-smi` name and power limit, versions.
-2. build: nvcc builds the NUTS kernel from smcnuts_torch/csrc (sm_90a), two
-   instantiations per entry (arma, PRMwCD, the Gaussian at D = 2, 3 and 5,
-   eight schools, logistic): the first stage, which is the whole tree when
-   nothing is staged, and the continuation stage; prints ptxas's registers,
-   stack frame and spills for each, and fails if the build took more than a
-   minute.
+2. build: nvcc builds the kernels from smcnuts_torch/csrc (sm_90a), one nvcc
+   a source, all at once: the NUTS kernel with two instantiations per entry
+   (arma, PRMwCD, the Gaussian at D = 2, 3 and 5, eight schools, logistic):
+   the first stage, which is the whole tree when nothing is staged, and the
+   continuation stage; and the fused ARMA value and gradient. Prints ptxas's
+   registers, stack frame and spills for each, and fails if the build took
+   more than a minute.
 3. arma kernel vs plain: `nuts_tree` (the CUDA kernel) and `nuts_tree_plain`
    on the same CUDA inputs, with zero-bits and Philox draws, phi 1.0 and 0.4
    (two runs in one launch), a non-unit inverse mass, the r-given variant at
@@ -20,8 +23,8 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
    fewer than 99.9% of lanes agree on depth, leapfrogs and moved; when x, r,
    logp0, logp_prop or delta_h differ on agreeing lanes by more than
    atol 1e-4 + rtol 1e-4; or when an output is not finite. Times both
-   (CUDA events; the kernel's median of 5, the plain version's of 3) at N=512
-   and at the batched shape 25 x 512.
+   (CUDA events; the kernel's median of 5, the plain version's one call) at
+   N=512 and at the batched shape 25 x 512.
    Then the staged dispatch at 25 x 512, depth 10: for Philox and zero bits,
    the accept-reject epilogue off and on (the zero-bits cloud holds a lane
    with a NaN density, the only kind zero bits reject), and r given, the
@@ -99,13 +102,34 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
    decreases and ends at 1; runs 0 and 24 equal their single runs to the
    bit; for the asymptotic strategy the estimates made inside the loop
    (save_history=False) equal those from the saved history to the bit.
+10. the eager backend on the card with the fused ARMA kernel, and the unfused
+   proposal path. (a) The fused ARMA value and gradient (K5) against its
+   plain version at 1, 513, 4,096, 12,800 and 1,048,576 lanes, with lanes at
+   log_sigma +-20 and +-60: equal to the bit, or within atol 1e-4 + rtol 1e-4
+   with the same non-finite lanes; timed with its plain version and its bound
+   at 4,096 (the eager tree's block), 12,800 and 1,048,576 lanes. (b) The
+   slice's path, run_smc_batched(make_arma(fused="cuda"), eager,
+   fused_epilogue=False) at 25 x 512 x K=100, depth 10, blocks of 4,096: K5
+   launched once per model evaluation of the tree, the whole-tree kernel and
+   the plain K5 never; finite series, the PARITY bands, runs 0 and 24 equal
+   their single runs; wall, and the profile of 2 iterations; then 3
+   iterations beside the plain ARMA loop (fused=None). (c) The unfused path
+   on the whole-tree kernel (momenta given, K1u), arma 25 x 512 x K=100:
+   forwards with the standard, a diagonal (var 2) and a dense momentum
+   proposal, and asymptotic with tempering; the bands, K dispatches with the
+   momenta given and no plain tree, runs 0 and 24 equal their single runs;
+   K1u against its plain version at 25 x 512 x depth 10, timed. (d) arma at
+   N = 1,048,576, one run, K = 2, eager with K5, in one block and in blocks
+   of 262,144: every field equal to the bit; wall and peak device memory of
+   each call, then the peak of one eager tree alone at each block size.
 
 The line before the last two repeats the card's name and power limit, the
 second-to-last line is a JSON object describing the kernels (for each: the
 launches on the main path, the error against its plain version, its time,
 the plain version's, and the least time the card could take for the same
-work, from this run's leapfrog count and bytes over the data-sheet peaks; no
-single PyTorch call builds a NUTS tree, so there is no library time); the
+work, from this run's leapfrog count or particle count and bytes over the
+data-sheet peaks; no single PyTorch call builds a NUTS tree or computes the
+fused ARMA value and gradient, so there is no library time); the
 last line is {"ok": true, "device": {...}}. Without a CUDA device, or without the
 repository beside it, the script fails before printing any result.
 """
@@ -227,10 +251,11 @@ def build_phase():
           f"{lib.eightschools_j}, logistic covariates {lib.logistic_dim}")
     n_inst = sum("Compiling entry" in line for line in lib.log.splitlines())
     if lib.build_seconds > 60.0:
-        raise AssertionError(f"the build of {n_inst} instantiations took "
+        raise AssertionError(f"the build of {n_inst} kernels took "
                              f"{lib.build_seconds:.1f} s, more than a minute")
-    print(f"{n_inst} kernel instantiations (first stage and continuation of "
-          f"each entry)")
+    print(f"{n_inst} kernels (the NUTS tree's first stage and continuation of "
+          f"each entry, and the fused ARMA value and gradient), one nvcc a "
+          f"source, all at once")
     for line in lib.log.splitlines():
         if ("Compiling entry" in line or "registers" in line or "spill" in line
                 or "stack frame" in line):
@@ -239,13 +264,18 @@ def build_phase():
 
 
 def reset_counts():
+    from smcnuts_torch.ops.arma_fused import arma_ll_vg, arma_ll_vg_plain
     from smcnuts_torch.ops.nuts_cuda import nuts_tree, nuts_tree_plain
 
     nuts_tree.launches = 0
     nuts_tree.model_launches = {k: 0 for k in nuts_tree.model_launches}
+    nuts_tree.r_given_launches = {k: 0 for k in nuts_tree.r_given_launches}
     nuts_tree.stage_launches = 0
     nuts_tree.cont_launches = {k: 0 for k in nuts_tree.cont_launches}
     nuts_tree_plain.calls = 0
+    nuts_tree_plain.model_calls = 0
+    arma_ll_vg.launches = 0
+    arma_ll_vg_plain.calls = 0
 
 
 def read_counts():
@@ -344,6 +374,19 @@ def bitwise_differences(a, b):
             if not bool(((u == v) | (torch.isnan(u) & torch.isnan(v))).all())]
 
 
+def equal_fields(a, b):
+    """Names of the SMCResult fields in which a and b differ in any bit."""
+    return [f for f, v in a._asdict().items()
+            if v is not None and not torch.equal(v, getattr(b, f))]
+
+
+def single_run_diff(one, res, b):
+    """Names of the fields in which the single run `one` differs from run b
+    of the batched result `res` in any bit."""
+    return [f for f, v in one._asdict().items()
+            if v is not None and not torch.equal(v, getattr(res, f)[b])]
+
+
 def bound_ms(name, out, survivors=(), bundle_rows=0):
     """(ms, "operations" | "bytes"): the least time the card could take for
     the trees of `out`: their model evaluations (the kernel's own leapfrogs
@@ -364,15 +407,15 @@ def bound_ms(name, out, survivors=(), bundle_rows=0):
 
 def time_pair(label, model, args, smi):
     """(kernel ms, plain ms): CUDA events; the kernel's median of 5 after one
-    warmup, the plain version's median of 3 (the caller has just run it on
+    warmup, the plain version's one call (the caller has just run it on
     these inputs, and one run takes seconds)."""
     from smcnuts_torch.ops.nuts_cuda import nuts_tree, nuts_tree_plain
     from smcnuts_torch.utils.timing import median_ms
 
     k_ms = median_ms(lambda: nuts_tree(model, *args), repeats=5)
-    p_ms = median_ms(lambda: nuts_tree_plain(model, *args), repeats=3, warmup=0)
+    p_ms = median_ms(lambda: nuts_tree_plain(model, *args), repeats=1, warmup=0)
     print(f"time {label}: kernel {k_ms:.4f} ms, plain {p_ms:.1f} ms "
-          f"(CUDA events, median of 5 and of 3; {smi})")
+          f"(CUDA events, median of 5 and one call; {smi})")
     return k_ms, p_ms
 
 
@@ -716,15 +759,13 @@ def compaction_on(label, name, model, cfg, res_auto, smi):
             cont = cont_counts
         results[turn] = res
     for turn, res in results.items():
-        diff = [f for f, v in res_auto._asdict().items()
-                if v is not None and not torch.equal(v, getattr(res, f))]
+        diff = equal_fields(res_auto, res)
         if diff:
             raise AssertionError(f"{label}: compaction {turn} differs from "
                                  f"\"auto\" in {diff}")
     for b in (0, RUNS - 1):
-        one = run_smc(model, cfgs["staged"], SEEDS[b], "cuda")
-        diff = [f for f, v in one._asdict().items()
-                if v is not None and not torch.equal(v, getattr(results["staged"], f)[b])]
+        diff = single_run_diff(run_smc(model, cfgs["staged"], SEEDS[b], "cuda"),
+                               results["staged"], b)
         if diff:
             raise AssertionError(f"{label}: staged run {b} differs from its "
                                  f"single run in {diff}")
@@ -778,8 +819,7 @@ def wide_auto_run(smi, tiles=4, k=5):
         if compaction:
             cont_auto = cont["prmwcd"]
         results[compaction] = res
-    diff = [f for f, v in results[None]._asdict().items()
-            if v is not None and not torch.equal(v, getattr(results["auto"], f))]
+    diff = equal_fields(results[None], results["auto"])
     if diff:
         raise AssertionError(f"wide run: \"auto\" differs from None in {diff}")
     print(f"prmwcd, {len(seeds)} runs x N={N} x K={k} ({len(seeds) * N} lanes, "
@@ -838,9 +878,7 @@ def batched_phase(smi):
             print(f"{label}: step size constant over iterations {w}..{K} of "
                   f"every run")
         for b in (0, RUNS - 1):
-            one = run_smc(model, cfg, SEEDS[b], "cuda")
-            diff = [f for f, v in one._asdict().items()
-                    if v is not None and not torch.equal(v, getattr(res, f)[b])]
+            diff = single_run_diff(run_smc(model, cfg, SEEDS[b], "cuda"), res, b)
             if diff:
                 raise AssertionError(f"{label}: run {b} differs from its single "
                                      f"run in {diff}")
@@ -1075,35 +1113,39 @@ def estimates_band(label, got_mean, got_var, ref_mean, ref_var):
 PROFILE_ITERATIONS = 20
 
 
-def profile_call(label, model, cfg, smi):
-    """Where an iteration's time goes: the first PROFILE_ITERATIONS iterations
-    of the SMC loop with RUNS runs (`smc_step` on the state of `init_state`,
-    as `run_smc_batched` drives it), once timed with CUDA events, then again
-    under torch.profiler (device activity only; the profiler slows the host,
-    so the wall time is the first pass's). Prints the device kernels per
-    iteration, the device's busy time and its idle share of the wall time. A
-    measurement, not a check: without device events it says so and goes on."""
+def profile_call(label, model, cfg, smi, momentum_proposal=None,
+                 iterations=PROFILE_ITERATIONS):
+    """Where an iteration's time goes: the first `iterations` iterations of
+    the SMC loop with RUNS runs (`smc_step` on the state of `init_state`, with
+    the draws of `iteration_draws`, as `run_smc_batched` drives it), once
+    timed with CUDA events, then again under torch.profiler (device activity
+    only; the profiler slows the host, so the wall time is the first pass's).
+    Prints the device kernels per iteration, the device's busy time, its idle
+    share of the wall time, and the time of the port's own kernels. A
+    measurement, not a check: without device events it says so and goes
+    on."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from smcnuts_torch.ops.draws import PHILOX, recycle_draws, run_draws
-    from smcnuts_torch.sampler import init_state, smc_step
+    from smcnuts_torch.ops.draws import PHILOX
+    from smcnuts_torch.sampler import (
+        init_state, iteration_draws, resolve_backend, smc_step, uses_fused_path)
     from smcnuts_torch.utils.timing import CudaTimer
 
-    k = min(PROFILE_ITERATIONS, cfg.n_iterations)
+    k = min(iterations, cfg.n_iterations)
     model = model.to("cuda")
     start = init_state(model, cfg, SEEDS, "cuda")
     seeds = torch.tensor(SEEDS, dtype=torch.int64, device="cuda")
-    n = cfg.n_particles
-    uniforms, tree_seeds = run_draws(seeds, range(k), n, start.x.dtype)
-    streaming = cfg.is_asymptotic and not cfg.save_history
-    recycle = recycle_draws(seeds, range(k), n, start.x.dtype) if streaming else None
+    backend = resolve_backend(cfg, torch.device("cuda"))
+    step_draws = iteration_draws(cfg, seeds, range(k), cfg.n_particles, model.dim,
+                                 start.x.dtype, uses_fused_path(cfg, momentum_proposal))
 
     def loop():
         carry = start
         for i in range(k):
-            carry, _ = smc_step(model, cfg, carry, uniforms[i], tree_seeds[i], "cuda",
-                                PHILOX, recycle[i] if streaming else None)
+            carry, _ = smc_step(model, cfg, carry, backend=backend, draws=PHILOX,
+                                momentum_proposal=momentum_proposal,
+                                **{name: v[i] for name, v in step_draws.items()})
         torch.cuda.synchronize()
 
     loop()
@@ -1118,14 +1160,19 @@ def profile_call(label, model, cfg, smi):
               f"iteration and idle share not measured")
         return
     busy_ms = sum(e.time_range.elapsed_us() for e in events) / 1e3
-    tree_ms = sum(e.time_range.elapsed_us() for e in kernels
-                  if "nuts_tree_kernel" in e.name) / 1e3
+    own = []
+    for name in ("nuts_tree_kernel", "arma_ll_vg_kernel"):
+        mine = [e for e in kernels if name in e.name]
+        if mine:
+            ms = sum(e.time_range.elapsed_us() for e in mine) / 1e3
+            own.append(f"{name} {len(mine) / k:.1f} launches and {ms / k:.3f} ms an "
+                       f"iteration, {ms / busy_ms:.3f} of the device time")
     print(f"{label}: iterations 0..{k - 1} of the loop, {RUNS} runs: "
           f"{t.ms / k:.3f} ms an iteration (CUDA events, unprofiled); under "
           f"torch.profiler {len(kernels) / k:.1f} device kernels an iteration, "
           f"device busy {busy_ms / k:.3f} ms an iteration, idle share "
-          f"{1.0 - busy_ms / t.ms:.3f}; the NUTS kernel {tree_ms / k:.3f} ms an "
-          f"iteration, {tree_ms / busy_ms:.3f} of the device time ({smi})")
+          f"{1.0 - busy_ms / t.ms:.3f}; {'; '.join(own) or 'no kernel of the port'} "
+          f"({smi})")
 
 
 def strategy_run(label, name, model, cfg, smi, profiled=False):
@@ -1179,9 +1226,7 @@ def strategy_run(label, name, model, cfg, smi, profiled=False):
           f"{int(res.resampled.sum())}/{RUNS * k}, final ESS mean "
           f"{float(res.ess[:, k].mean()):.1f}")
     for b in (0, RUNS - 1):
-        one = run_smc(model, cfg, SEEDS[b], "cuda")
-        diff = [f for f, v in one._asdict().items()
-                if v is not None and not torch.equal(v, getattr(res, f)[b])]
+        diff = single_run_diff(run_smc(model, cfg, SEEDS[b], "cuda"), res, b)
         if diff:
             raise AssertionError(f"{label}: run {b} differs from its single run "
                                  f"in {diff}")
@@ -1275,6 +1320,319 @@ def strategies_phase(smi):
                            ref.variance_estimate[REF_K])
     return launches
 
+# ---- phase 10: the eager backend with the fused ARMA kernel (K5), the
+# unfused proposal path on the whole-tree kernel (K1u), a wide eager run.
+
+# FP32 operations of one particle in the fused ARMA kernel, counted from
+# arma_loglik_grad (csrc/arma_model.cuh), the recurrence OPS_PER_LEAPFROG
+# counts for the arma leapfrog: 19 a step of the T = 200 recurrence (3 for
+# b_t, 2 each for the error and its three tangents, 2 each for the four sums;
+# a negation folds into its FADD or FMUL and costs nothing) and 20 around it
+# (8 for the first step, 12 for the loglik and gradient, expf as one).
+ARMA_T = 200
+ARMA_FUSED_OPS = 19 * (ARMA_T - 1) + 20
+ARMA_FUSED_SIZES = (1, 513, 4096, RUNS * N, 1 << 20)
+# The main path's shape: a leaf of the eager tree evaluates one block of
+# eager_block_size = 4096 lanes (the last block of 25 x 512 holds 512).
+EAGER_BLOCK = 4096
+ARMA_FUSED_TIMED = (EAGER_BLOCK, RUNS * N, 1 << 20)
+WIDE_N, WIDE_K, WIDE_BLOCK = 1 << 20, 2, 1 << 18
+FULL_COV = ((1.5, 0.3, 0.0, 0.0), (0.3, 1.0, 0.2, 0.0), (0.0, 0.2, 0.8, 0.0),
+            (0.0, 0.0, 0.0, 1.2))
+
+
+def fused_cloud(n, seed, device):
+    """theta (n, 4) for the fused kernel: the arma cloud of `particles`, and
+    where n allows, lanes with log_sigma = +-20 and +-60 (inv_s2 of e^-40,
+    e^40, 0 and inf in float32)."""
+    x = particles(n, seed, device).contiguous()
+    for i, ls in enumerate((20.0, -20.0, 60.0, -60.0)):
+        if 4 * (i + 1) < n:
+            x[4 * (i + 1), 3] = ls
+    return x
+
+
+def fused_bound_ms(n):
+    """(ms, by): the fused kernel's least time for n particles: n x
+    ARMA_FUSED_OPS over the FP32 peak, or 16 bytes in and 20 out a particle
+    and y once over the memory rate, whichever is larger."""
+    t_ops = 1e3 * n * ARMA_FUSED_OPS / PEAK_FP32
+    t_bytes = 1e3 * (36 * n + 4 * ARMA_T) / PEAK_BYTES
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def arma_fused_kernel_phase(smi):
+    """10a: the fused ARMA kernel against its plain version on the same CUDA
+    inputs at five sizes: equal to the bit, or within atol 1e-4 + rtol 1e-4
+    with the same non-finite lanes (same value, inf of one sign or NaN).
+    Timed (CUDA events, median of 5) with its plain version and its bound
+    at the main path's block, 4,096 lanes, at 25 x 512 and at 1,048,576."""
+    from smcnuts_torch.models import get_model
+    from smcnuts_torch.ops.arma_fused import arma_ll_vg, arma_ll_vg_plain
+    from smcnuts_torch.utils.timing import median_ms
+
+    phase("10a. fused ARMA value and gradient (K5) vs plain")
+    dev = torch.device("cuda")
+    y = get_model("arma").to(dev).y32
+    worst, times = 0.0, {}
+    for n in ARMA_FUSED_SIZES:
+        theta = fused_cloud(n, 40 + n % 97, dev)
+        out_k, out_p = arma_ll_vg(theta, y), arma_ll_vg_plain(theta, y)
+        torch.cuda.synchronize()
+        bitwise, nonfinite = True, 0
+        for name, a, b in (("loglik", out_k[0], out_p[0]), ("grad", out_k[1], out_p[1])):
+            same = (a == b) | (torch.isnan(a) & torch.isnan(b))
+            finite = torch.isfinite(a) & torch.isfinite(b)
+            if not bool((finite | same).all()):
+                raise AssertionError(f"K5 at {n} lanes: {name} is not finite where the "
+                                     f"plain version holds another value")
+            d = torch.where(same, torch.zeros_like(a), (a - b).abs())
+            if bool((d > ATOL + RTOL * b.abs()).any()):
+                raise AssertionError(f"K5 at {n} lanes: {name} differs beyond atol "
+                                     f"{ATOL} + rtol {RTOL}")
+            worst = max(worst, float(d.max()))
+            bitwise = bitwise and bool(same.all())
+            nonfinite += int((~finite).sum())
+        print(f"K5 at {n} lanes: {'equal to the bit' if bitwise else 'within tolerance'}"
+              f", {nonfinite} non-finite values on both sides alike")
+    for n in ARMA_FUSED_TIMED:
+        theta = fused_cloud(n, 7, dev)
+        ms = median_ms(lambda: arma_ll_vg(theta, y), repeats=5)
+        plain_ms = median_ms(lambda: arma_ll_vg_plain(theta, y), repeats=5)
+        bound, by = fused_bound_ms(n)
+        times[n] = (ms, plain_ms, bound, by)
+        print(f"time K5 at {n} lanes: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+              f"bound {bound:.5f} ms by {by} (CUDA events, median of 5; {smi})")
+    ms, plain_ms, bound, by = times[ARMA_FUSED_TIMED[0]]
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": by}
+
+
+def eager_config(**kw):
+    from smcnuts_torch import SMCConfig
+
+    return SMCConfig(n_particles=N, n_iterations=K, step_size=STEP,
+                     max_tree_depth=MAX_DEPTH, nuts_backend="eager",
+                     fused_epilogue=False, **kw)
+
+
+def eager_arma_phase(smi):
+    """10b: the slice's path at full width, run_smc_batched(make_arma(
+    fused="cuda"), eager, fused_epilogue=False) with 25 runs x 512 x K=100 at
+    the default eager_block_size: K5 launched once per model evaluation of
+    the tree, the whole-tree kernel and the plain K5 never; finite series,
+    the PARITY bands, runs 0 and 24 equal to their single runs. Then 3
+    iterations against the plain ARMA loop (fused=None). Returns K5's
+    launches."""
+    import dataclasses
+
+    from smcnuts_torch import run_smc, run_smc_batched
+    from smcnuts_torch.models import make_arma
+    from smcnuts_torch.ops.arma_fused import arma_ll_vg, arma_ll_vg_plain
+    from smcnuts_torch.ops.nuts_cuda import nuts_tree_plain
+    from smcnuts_torch.utils.timing import CudaTimer
+
+    phase(f"10b. eager arma path with K5, {RUNS} runs x N={N} x K={K}")
+    cfg = eager_config()
+    label = "arma eager, fused=\"cuda\", unfused proposal"
+    reset_counts()
+    t0 = time.perf_counter()
+    with CudaTimer() as t:
+        res = run_smc_batched(make_arma(fused="cuda"), cfg, SEEDS, "cuda")
+        res.mean_estimate[:, K].cpu()
+    host_s = time.perf_counter() - t0
+    counts, plain_calls = read_counts()
+    k5, evals = arma_ll_vg.launches, nuts_tree_plain.model_calls
+    print(f"{label}: K5 launches {k5}, model evaluations of the tree {evals}, "
+          f"plain tree calls {plain_calls}, whole-tree kernel {counts}, plain K5 "
+          f"calls {arma_ll_vg_plain.calls}")
+    if not (k5 == evals > 0 and plain_calls == K and sum(counts.values()) == 0
+            and arma_ll_vg_plain.calls == 0):
+        raise AssertionError(f"{label}: K5 must run every model evaluation of the "
+                             f"eager tree, and nothing else may run")
+    check_series(label, res, K)
+    print(f"{label}: wall {t.ms:.1f} ms (CUDA events, results on the host; host "
+          f"clock {host_s:.3f} s), {t.ms / K:.1f} ms an iteration, "
+          f"{RUNS * N * K / (t.ms / 1000.0):.0f} particle-iterations/s, "
+          f"{k5 / K:.1f} K5 launches an iteration ({smi})")
+    print(f"{label}: mean tree depth {float(res.tree_depth[:, :K].mean()):.3f}, "
+          f"leapfrogs per particle-iteration {float(res.tree_leapfrogs[:, :K].mean()):.2f}, "
+          f"acceptance {float(res.acceptance_rate[:, :K].mean()):.3f}, resampled "
+          f"{int(res.resampled.sum())}/{RUNS * K}")
+    parity_bands(label, "arma", res.mean_estimate[:, K].cpu(), res.variance_estimate[:, K])
+    for b in (0, RUNS - 1):
+        diff = single_run_diff(run_smc(make_arma(fused="cuda"), cfg, SEEDS[b], "cuda"),
+                               res, b)
+        if diff:
+            raise AssertionError(f"{label}: run {b} differs from its single run in {diff}")
+    print(f"{label}: runs 0 and {RUNS - 1} equal their single runs, bit for bit")
+    # Two iterations: an eager iteration takes seconds, and the profile runs three.
+    profile_call(label, make_arma(fused="cuda"), dataclasses.replace(cfg, n_iterations=2),
+                 smi, iterations=2)
+    # What K5 removes: three iterations with the plain ARMA loop as the model.
+    short = dataclasses.replace(cfg, n_iterations=3)
+    walls = {}
+    for name, fused in (("K5", "cuda"), ("plain ARMA loop", None)):
+        with CudaTimer() as t:
+            out = run_smc_batched(make_arma(fused=fused), short, SEEDS, "cuda")
+            out.mean_estimate[:, 3].cpu()
+        walls[name] = (t.ms, out)
+    same = not equal_fields(walls["K5"][1], walls["plain ARMA loop"][1])
+    print(f"{label}, K=3: {walls['K5'][0] / 3:.1f} ms an iteration with K5, "
+          f"{walls['plain ARMA loop'][0] / 3:.1f} ms with the plain ARMA loop "
+          f"(fused=None); results {'equal to the bit' if same else 'differ'} "
+          f"(CUDA events; {smi})")
+    return k5
+
+
+def unfused_kernel_phase(smi):
+    """10c: the unfused proposal path on the whole-tree kernel (momenta given,
+    K1u): arma 25 x 512 x K=100 with fused_epilogue=False, forwards with the
+    standard, a diagonal and a dense momentum proposal, and asymptotic with
+    tempering: inside the bands, K dispatches with the momenta given and no
+    plain tree, runs 0 and 24 equal their single runs. Then K1u against its
+    plain version at 25 x 512, depth 10, timed. Returns (r-given launches,
+    what the kernels line says of K1u)."""
+    from smcnuts_torch import (
+        DiagNormalProposal, FullNormalProposal, SMCConfig, run_smc, run_smc_batched)
+    from smcnuts_torch.models import get_model
+    from smcnuts_torch.ops.draws import PHILOX
+    from smcnuts_torch.ops.nuts_cuda import nuts_tree, nuts_tree_plain
+    from smcnuts_torch.utils.timing import CudaTimer, median_ms
+
+    phase(f"10c. unfused proposal path on the kernel (K1u), {RUNS} runs x N={N} x K={K}")
+    base = dict(n_particles=N, n_iterations=K, step_size=STEP,
+                max_tree_depth=MAX_DEPTH, fused_epilogue=False)
+    forwards = SMCConfig(**base)
+    cases = (
+        ("forwards, standard momentum", forwards, None),
+        ("forwards, DiagNormalProposal(var=2)", forwards,
+         DiagNormalProposal(4, var=(2.0, 2.0, 2.0, 2.0))),
+        ("forwards, FullNormalProposal", forwards,
+         FullNormalProposal(mean=(0.0,) * 4, cov=FULL_COV)),
+        ("asymptotic, tempered", SMCConfig(**base, lkernel="asymptoticLKernel",
+                                           tempering=True), None),
+    )
+    model = get_model("arma")
+    r_given = 0
+    for name, cfg, mp in cases:
+        label = f"arma unfused, {name}"
+        reset_counts()
+        with CudaTimer() as t:
+            res = run_smc_batched(model, cfg, SEEDS, "cuda", momentum_proposal=mp)
+            res.mean_estimate[:, K].cpu()
+        counts, plain_calls = read_counts()
+        given = nuts_tree.r_given_launches["arma"]
+        if counts["arma"] != K or given != K or plain_calls != 0:
+            raise AssertionError(f"{label}: {counts} dispatches, {given} with the "
+                                 f"momenta given, {plain_calls} plain calls")
+        r_given += given
+        check_series(label, res, K)
+        print(f"{label}: {K} dispatches with the momenta given, no plain call; wall "
+              f"{t.ms:.1f} ms (CUDA events, results on the host; {smi}); acceptance "
+              f"{float(res.acceptance_rate[:, :K].mean()):.3f}, final ESS mean "
+              f"{float(res.ess[:, K].mean()):.1f}")
+        parity_bands(label, "arma", res.mean_estimate[:, K].cpu(), res.variance_estimate[:, K])
+        for b in (0, RUNS - 1):
+            diff = single_run_diff(
+                run_smc(model, cfg, SEEDS[b], "cuda", momentum_proposal=mp), res, b)
+            if diff:
+                raise AssertionError(f"{label}: run {b} differs from its single run in {diff}")
+        print(f"{label}: runs 0 and {RUNS - 1} equal their single runs, bit for bit")
+    dev = torch.device("cuda")
+    model = model.to(dev)
+    args = (particles(RUNS * N, 8, dev).view(RUNS, N, 4),
+            torch.arange(RUNS, dtype=torch.int32, device=dev), STEP, 1.0,
+            torch.ones(4, device=dev), MAX_DEPTH, PHILOX)
+    r = torch.randn(RUNS, N, 4, generator=torch.Generator(device=dev).manual_seed(9),
+                    device=dev)
+    out = nuts_tree(model, *args, r=r)
+    worst = check_outputs(f"K1u [philox] r given, {RUNS} x {N}, depth {MAX_DEPTH}",
+                          out, nuts_tree_plain(model, *args, r=r))
+    ms = median_ms(lambda: nuts_tree(model, *args, r=r), repeats=5)
+    plain_ms = median_ms(lambda: nuts_tree_plain(model, *args, r=r), repeats=1, warmup=0)
+    bound, by = bound_ms("arma", out)
+    print(f"time K1u {RUNS} x {N} x depth {MAX_DEPTH} [philox, r given]: kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.1f} ms (CUDA events, median of 5 and one call); "
+          f"bound {bound:.5f} ms by {by} ({smi})")
+    return r_given, {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bound, "bound_by": by}
+
+
+def wide_eager_phase(smi):
+    """10d: arma at N = 1,048,576, one run, K = 2, on the eager tree with K5,
+    in one block and in blocks of WIDE_BLOCK: every field equal to the bit;
+    the wall and the peak device memory of each call. Then the tree's own
+    peak: one eager tree (momenta given, as on the unfused path) on the run's
+    final particles at each block size, the peak counter reset just before
+    it and read above the memory held at its start."""
+    import dataclasses
+
+    from smcnuts_torch import run_smc_batched
+    from smcnuts_torch.models import make_arma
+    from smcnuts_torch.ops.arma_fused import arma_ll_vg
+    from smcnuts_torch.ops.draws import PHILOX
+    from smcnuts_torch.ops.nuts_cuda import STAT_KEYS, nuts_tree_plain
+    from smcnuts_torch.utils.timing import CudaTimer
+
+    phase(f"10d. wide eager run, arma N={WIDE_N}, K={WIDE_K}")
+    cfg = dataclasses.replace(eager_config(), n_particles=WIDE_N, n_iterations=WIDE_K)
+    results = {}
+    for block in (None, WIDE_BLOCK):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        with CudaTimer() as t:
+            res = run_smc_batched(make_arma(fused="cuda"),
+                                  dataclasses.replace(cfg, eager_block_size=block),
+                                  [SEED], "cuda")
+            res.mean_estimate[:, WIDE_K].cpu()
+        check_series(f"wide eager, block {block}", res, WIDE_K)
+        print(f"arma eager N={WIDE_N} K={WIDE_K}, eager_block_size {block}: wall "
+              f"{t.ms:.1f} ms (CUDA events), peak device memory of the call "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB, K5 launches "
+              f"{arma_ll_vg.launches}, mean tree depth "
+              f"{float(res.tree_depth[:, :WIDE_K].mean()):.3f} ({smi})")
+        results[block] = res
+    diff = equal_fields(results[None], results[WIDE_BLOCK])
+    if diff:
+        raise AssertionError(f"wide eager run: blocks of {WIDE_BLOCK} differ from one "
+                             f"block in {diff}")
+    print(f"wide eager run: blocks of {WIDE_BLOCK} equal one block in every field, "
+          f"bit for bit")
+    model = make_arma(fused="cuda").to("cuda")
+    x = results[None].x_final.contiguous()
+    r = torch.randn(x.shape, generator=torch.Generator(device="cuda").manual_seed(3),
+                    device="cuda")
+    trees = {}
+    for block in (None, WIDE_BLOCK):
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        trees[block] = nuts_tree_plain(model, x, torch.tensor([SEED], dtype=torch.int32,
+                                                              device="cuda"),
+                                       STEP, 1.0, None, MAX_DEPTH, PHILOX, r=r,
+                                       block_size=block)
+        torch.cuda.synchronize()
+        print(f"eager tree N={WIDE_N}, eager_block_size {block}: its own peak "
+              f"{(torch.cuda.max_memory_allocated() - held) / 2**30:.3f} GiB above the "
+              f"{held / 2**30:.3f} GiB held before it ({smi})")
+    a, b = trees[None], trees[WIDE_BLOCK]
+    pairs = [(a[0], b[0]), (a[1], b[1])] + [(a[2][k], b[2][k]) for k in STAT_KEYS]
+    if not all(bool(((u == v) | (u.isnan() & v.isnan())).all()) for u, v in pairs):
+        raise AssertionError("wide eager tree: blocks differ from one block")
+    print(f"eager tree N={WIDE_N}: blocks of {WIDE_BLOCK} equal one block, bit for bit")
+
+
+def fused_phase(smi):
+    """Phase 10: returns what the kernels line says of K5 and K1u."""
+    k5 = arma_fused_kernel_phase(smi)
+    k5["launches"] = eager_arma_phase(smi)
+    r_given, k1u = unfused_kernel_phase(smi)
+    k1u["launches"] = r_given
+    wide_eager_phase(smi)
+    return k5, k1u
+
 
 def partial_run(only, smi):
     """The phases named in `only` (after device and build), for development:
@@ -1282,7 +1640,9 @@ def partial_run(only, smi):
     phases = {"arma": arma_kernel_phase, "prmwcd": prmwcd_kernel_phase,
               "main": main_path_phase, "batched": batched_phase,
               "staged_times": staged_times_phase, "cli": lambda smi: cli_phase(),
-              "autodiff": autodiff_kernels_phase, "strategies": strategies_phase}
+              "autodiff": autodiff_kernels_phase, "strategies": strategies_phase,
+              "fused_kernel": arma_fused_kernel_phase, "eager": eager_arma_phase,
+              "unfused": unfused_kernel_phase, "wide_eager": wide_eager_phase}
     for key in only:
         phases[key](smi)
     print(f"\nchip_smoke: partial run of {only} passed; no result line")
@@ -1304,8 +1664,10 @@ def main():
     autodiff = autodiff_kernels_phase(smi)
     strategies = strategies_phase(smi)
     strategies["eightschools"] += schools_cli
+    k5, k1u = fused_phase(smi)
     source = "smcnuts_torch/csrc/nuts_tree.cu"
-    # No single PyTorch call builds a NUTS tree, so no kernel has a library time.
+    # No single PyTorch call builds a NUTS tree or computes the fused ARMA
+    # value and gradient, so no kernel has a library time.
     kernels = [
         dict(name="nuts_tree_arma", route="cuda", source=source,
              replaces="smcnuts_tpu/ops/nuts_pallas.py:154",
@@ -1331,6 +1693,14 @@ def main():
              replaces="smcnuts_tpu/ops/nuts_pallas.py:1094",
              launches=strategies[model], **autodiff[model])
         for model in AUTODIFF_MODELS
+    ]
+    kernels += [
+        # K5: the fused ARMA value and gradient that the eager tree calls.
+        dict(name="arma_ll_vg", route="cuda", source="smcnuts_torch/csrc/arma_fused.cu",
+             replaces="smcnuts_tpu/ops/arma_fused.py:115", **k5),
+        # K1u: the whole-tree kernel with the momenta given (the unfused path).
+        dict(name="nuts_tree_arma_r_given", route="cuda", source=source,
+             replaces="smcnuts_tpu/ops/nuts_pallas.py:999", **k1u),
     ]
     for kernel in kernels:
         kernel["library_ms"] = None

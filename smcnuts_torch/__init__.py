@@ -7,20 +7,25 @@ schools, logistic regression), B independent runs batched into one NUTS
 launch per iteration (`run_smc_batched`), the three L-kernel strategies
 (asymptotic with tempered recycling, forwards, Gaussian approximation),
 adaptive tempering, step-size and diagonal mass adaptation, multinomial and
-systematic resampling, and the whole-tree NUTS proposal as a CUDA kernel per
-model (`ops/nuts_cuda.py`), run whole or in stages with lane compaction
-inside the kernel, with its plain PyTorch version. The entry points run on
-the card unless the caller asks for "cpu".
+systematic resampling, the fused and the unfused proposal paths (momenta
+drawn inside the tree, or outside it from a custom momentum proposal), and
+the whole-tree NUTS proposal as a CUDA kernel per model (`ops/nuts_cuda.py`),
+run whole or in stages with lane compaction inside the kernel, with its plain
+PyTorch version, which is also the eager backend, run in blocks of lanes; for
+arma that backend can take the likelihood's value and gradient from a fused
+CUDA kernel (`make_arma(fused="cuda")`, `ops/arma_fused.py`). The entry
+points run on the card unless the caller asks for "cpu".
 """
 
 __version__ = "0.1.0"
 
 from .config import SMCConfig
-from .proposals import DiagNormalProposal
+from .proposals import DiagNormalProposal, FullNormalProposal
 from .sampler import SMCSampler, run_smc, run_smc_batched
 
 __all__ = [
     "DiagNormalProposal",
+    "FullNormalProposal",
     "SMCConfig",
     "SMCSampler",
     "run_smc",

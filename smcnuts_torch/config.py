@@ -2,15 +2,22 @@
 
 The validation is the same. Two fields are renamed for this backend:
 `nuts_backend` takes "auto", "eager" or "cuda", and `pallas_compaction`
-becomes `compaction`. `xla_block_size` becomes `eager_block_size`.
+becomes `compaction`. `xla_block_size` becomes `eager_block_size`, with the
+same default of 4096.
 
-The port runs the JAX package's fused proposal path: the three L-kernel
-strategies (asymptotic, forwards, Gaussian approximation), adaptive tempering,
-step-size and diagonal mass adaptation, multinomial and systematic resampling,
-and the whole-tree NUTS proposal as one kernel or staged with lane compaction.
-The two settings still outside it (the unfused proposal path and the
-block-bounded eager tree) raise `NotImplementedError` naming the ROADMAP item
-that will bring them, so no setting is ever silently ignored.
+Every setting runs: the three L-kernel strategies (asymptotic, forwards,
+Gaussian approximation), adaptive tempering, step-size and diagonal mass
+adaptation, multinomial and systematic resampling, the whole-tree NUTS
+proposal as one kernel or staged with lane compaction, the fused and the
+unfused proposal paths, and the eager tree in blocks.
+
+One deliberate difference: the JAX package's XLA backend is always unfused
+(momenta drawn outside the tree, the asymptotic accept-reject outside it),
+and only its Pallas backend honours `fused_epilogue`. Here the eager tree is
+also the plain version of the whole-tree kernel, so both backends honour it,
+and the kernel and its plain version keep agreeing to the bit; the
+counterpart of the JAX XLA path is `nuts_backend="eager",
+fused_epilogue=False`.
 """
 
 from __future__ import annotations
@@ -20,12 +27,6 @@ import dataclasses
 LKERNELS = ("asymptoticLKernel", "forwardsLKernel", "GaussianApproxLKernel")
 RESAMPLERS = ("multinomial", "systematic")
 NUTS_BACKENDS = ("auto", "eager", "cuda")
-
-
-def _not_in_slice(setting: str, item: str):
-    raise NotImplementedError(
-        f"{setting} is not ported to smcnuts_torch yet (ROADMAP {item})"
-    )
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,21 +49,35 @@ class SMCConfig:
     target_accept: float = 0.8
     adapt_warmup_frac: float = 0.5
     dtype: str = "float32"
-    # "eager": the plain PyTorch tree (`ops.nuts_cuda.nuts_tree_plain`), for
-    # CPU tensors; "cuda": the hand-written whole-tree kernel; "auto": cuda
-    # for CUDA tensors and eager for CPU tensors. Never a fallback.
+    # "eager": the plain PyTorch tree (`ops.nuts_cuda.nuts_tree_plain`), on
+    # the CPU or the card (there it runs the model's logp_and_grad once a
+    # leaf: arma with fused="cuda" is one kernel launch); "cuda": the
+    # hand-written whole-tree kernel; "auto": cuda for CUDA tensors and eager
+    # for CPU tensors, never eager on a card. Never a fallback.
     nuts_backend: str = "auto"
-    # Lockstep bound of the eager tree; None = all particles in one pass.
-    eager_block_size: int | None = None
+    # Lockstep bound of the eager tree: the B x N lanes go through in
+    # sequential blocks of this many, so one deep tree stalls only its block
+    # and the live state is one block's (arma at N = 1,048,576 on an NVIDIA
+    # H100: the tree's own peak 1.66 GiB in one block, 0.71 GiB in blocks of
+    # 262,144; PERF.md); None = all lanes in one pass. Every output is equal
+    # to the bit for any value. Ignored by the kernel.
+    eager_block_size: int | None = 4096
     # Below this temperature the tempered non-asymptotic path evaluates the
     # log-likelihood directly instead of recovering it from the tree's cached
     # density (`sampler._recover_loglik`); 0.0 disables.
     cached_loglik_min_phi: float = 1e-2
+    # The fused proposal path: momenta drawn inside the tree, the asymptotic
+    # accept-reject in its epilogue, the reweight from its outputs. Used
+    # where the JAX package's Pallas backend uses it: with mass adaptation or
+    # the standard momentum proposal. False (or a custom momentum proposal):
+    # momenta drawn outside and handed to the tree, the accept-reject and
+    # the momentum densities outside (`sampler.smc_step`).
     fused_epilogue: bool = True
     # Doublings after which the tree build pauses and the lanes still at
     # work are packed densely (the staged dispatch of `ops.nuts_cuda`), on
-    # both backends. "auto" takes the model's hint
-    # (`sampler.resolve_compaction`); None or () runs the single kernel.
+    # both backends. "auto" takes the model's hint on the kernel
+    # (`sampler.resolve_compaction`) and no splits on the eager tree; None or
+    # () runs the single kernel.
     compaction: str | tuple | None = "auto"
 
     def __post_init__(self):
@@ -119,14 +134,6 @@ class SMCConfig:
             )
         if self.dtype not in ("float32", "float64"):
             raise ValueError(f"dtype must be float32 or float64, got {self.dtype}")
-        self._check_slice()
-
-    def _check_slice(self):
-        """Raise for every valid setting this port does not run yet."""
-        if not self.fused_epilogue:
-            _not_in_slice("fused_epilogue=False", "Queue 1 item 5")
-        if self.eager_block_size is not None:
-            _not_in_slice("eager_block_size", "Queue 1 item 4")
 
     @property
     def is_asymptotic(self) -> bool:

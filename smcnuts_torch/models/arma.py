@@ -9,6 +9,14 @@ err_t ~ N(0, sigma), scaled by the temperature phi.
 
 The data are read by path from the JAX package's asset file; reading the
 file imports nothing of that package.
+
+`make_arma(fused=...)` takes the likelihood's value and gradient from the
+fused function of `ops/arma_fused.py` (the JAX model's `loglik_vg`): "cuda"
+the hand-written kernel, "plain" its plain version, None (the default) the
+same recurrence inline. The eager NUTS tree then evaluates the tempered density
+as the closed-form prior value and gradient + phi * loglik_vg, which is how
+the JAX package's XLA backend composes it (`sampler.py:352-360`). The
+whole-tree CUDA kernel ignores `fused`: it inlines `csrc/arma_model.cuh`.
 """
 
 from __future__ import annotations
@@ -20,6 +28,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..ops.arma_fused import arma_loglik_grad, make_arma_loglik_vg
 from .base import EVERY_DEPTH, LOG_SQRT_2PI, cauchy_lpdf, normal_lpdf
 
 ASSET = os.path.join(
@@ -42,7 +51,7 @@ class ArmaModel(nn.Module):
     """ARMA(1,1) target; `y` is a float64 buffer that follows `.to(device)`.
 
     In float32 the model works on y rounded to float32, as the JAX package
-    does with x64 off."""
+    does with x64 off. `fused`: None, "cuda" or "plain" (module docstring)."""
 
     name = "arma"
     dim = 4
@@ -51,12 +60,17 @@ class ArmaModel(nn.Module):
     compaction_hint = EVERY_DEPTH  # measured on an H100, see models/base.py
     compaction_hint_adapted = EVERY_DEPTH
 
-    def __init__(self, y=None):
+    def __init__(self, y=None, fused=None):
         super().__init__()
+        if fused not in (None, "cuda", "plain"):
+            raise ValueError(f"fused must be None, 'cuda' or 'plain', got {fused!r}")
+        self.fused = fused
         if y is None:
             y = load_asset()["y"]
         y = np.asarray(y, np.float64)
         self.register_buffer("y", torch.as_tensor(y))
+        self.register_buffer("y32", torch.as_tensor(y.astype(np.float32)),
+                             persistent=False)
         # Host copies of the data as Python floats, per working dtype: the
         # recurrences take them as scalars, so no step reads device memory
         # for y and nothing syncs with the device.
@@ -68,6 +82,17 @@ class ArmaModel(nn.Module):
     @property
     def T(self) -> int:
         return len(self._y_host[torch.float64])
+
+    def _y(self, dtype):
+        return self.y32 if dtype == torch.float32 else self.y.to(dtype)
+
+    def _loglik_vg(self, x):
+        """(loglik (N,), grad (N, 4)) of x: the recurrence inline, or with
+        `fused` the kernel ("cuda") or its plain version ("plain")."""
+        y = self._y(x.dtype)
+        if self.fused is None:
+            return arma_loglik_grad(x, y)
+        return make_arma_loglik_vg(y, self.fused)(x)
 
     def _data(self, x):
         """(y as Python floats, b_t = (y_t - mu) - beta*y_{t-1} for t >= 1)."""
@@ -106,31 +131,11 @@ class ArmaModel(nn.Module):
         and their gradients then follow in closed form. The arithmetic is
         written op for op as the kernel's device function
         (`csrc/arma_model.cuh`) and the JAX package's `arma_tile_model`, so
-        the three round alike. Columns of `e` are [err, emu, eb, eth]."""
+        the three round alike. With `fused` the likelihood part is the fused
+        value and gradient (`ops/arma_fused.py`)."""
         mu, beta, th, ls = x.unbind(-1)
-        yl, b = self._data(x)
-        T = self.T
-        err = (yl[0] - mu) - beta * mu
-        e = torch.stack([err, -1.0 - beta, -mu, torch.zeros_like(mu)], dim=1)
-        acc = err[:, None] * e  # [s2, smu, sb, sth]
-        # Per step: e' = c - theta * e with c = [b_t, -1, -y_{t-1}, -err].
-        const = torch.stack(
-            [b, torch.full_like(b, -1.0),
-             (-self.y[:-1].to(x.dtype)).expand_as(b)], dim=2,
-        )
-        th_col = th[:, None]
-        for t in range(1, T):
-            c = torch.cat([const[:, t - 1], -e[:, 0:1]], dim=1)
-            e = c - th_col * e
-            acc = acc + e[:, 0:1] * e
-        s2, smu, sb, sth = acc.unbind(1)
-
-        inv_s2 = torch.exp(-2.0 * ls)
-        ll = -T * (LOG_SQRT_2PI + ls) - 0.5 * s2 * inv_s2
-        gl_mu = -smu * inv_s2
-        gl_beta = -sb * inv_s2
-        gl_th = -sth * inv_s2
-        gl_ls = -T + s2 * inv_s2
+        ll, gl = self._loglik_vg(x)
+        gl_mu, gl_beta, gl_th, gl_ls = gl.unbind(1)
 
         z = torch.exp(ls) / 2.5
         lprior = (
@@ -158,8 +163,8 @@ class ArmaModel(nn.Module):
         return torch.cat([x[:, :3], torch.exp(x[:, 3:4])], dim=1)
 
 
-def make_arma(y=None) -> ArmaModel:
-    return ArmaModel(y)
+def make_arma(y=None, fused=None) -> ArmaModel:
+    return ArmaModel(y, fused)
 
 
 def ground_truth():

@@ -6,7 +6,10 @@
   MH ratio that the tree accumulates.
 - Mass matrix: the diagonal inverse mass becomes each run's weighted particle
   variance in unconstrained space, smoothed geometrically against the
-  previous estimate.
+  previous estimate; on the unfused proposal path the momenta are drawn
+  from N(0, M) with M = diag(1 / inverse mass) outside the tree
+  (`mass_momentum_rvs`, from standard normals the caller draws) and their
+  density enters the weights (`mass_momentum_logpdf`).
 
 Every field and argument has a leading run axis: (B,) scalars, (B, N, D)
 particles, (B, D) inverse masses. Sums over particles take the fixed order
@@ -15,6 +18,7 @@ of `ops.reduce`.
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
@@ -68,3 +72,24 @@ def mass_matrix_from_particles(x, wn, inv_mass_old, floor=1e-6, damping=0.5):
     return torch.exp(
         damping * torch.log(var) + (1.0 - damping) * torch.log(inv_mass_old)
     )
+
+
+def mass_momentum_rvs(eps, inv_mass):
+    """Momenta r ~ N(0, M), M = diag(1 / inv_mass), from standard normals
+    eps (B, N, D) and inv_mass (B, D): the distribution whose kinetic energy
+    0.5 r^T inv_mass r the NUTS integrator uses."""
+    return eps / torch.sqrt(inv_mass)[:, None, :]
+
+
+def mass_momentum_logpdf(r, inv_mass):
+    """log N(r | 0, diag(1 / inv_mass)) for r (B, N, D) and inv_mass (B, D);
+    the sums over the D coordinates are taken in sequence."""
+    im = inv_mass[:, None, :]
+    quad = r[..., 0] * r[..., 0] * im[..., 0]
+    for d in range(1, r.shape[-1]):
+        quad = quad + r[..., d] * r[..., d] * im[..., d]
+    logdet = torch.log(inv_mass[:, 0])
+    for d in range(1, inv_mass.shape[-1]):
+        logdet = logdet + torch.log(inv_mass[:, d])
+    return (-0.5 * quad + (0.5 * logdet)[:, None]
+            - 0.5 * r.shape[-1] * math.log(2.0 * math.pi))

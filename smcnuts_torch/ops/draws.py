@@ -20,9 +20,13 @@ Each run also has a stream of its own, keyed by the run's seed s as
 (counter (i, RESAMPLE, k, 0)) and the seed of the iteration's tree (counter
 (0, TREE_SEED, k, 0)), and the N uniforms of the asymptotic strategy's
 tempered-recycling estimate at index k (counter (i, RECYCLE, k, 0)), the same
-whether the estimate is made inside the loop or from the saved history.
-`run_draws` and `recycle_draws` compute them for many iterations at once, so
-the SMC loop adds no launches for them.
+whether the estimate is made inside the loop or from the saved history. On
+the unfused proposal path the stream also holds the standard normals of the
+momenta drawn outside the tree (Box-Muller of the uniforms at counters
+(i, MOMENTUM, k, 2d) and (i, MOMENTUM, k, 2d + 1)) and the uniforms of the
+accept-reject made outside it (counter (i, ACCEPT_UNIFORM, k, 0)).
+`run_draws`, `recycle_draws`, `momentum_draws` and `accept_draws` compute
+them for many iterations at once, so the SMC loop adds no launches for them.
 
 Two sources:
 - PHILOX: Philox4x32-10 (Salmon et al., SC'11), the stream of the real runs.
@@ -52,6 +56,7 @@ PROLOGUE, DIRECTION, ACCEPT, LEAF = 0, 1, 2, 3  # kinds of the tree's draws
 RESAMPLE, TREE_SEED = 4, 5  # kinds of a run's own stream
 ACC_REJ = 6  # the tree's accept-reject draw; 4 and 5 stay the run stream's
 RECYCLE = 7  # a run's stream: the resampling of the recycled estimate
+MOMENTUM, ACCEPT_UNIFORM = 8, 9  # a run's stream: the unfused path's draws
 
 _M0, _M1 = 0xD2511F53, 0xCD9E8D57
 _W0, _W1 = 0x9E3779B9, 0xBB67AE85
@@ -124,6 +129,22 @@ class TreeDraws:
             )[0]
         return uniform_from_words(w, self.dtype)
 
+    def uniforms(self, kind: int, j, l):
+        """The draws of every lane at m places of one kind, in one call: j
+        and l are ints or sequences of m ints (broadcast against each
+        other); returns (m, n). Row i is `uniform(kind, j[i], l[i])`, bit
+        for bit."""
+        j = torch.as_tensor(j, dtype=torch.int64, device=self.device).reshape(-1, 1)
+        l = torch.as_tensor(l, dtype=torch.int64, device=self.device).reshape(-1, 1)
+        if self.source == ZERO_BITS:
+            m = max(j.shape[0], l.shape[0])
+            w = torch.zeros((m, self.n), dtype=torch.int64, device=self.device)
+        else:
+            w = philox4x32_10(
+                self.particle[None, :], kind, j, l, self.key0[None, :], 0
+            )[0]
+        return uniform_from_words(w, self.dtype)
+
 
 def run_draws(seeds, iterations, n, dtype=torch.float32):
     """The resampling uniforms and tree seeds of B runs for a range of
@@ -156,3 +177,26 @@ def recycle_draws(seeds, iterations, n, dtype=torch.float32):
     """The uniforms (K, B, n) in [0, 1) of the tempered-recycling estimates at
     the given estimate indices, from each run's own stream."""
     return _run_uniforms(seeds, RECYCLE, iterations, n, dtype)
+
+
+def momentum_draws(seeds, iterations, n, dim, dtype=torch.float32):
+    """The standard normals (K, B, n, dim) of the momenta that the unfused
+    proposal path draws outside the tree, from each run's own stream: the
+    cosine branch of Box-Muller on two uniforms in (0, 1] a coordinate."""
+    dev = seeds.device
+    k = torch.as_tensor(list(iterations), dtype=torch.int64, device=dev)
+    i = torch.arange(n, dtype=torch.int64, device=dev)
+    slot = torch.arange(2 * dim, dtype=torch.int64, device=dev)
+    w = philox4x32_10(
+        i[None, None, :, None], MOMENTUM, k[:, None, None, None],
+        slot[None, None, None, :],
+        (seeds & _MASK32)[None, :, None, None], (seeds >> 32)[None, :, None, None],
+    )[0]
+    u = uniform_from_words(w, dtype)
+    return box_muller(u[..., 0::2], u[..., 1::2])
+
+
+def accept_draws(seeds, iterations, n, dtype=torch.float32):
+    """The uniforms (K, B, n) in [0, 1) of the accept-reject that the unfused
+    proposal path makes outside the tree, from each run's own stream."""
+    return _run_uniforms(seeds, ACCEPT_UNIFORM, iterations, n, dtype)

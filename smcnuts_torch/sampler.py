@@ -1,6 +1,6 @@
-"""SMC sampler: the JAX package's `sampler.py` on its fused proposal path,
-for B independent runs at once, with the three L-kernel strategies and
-adaptive tempering.
+"""SMC sampler: the JAX package's `sampler.py`, on its fused and its unfused
+proposal paths, for B independent runs at once, with the three L-kernel
+strategies and adaptive tempering.
 
 One iteration, in the reference's order (reference smc_sampler.py:109-140),
 for every run:
@@ -11,9 +11,14 @@ for every run:
        strategy without saved history: the tempered-recycling estimate)
     4. ESS; 5. resample if ESS < N/2 (multinomial or systematic), before the
        proposal
-    6. whole-tree NUTS proposal at temperature phi (momenta drawn inside,
-       the accept-reject in its epilogue for the asymptotic strategy), as one
-       kernel or staged with lane compaction (cfg.compaction)
+    6. whole-tree NUTS proposal at temperature phi, as one kernel or staged
+       with lane compaction (cfg.compaction), or on the eager tree in blocks
+       (cfg.eager_block_size). Fused path: momenta drawn inside, the
+       asymptotic accept-reject in its epilogue. Unfused path (where the JAX
+       package's Pallas backend takes it: fused_epilogue=False, or a custom
+       momentum proposal without mass adaptation): momenta drawn outside
+       (the momentum proposal, or N(0, M) under mass adaptation) and handed
+       to the tree, the accept-reject outside on the tree's cached densities
     7. with tempering, the next temperature from the proposed positions by
        ESS bisection, on the log-likelihood recovered from the tree's cached
        density
@@ -21,7 +26,8 @@ for every run:
        positions. Otherwise logw += logp1' - logp1 + (L - q): forwards
        L-kernel L - q = delta_h - (logp' - logp0), which without tempering
        collapses the increment to delta_h; Gaussian L-kernel L from the
-       population and q(r0) from ke0
+       population and q(r0) from ke0. Unfused: L - q from the momentum
+       density, L = q(-r') for the forwards L-kernel
     9. acceptance = share of particles that moved in EVERY dimension
    10. adaptation, when configured: dual averaging of the step size on the
        mean accept statistic (frozen at the averaged iterate after
@@ -41,15 +47,17 @@ counterpart of `jax.vmap(run_smc)` over keys, and `run_smc` is its B = 1
 case. Every random number of run b comes from b's own seed: the initial
 particles from a `torch.Generator` seeded with it, and per iteration the
 resampling uniforms and the tree's seed from its Philox stream
-(`ops.draws.run_draws`). Every sum over particles takes the fixed order of
-`ops.reduce`. So run b of a batch equals, bit for bit, a run alone with seed
-seeds[b]; what a model computes outside the tree (logprior, loglik) is
-evaluated one run at a time for the same reason. The K loop does no host
-sync: the resample decision and the temperature bisection's short-circuit are
-`torch.where`s, the guard of the recovered log-likelihood evaluates both
-sides and selects per run, and the diagnostics stay on the device until
-`finalize`. (The Gaussian L-kernel's three small factorisations are library
-calls, made per run; `torch.linalg.pinv` checks its status on the host.)
+(`ops.draws.run_draws`), and on the unfused path the momenta's standard
+normals and the accept-reject uniforms (`momentum_draws`, `accept_draws`).
+Every sum over particles takes the fixed order of `ops.reduce`. So run b of a
+batch equals, bit for bit, a run alone with seed seeds[b]; what a model
+computes outside the tree (logprior, loglik) is evaluated one run at a time
+for the same reason. The K loop does no host sync: the resample decision and
+the temperature bisection's short-circuit are `torch.where`s, the guard of
+the recovered log-likelihood evaluates both sides and selects per run, and
+the diagnostics stay on the device until `finalize`. (The Gaussian
+L-kernel's three small factorisations are library calls, made per run;
+`torch.linalg.pinv` checks its status on the host.)
 """
 
 from __future__ import annotations
@@ -57,6 +65,7 @@ from __future__ import annotations
 import time
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from .config import SMCConfig
@@ -66,10 +75,13 @@ from .ops.adaptation import (
     da_init,
     da_update,
     mass_matrix_from_particles,
+    mass_momentum_logpdf,
+    mass_momentum_rvs,
 )
-from .ops.draws import PHILOX, recycle_draws, run_draws
-from .ops.lkernels import gaussian_lkernel_logpdf
+from .ops.draws import PHILOX, accept_draws, momentum_draws, recycle_draws, run_draws
+from .ops.lkernels import forward_lkernel_logpdf, gaussian_lkernel_logpdf
 from .ops.moments import estimate as constrained_estimate
+from .ops.nuts import hmc_accept_reject_cached
 from .ops.nuts_cuda import nuts_tree, nuts_tree_plain
 from .ops.reduce import row_mean, row_sum
 from .ops.resampling import multinomial_take_rows, resample_if_required
@@ -179,17 +191,53 @@ def resolve_compaction(cfg: SMCConfig, model, n_lanes: int) -> tuple:
     return ()
 
 
-def _check_momentum(momentum_proposal):
+def _is_standard_momentum(momentum_proposal) -> bool:
+    """True for the standard N(0, I) momentum proposal (None is that
+    default): the distribution the tree's own momentum draw implements when
+    inv_mass is ones. Checked as the JAX package checks it."""
     if momentum_proposal is None:
-        return
-    if not (
-        isinstance(momentum_proposal, DiagNormalProposal)
-        and momentum_proposal.is_standard()
-    ):
-        raise NotImplementedError(
-            "a non-standard momentum proposal needs the unfused proposal "
-            "path, not ported to smcnuts_torch yet (ROADMAP Queue 1 item 5)"
-        )
+        return True
+    if not isinstance(momentum_proposal, DiagNormalProposal):
+        return False
+    mean_ok = momentum_proposal.mean is None or not np.any(
+        np.asarray(momentum_proposal.mean))
+    var_ok = momentum_proposal.var is None or np.allclose(
+        np.asarray(momentum_proposal.var), 1.0)
+    return bool(mean_ok and var_ok)
+
+
+def uses_fused_path(cfg: SMCConfig, momentum_proposal=None) -> bool:
+    """Whether the proposal runs fused (momenta drawn inside the tree): only
+    where the JAX package's Pallas backend fuses, with fused_epilogue and
+    either mass adaptation (inv_mass is the live state) or the standard
+    momentum proposal. On both backends (`config.py` says why)."""
+    return cfg.fused_epilogue and (
+        cfg.adapt_mass_matrix or _is_standard_momentum(momentum_proposal))
+
+
+def _acceptance_metric(x_new, x_old):
+    """Per run, the share of particles whose position changed in EVERY
+    dimension (reference smc_sampler.py:97)."""
+    return row_mean(torch.all(x_new != x_old, dim=-1).to(x_new.dtype))
+
+
+def iteration_draws(cfg: SMCConfig, seeds, iterations, n, dim, dtype,
+                    fused=True) -> dict:
+    """The per-iteration draws of B runs for a range of iterations, from each
+    run's own stream, keyed by the `smc_step` argument each feeds, every
+    value leading with the iteration axis: the resampling uniforms, the tree
+    seeds, with the asymptotic strategy's streaming estimates the recycling
+    uniforms, and on the unfused path the momenta's standard normals and
+    (asymptotic strategy) the accept-reject uniforms. seeds: (B,) int64."""
+    uniforms, tree_seed = run_draws(seeds, iterations, n, dtype)
+    out = {"uniforms": uniforms, "tree_seed": tree_seed}
+    if cfg.is_asymptotic and not cfg.save_history:
+        out["recycle_uniforms"] = recycle_draws(seeds, iterations, n, dtype)
+    if not fused:
+        out["momentum_normals"] = momentum_draws(seeds, iterations, n, dim, dtype)
+        if cfg.is_asymptotic:
+            out["accept_uniforms"] = accept_draws(seeds, iterations, n, dtype)
+    return out
 
 
 def _per_run(fn, x):
@@ -270,7 +318,9 @@ def init_state(model, cfg: SMCConfig, seeds, device,
 
 
 def smc_step(model, cfg: SMCConfig, carry: SMCCarry, uniforms, tree_seed,
-             backend: str, draws: str = PHILOX, recycle_uniforms=None):
+             backend: str, draws: str = PHILOX, recycle_uniforms=None,
+             momentum_proposal=None, momentum_normals=None,
+             accept_uniforms=None):
     """One SMC iteration of B runs; returns (next carry, diagnostics of this
     one, each with a leading run axis).
 
@@ -279,7 +329,12 @@ def smc_step(model, cfg: SMCConfig, carry: SMCCarry, uniforms, tree_seed,
     in the JAX package's uniforms); `draws` picks the tree's draw source.
     recycle_uniforms (B, N) are the draws of this iteration's
     tempered-recycling estimate (`ops.draws.recycle_draws`), needed by the
-    asymptotic strategy with save_history=False only."""
+    asymptotic strategy with save_history=False only. On the unfused path
+    (`uses_fused_path` false) momentum_normals (B, N, D) are the standard
+    normals of the momenta and accept_uniforms (B, N) in [0, 1) those of the
+    asymptotic strategy's accept-reject (`iteration_draws`; a test hands in
+    the JAX package's k_mom and k_acc draws); momentum_proposal None is the
+    standard normal."""
     phi = carry.phi
     n = carry.x.shape[1]
     asymptotic = cfg.is_asymptotic
@@ -299,12 +354,45 @@ def smc_step(model, cfg: SMCConfig, carry: SMCCarry, uniforms, tree_seed,
 
     # With acc_rej the kernel's epilogue ran the asymptotic strategy's
     # accept-reject: x_new, r_new and logp_prop are the state after it.
-    tree = nuts_tree if backend == "cuda" else nuts_tree_plain
-    x_new, r_new, st = tree(
-        model, x_r, tree_seed, carry.step_size, phi, carry.inv_mass,
-        cfg.max_tree_depth, draws, acc_rej=asymptotic,
-        compaction=resolve_compaction(cfg, model, x_r.shape[0] * x_r.shape[1]),
-    )
+    fused = uses_fused_path(cfg, momentum_proposal)
+    r = None
+    if not fused:
+        # The momenta, drawn outside the tree from N(0, M) under mass
+        # adaptation (the kinetic energy's distribution), else from the
+        # momentum proposal; the reweight uses the same density.
+        if cfg.adapt_mass_matrix:
+            r = mass_momentum_rvs(momentum_normals, carry.inv_mass)
+
+            def momentum_logpdf(rr):
+                return mass_momentum_logpdf(rr, carry.inv_mass)
+        else:
+            proposal = momentum_proposal or DiagNormalProposal(model.dim)
+            r = proposal.from_normals(momentum_normals)
+
+            def momentum_logpdf(rr):
+                return _per_run(proposal.logpdf, rr)
+    tree_args = (model, x_r, tree_seed, carry.step_size, phi, carry.inv_mass,
+                 cfg.max_tree_depth, draws)
+    if backend == "cuda":
+        x_new, r_new, st = nuts_tree(
+            *tree_args, r=r, acc_rej=asymptotic and fused,
+            compaction=resolve_compaction(cfg, model, x_r.shape[0] * x_r.shape[1]))
+    else:
+        # "auto" is the kernel's choice, measured on its dispatch; the eager
+        # tree stages only at splits the caller names, as the JAX package's
+        # XLA backend never compacts.
+        x_new, r_new, st = nuts_tree_plain(
+            *tree_args, r=r, acc_rej=asymptotic and fused,
+            compaction=() if cfg.compaction == "auto" else cfg.compaction,
+            block_size=cfg.eager_block_size)
+    logp_prop = st["logp_prop"]
+    if asymptotic and not fused:
+        # The accept-reject that makes the move pi_phi-invariant, on the
+        # densities the tree cached (JAX sampler.py:378-390).
+        x_new, r_new, accepted = hmc_accept_reject_cached(
+            st["logp0"], logp_prop, x_r, x_new, r, r_new, accept_uniforms,
+            carry.inv_mass)
+        logp_prop = torch.where(accepted, logp_prop, st["logp0"])
 
     # The next temperature, from the proposed positions. The untempered
     # log-likelihood at both endpoints comes from the tree's cached densities
@@ -315,7 +403,7 @@ def smc_step(model, cfg: SMCConfig, carry: SMCCarry, uniforms, tree_seed,
     if tempered:
         logprior_new = _per_run(model.logprior, x_new)
         logprior_old = _per_run(model.logprior, x_r)
-        loglik_new = _recover_loglik(model, phi, st["logp_prop"], logprior_new,
+        loglik_new = _recover_loglik(model, phi, logp_prop, logprior_new,
                                      x_new, guard)
     if cfg.tempering:
         phi_next = next_temperature(loglik_new, phi, n, alpha=cfg.tempering_alpha)
@@ -330,20 +418,26 @@ def smc_step(model, cfg: SMCConfig, carry: SMCCarry, uniforms, tree_seed,
                                      x_r, 0.0)
         logw_new = logw_r + (phi_next - phi)[:, None] * loglik_old
     else:
-        # The momentum-density difference L(-r'|x') - q(r) from the fused
-        # outputs. Forwards L-kernel: the N(0, M) constants cancel and
-        # ke(r0) - ke(r') = delta_h - (logp' - logp0). Gaussian L-kernel:
-        # q(r0) = -ke0 + 0.5 sum log inv_mass - D log sqrt(2 pi).
-        if cfg.lkernel == "forwardsLKernel":
+        # The momentum-density difference L(-r'|x') - q(r).
+        if not fused:
+            if cfg.lkernel == "forwardsLKernel":
+                lk = forward_lkernel_logpdf(momentum_logpdf, r_new)
+            else:
+                lk = gaussian_lkernel_logpdf(r_new, x_new)
+            lk_minus_q = lk - momentum_logpdf(r)
+        elif cfg.lkernel == "forwardsLKernel":
+            # From the fused outputs: the N(0, M) constants cancel and
+            # ke(r0) - ke(r') = delta_h - (logp' - logp0).
             lk_minus_q = st["delta_h"] - (st["logp_prop"] - st["logp0"])
         else:
+            # Gaussian L-kernel, q(r0) = -ke0 + 0.5 sum log inv_mass - D log sqrt(2 pi).
             q_r = (-st["ke0"]
                    + (0.5 * row_sum(torch.log(carry.inv_mass)))[:, None]
                    - model.dim * LOG_SQRT_2PI)
             lk_minus_q = gaussian_lkernel_logpdf(r_new, x_new) - q_r
         if not cfg.tempering:
             # phi is 1, so the tree's cached endpoint densities are the
-            # phi = 1 values (forwards: the increment collapses to delta_h).
+            # phi = 1 values (forwards, fused: the increment collapses to delta_h).
             logp_new_1, logp_old_1 = st["logp_prop"], st["logp0"]
         else:
             logp_new_1 = logprior_new + loglik_new
@@ -374,7 +468,10 @@ def smc_step(model, cfg: SMCConfig, carry: SMCCarry, uniforms, tree_seed,
         "phi": phi,
         "log_likelihood": log_likelihood,
         "ess": ess_k,
-        "acceptance": row_mean(st["moved"]),
+        # The tree's "moved" is the same flag, but before an accept-reject
+        # made outside it.
+        "acceptance": (_acceptance_metric(x_new, x_r) if asymptotic and not fused
+                       else row_mean(st["moved"])),
         "resampled": did_resample,
         "step_size": step_size,
         "tree_depth": row_mean(st["depth"]),
@@ -454,7 +551,6 @@ def run_smc_batched(model, cfg: SMCConfig, seeds, device="cuda",
     seeds[b]. Seeds are integers in [0, 2^63). Moves the model to the
     device. The device defaults to the card and is never replaced by the
     CPU: without a CUDA device the call raises unless "cpu" is asked for."""
-    _check_momentum(momentum_proposal)
     device = resolve_device(device)
     backend = resolve_backend(cfg, device)
     model = model.to(device)
@@ -466,28 +562,29 @@ def run_smc_batched(model, cfg: SMCConfig, seeds, device="cuda",
     B, N = carry.logw.shape
     K = cfg.n_iterations
     dtype = carry.x.dtype
-    block = max(1, _DRAW_BLOCK // (B * (N + 1)))
+    fused = uses_fused_path(cfg, momentum_proposal)
+    per_iteration = B * (N + 1) * (1 if fused else 2 * model.dim + 2)
+    block = max(1, _DRAW_BLOCK // per_iteration)
     streaming = cfg.is_asymptotic and not cfg.save_history
     diags = []
     x_hist = [carry.x] if cfg.save_history else None
     logw_hist = [carry.logw] if cfg.save_history else None
     loglik_hist = [carry.loglik] if cfg.save_history and cfg.is_asymptotic else None
-    recycle = None
     for k in range(K):
         if k % block == 0:
-            ks = range(k, min(k + block, K))
-            uniforms, tree_seeds = run_draws(seeds_t, ks, N, dtype)
-            if streaming:
-                recycle = recycle_draws(seeds_t, ks, N, dtype)
+            step_draws = iteration_draws(cfg, seeds_t, range(k, min(k + block, K)),
+                                         N, model.dim, dtype, fused)
         carry, diag = smc_step(
-            model, cfg, carry, uniforms[k % block], tree_seeds[k % block],
-            backend, draws, recycle[k % block] if streaming else None)
+            model, cfg, carry, backend=backend, draws=draws,
+            momentum_proposal=momentum_proposal,
+            **{name: v[k % block] for name, v in step_draws.items()})
         diags.append(diag)
         if cfg.save_history:
             x_hist.append(carry.x)
             logw_hist.append(carry.logw)
             if loglik_hist is not None:
                 loglik_hist.append(carry.loglik)
+    recycle = None
     if streaming:
         recycle = recycle_draws(seeds_t, [K], N, dtype)[0]
     elif cfg.is_asymptotic:

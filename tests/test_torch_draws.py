@@ -1,5 +1,6 @@
 """Draw sources of the NUTS proposal: Philox4x32-10, the uniform and normal
-maps, the zero-bits source, and draws addressed by their place in the tree."""
+maps, the zero-bits source, draws addressed by their place in the tree (one
+at a time or batched), and the unfused path's draws from each run's stream."""
 
 import numpy as np
 import pytest
@@ -7,13 +8,17 @@ import torch
 
 from smcnuts_torch.models import ArmaModel
 from smcnuts_torch.ops.draws import (
+    DIRECTION,
     LEAF,
     PHILOX,
     PROLOGUE,
     ZERO_BITS,
     TreeDraws,
+    accept_draws,
     box_muller,
+    momentum_draws,
     philox4x32_10,
+    recycle_draws,
     uniform_from_words,
 )
 from smcnuts_torch.ops.nuts_cuda import nuts_tree_plain
@@ -108,3 +113,35 @@ def test_tree_outputs_do_not_depend_on_population(source):
     torch.testing.assert_close(out8[0], out20[0][:, :8], rtol=0, atol=0)
     for k in out8[2]:
         torch.testing.assert_close(out8[2][k], out20[2][k][:, :8], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("source", [PHILOX, ZERO_BITS])
+def test_batched_tree_draws_equal_one_draw_at_a_time(source):
+    """TreeDraws.uniforms, the plain tree's batched draws, row for row equal
+    to uniform at each place, over leaves of one doubling and over depths."""
+    seed = torch.tensor([7, 123456], dtype=torch.int32)
+    lanes = torch.arange(40)
+    src = TreeDraws(source, seed, lanes // 20, lanes % 20)
+    leaves = src.uniforms(LEAF, 5, range(3, 11))
+    assert leaves.shape == (8, 40)
+    for i, leaf in enumerate(range(3, 11)):
+        assert torch.equal(leaves[i], src.uniform(LEAF, 5, leaf))
+    depths = src.uniforms(DIRECTION, range(2, 6), 0)
+    for i, depth in enumerate(range(2, 6)):
+        assert torch.equal(depths[i], src.uniform(DIRECTION, depth, 0))
+
+
+def test_unfused_path_draws_come_from_each_runs_own_stream():
+    """The momenta's normals and the accept-reject uniforms of run b of a
+    batch are those of the run alone; uniforms in [0, 1), normals of unit
+    scale, and no two kinds or iterations alike."""
+    seeds = torch.tensor([3, 2**40 + 5, 11], dtype=torch.int64)
+    eps = momentum_draws(seeds, range(2, 5), 500, 4)
+    u = accept_draws(seeds, range(2, 5), 500)
+    assert eps.shape == (3, 3, 500, 4) and u.shape == (3, 3, 500)
+    assert torch.equal(momentum_draws(seeds[1:2], range(2, 5), 500, 4)[:, 0], eps[:, 1])
+    assert torch.equal(accept_draws(seeds[2:], range(3, 4), 500)[0, 0], u[1, 2])
+    assert bool(((u >= 0) & (u < 1)).all()) and torch.isfinite(eps).all()
+    assert abs(float(eps.std()) - 1.0) < 0.05 and abs(float(eps.mean())) < 0.05
+    assert not torch.equal(eps[0, 0, :, 0], eps[1, 0, :, 0])
+    assert not torch.equal(u[0], recycle_draws(seeds, range(2, 3), 500)[0])

@@ -21,7 +21,8 @@ _MODULES = (
     "smcnuts_torch.utils.timing", "smcnuts_torch.ops.lkernels",
     "smcnuts_torch.ops.tempering", "smcnuts_torch.ops.resampling",
     "smcnuts_torch.models.gaussian", "smcnuts_torch.models.eightschools",
-    "smcnuts_torch.models.logistic",
+    "smcnuts_torch.models.logistic", "smcnuts_torch.ops.arma_fused",
+    "smcnuts_torch.ops.nuts", "smcnuts_torch.proposals", "smcnuts_torch.config",
 )
 
 
@@ -37,6 +38,13 @@ def test_imports_with_jax_blocked():
         "get_model('arma'); get_model('prmwcd')\n"
         "get_model('eightschools'); get_model('logistic')\n"
         "make_gaussian([0.0, 1.0], [1.0, 2.0], [4.0, 4.0])\n"
+        "import torch\n"
+        "from smcnuts_torch.models import make_arma\n"
+        "from smcnuts_torch import FullNormalProposal, SMCConfig\n"
+        "make_arma(fused='plain').logp_and_grad(torch.zeros(2, 4))\n"
+        "FullNormalProposal((0.0, 0.0), ((1.0, 0.0), (0.0, 1.0))).logpdf(torch.zeros(3, 2))\n"
+        "SMCConfig(n_particles=4, n_iterations=1, step_size=0.1, fused_epilogue=False,\n"
+        "          eager_block_size=2)\n"
         "print('ok')\n"
     )
     env = dict(os.environ, PYTHONPATH=_REPO, OMP_NUM_THREADS="2")
@@ -94,7 +102,7 @@ def test_chip_smoke_imports_neither():
 
 def test_kernel_sources_of_every_model_are_in_the_package():
     """Each in-kernel model has its device function beside the kernel that
-    includes it."""
+    includes it, and the fused ARMA kernel shares arma's."""
     csrc = os.path.join(_PKG, "csrc")
     with open(os.path.join(csrc, "nuts_tree.cu")) as f:
         kernel = f.read()
@@ -102,3 +110,7 @@ def test_kernel_sources_of_every_model_are_in_the_package():
         assert os.path.isfile(os.path.join(csrc, f"{model}_model.cuh")), model
         assert f'#include "{model}_model.cuh"' in kernel
         assert f"smcnuts_nuts_tree_{model}" in kernel
+    with open(os.path.join(csrc, "arma_fused.cu")) as f:
+        fused = f.read()
+    assert '#include "arma_model.cuh"' in fused and "arma_loglik_grad(" in fused
+    assert "smcnuts_arma_ll_vg" in fused

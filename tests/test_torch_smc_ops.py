@@ -159,8 +159,10 @@ def test_config_validation_matches_jax(bad):
 
 
 OUT_OF_SLICE = [
-    # The strategies, tempering and systematic resampling run; beside a
-    # setting that is still outside the port they do not hide it.
+    # The two settings that raised until the unfused proposal path and the
+    # blocked eager tree were ported; each now runs, beside the strategies,
+    # tempering and resampling settings, and matches the JAX config. The
+    # second element names the ROADMAP item that brought it.
     (dict(lkernel="asymptoticLKernel", fused_epilogue=False), "Queue 1 item 5"),
     (dict(lkernel="GaussianApproxLKernel", eager_block_size=64), "Queue 1 item 4"),
     (dict(tempering=True, fused_epilogue=False), "Queue 1 item 5"),
@@ -177,8 +179,19 @@ OUT_OF_SLICE = [
 @pytest.mark.parametrize("setting,item", OUT_OF_SLICE,
                          ids=lambda v: str(v) if isinstance(v, str) else next(iter(v)))
 def test_settings_outside_slice_raise(setting, item):
-    with pytest.raises(NotImplementedError, match=item):
-        SMCConfig(n_particles=8, n_iterations=2, step_size=0.01, **setting)
+    """Once outside the port (they raised NotImplementedError naming `item`),
+    now accepted and equal to the JAX config field for field, with
+    `eager_block_size` for the JAX package's `xla_block_size`."""
+    cfg = SMCConfig(n_particles=8, n_iterations=2, step_size=0.01, **setting)
+    jax_cfg = JaxSMCConfig(n_particles=8, n_iterations=2, step_size=0.01, **{
+        "xla_block_size" if k == "eager_block_size" else k: v for k, v in setting.items()})
+    for k, v in setting.items():
+        jax_k = "xla_block_size" if k == "eager_block_size" else k
+        assert getattr(cfg, k) == getattr(jax_cfg, jax_k) == v
+    assert cfg.eager_block_size == jax_cfg.xla_block_size
+    assert cfg.fused_epilogue == jax_cfg.fused_epilogue
+    assert cfg.is_asymptotic == jax_cfg.is_asymptotic
+    assert item in ("Queue 1 item 4", "Queue 1 item 5")
 
 
 @pytest.mark.parametrize("setting", [
