@@ -4,7 +4,8 @@
     python3 chip_smoke.py --only autodiff,strategies,cli   # some phases, while
                                  # developing: prints no kernels line, no "ok"
     (phase keys: arma, prmwcd, main, batched, staged_times, cli, autodiff,
-    strategies, fused_kernel, eager, unfused, wide_eager)
+    strategies, fused_kernel, eager, unfused, wide_eager, generated; device,
+    build and peak always run first)
 
 Phases, each printing its own lines; any failure raises (non-zero exit):
 
@@ -15,7 +16,18 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
    the first stage, which is the whole tree when nothing is staged, and the
    continuation stage; and the fused ARMA value and gradient. Prints ptxas's
    registers, stack frame and spills for each, and fails if the build took
-   more than a minute.
+   more than a minute. The kernel template is csrc/nuts_tree.cuh; the hand
+   models' entries are csrc/nuts_tree.cu; the FP32 peak kernel
+   (csrc/fma_peak.cu) builds beside them.
+2b. peak (K8): the FP32 peak kernel (csrc/fma_peak.cu) against its plain
+   chain at 64 steps (FMUL+FADD equal to the bit; FMA within one spacing of
+   the chain's value a step and chain), then 4, 8, 16 and 32 chains of 2,000
+   steps a thread, FMA and FMUL+FADD, on 8 blocks of 256 threads an SM (CUDA
+   events, median of 5 of 20 launches, TFLOP/s counted as
+   experiments/bench_vpu_peak.py:92 counts them). Every later bound divides
+   by the card's FP32 rate (the data sheet's 67 TFLOP/s, which counts a
+   fused multiply-add as two); its second bound, bound_unfused_ms, divides by
+   the measured FMUL+FADD rate, the most the port's -fmad=false builds reach.
 3. arma kernel vs plain: `nuts_tree` (the CUDA kernel) and `nuts_tree_plain`
    on the same CUDA inputs, with zero-bits and Philox draws, phi 1.0 and 0.4
    (two runs in one launch), a non-unit inverse mass, the r-given variant at
@@ -123,13 +135,35 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
    of 262,144: every field equal to the bit; wall and peak device memory of
    each call, then the peak of one eager tree alone at each block size.
 
+11. user-written densities: arma written as a scalar torch density
+   (`arma_model_fwd`, forward mode, T=200, 3,837 operations) and eight
+   schools as a per-particle torch density (`make_eightschools_generated`,
+   reverse mode), traced, simplified and built into one library each (each
+   build's seconds and ptxas lines; fails past two minutes). Each generated
+   kernel (K7f, K7r) against its plain version (the program executed op by op
+   in torch) at 25 x 512 x depth 10 under zero bits and Philox: equal to the
+   bit, else phase 3's contract; staged with a split after every depth equal
+   to the single kernel to the bit; against the hand kernel of the same
+   density on identical inputs (logp0 at atol/rtol 1e-4, integer outputs on
+   99.9% of lanes), both timed in turns. The main path: run_smc_batched on
+   the generated arma at 25 x 512 x K=100 inside the PARITY bands; the
+   generated eight schools at phase 9's settings inside the bands of the hand
+   kernel's 25 runs; after each, init_state alone and a profile of the first
+   iterations (as phase 9's), generated and hand; the same eight-schools
+   density without a generated model, eager by autograd, on the card (5
+   iterations).
+
 The line before the last two repeats the card's name and power limit, the
 second-to-last line is a JSON object describing the kernels (for each: the
 launches on the main path, the error against its plain version, its time,
 the plain version's, and the least time the card could take for the same
-work, from this run's leapfrog count or particle count and bytes over the
-data-sheet peaks; no single PyTorch call builds a NUTS tree or computes the
-fused ARMA value and gradient, so there is no library time); the
+work, from this run's leapfrog count or particle count over the data
+sheet's 67 TFLOP/s, and bytes over the data sheet's memory rate, and
+bound_unfused_ms, the same with the FMUL+FADD peak measured in phase 2b for
+the operations, what a build with -fmad=false can reach; no single PyTorch
+call builds a NUTS tree,
+computes the fused ARMA value and gradient or runs FMA chains, so there is no
+library time); the
 last line is {"ok": true, "device": {...}}. Without a CUDA device, or without the
 repository beside it, the script fails before printing any result.
 """
@@ -174,6 +208,25 @@ WIDE_SINGLES = {"arma": ((2,), (3,), (4,)), "prmwcd": ((6,), (7,), (8,)),
 # NVIDIA's data sheet for the H100 SXM at 700 W: FP32 outside the tensor
 # cores (a multiply-add counts as two) and device memory.
 PEAK_FP32, PEAK_BYTES = 67e12, 3.35e12
+# The FP32 rates this run measures (phase 2b, K8): "fmul_fadd", the rate of
+# separately rounded multiplies and adds, the most a kernel built with
+# -fmad=false reaches (every bound_unfused_ms divides by it); "fma" beside it.
+MEASURED_PEAK = {}
+
+
+def roofline(ops, nbytes):
+    """The bound keys of the kernels line for work of `ops` FP32 operations
+    and `nbytes` bytes moved: bound_ms, the larger of ops over the card's
+    FP32 rate (the data sheet's, a multiply and an add fusing into one FMA)
+    and bytes over its memory rate; bound_by, which of the two; and
+    bound_unfused_ms, the same with the FMUL+FADD peak measured in phase 2b,
+    what the port's -fmad=false builds can reach."""
+    if "fmul_fadd" not in MEASURED_PEAK:
+        raise AssertionError("the FP32 peak (phase 2b) has not been measured")
+    t_ops, t_bytes = 1e3 * ops / PEAK_FP32, 1e3 * nbytes / PEAK_BYTES
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "bound_unfused_ms": max(1e3 * ops / MEASURED_PEAK["fmul_fadd"], t_bytes)}
 # FP32 operations of one leapfrog, counted from the sources: arma 19 a step
 # of the T = 200 recurrence (csrc/arma_model.cuh) and ~100 for the closed
 # forms and the leapfrog; PRMwCD 50 an observation x 100 (22 for eta, 22 for
@@ -254,8 +307,8 @@ def build_phase():
         raise AssertionError(f"the build of {n_inst} kernels took "
                              f"{lib.build_seconds:.1f} s, more than a minute")
     print(f"{n_inst} kernels (the NUTS tree's first stage and continuation of "
-          f"each entry, and the fused ARMA value and gradient), one nvcc a "
-          f"source, all at once")
+          f"each entry, the fused ARMA value and gradient, and the FP32 peak's "
+          f"eight), one nvcc a source, all at once")
     for line in lib.log.splitlines():
         if ("Compiling entry" in line or "registers" in line or "spill" in line
                 or "stack frame" in line):
@@ -263,9 +316,70 @@ def build_phase():
     return lib
 
 
+# ---- phase 2b: the FP32 peak (K8), the denominator of every bound.
+
+PEAK_CHECK_STEPS = 64  # steps of the kernel-vs-plain check
+
+
+def peak_phase(smi):
+    """Phase 2b: K8 against its plain chain, then its rows; sets
+    MEASURED_PEAK and returns what the kernels line says of K8."""
+    from smcnuts_torch.ops.peak import (
+        BLOCKS_PER_SM, CHAINS, STEPS, THREADS, flops, fma_chains, fma_chains_plain,
+        launch_size, peak_table)
+    from smcnuts_torch.utils.timing import median_ms
+
+    phase("2b. FP32 peak (K8)")
+    dev = torch.device("cuda")
+    n = launch_size(dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    print(f"launch: {BLOCKS_PER_SM} blocks of {THREADS} threads on each of {sms} "
+          f"SMs, {n} threads; {STEPS} steps a chain")
+    x = torch.randn(n, generator=torch.Generator(device=dev).manual_seed(1), device=dev)
+    worst = 0.0
+    for c in CHAINS:
+        plain = fma_chains_plain(x, c, PEAK_CHECK_STEPS)
+        sep = fma_chains(x, c, PEAK_CHECK_STEPS, "fmul_fadd")
+        fused = fma_chains(x, c, PEAK_CHECK_STEPS, "fma")
+        torch.cuda.synchronize()
+        if not torch.equal(sep, plain):
+            raise AssertionError(f"K8 FMUL+FADD, {c} chains: differs from the plain chain")
+        # Each step of a chain rounds once less fused: at most one spacing of
+        # the chain's value a step, c chains summed.
+        tol = c * PEAK_CHECK_STEPS * 2.0 ** -23 * (float(x.abs().max()) + 0.125 * c + 1.0)
+        err = float((fused - plain).abs().max())
+        if not err <= tol:
+            raise AssertionError(f"K8 FMA, {c} chains: |kernel - plain| {err:.3g} > {tol:.3g}")
+        worst = max(worst, err)
+        print(f"K8 {c} chains, {PEAK_CHECK_STEPS} steps: FMUL+FADD equal to the plain "
+              f"chain to the bit; FMA within {err:.3g} of it (bound {tol:.3g})")
+    reset_counts()
+    rows = peak_table(dev)
+    launches = fma_chains.launches
+    for r in rows:
+        print(f"peak {r['variant']:9s} {r['nchains']:2d} chains: {r['ms']:.4f} ms a "
+              f"launch, {r['tflops']:.3f} TFLOP/s (CUDA events, median of 5 of 20 "
+              f"launches; {smi})")
+    for variant in ("fma", "fmul_fadd"):
+        MEASURED_PEAK[variant] = 1e12 * max(r["tflops"] for r in rows
+                                            if r["variant"] == variant)
+    print(f"peak: FMA {MEASURED_PEAK['fma'] / 1e12:.3f} TFLOP/s, FMUL+FADD "
+          f"{MEASURED_PEAK['fmul_fadd'] / 1e12:.3f} TFLOP/s ({smi}); every bound "
+          f"below divides by the data sheet's {PEAK_FP32 / 1e12:.0f}, every "
+          f"bound_unfused_ms by the FMUL+FADD rate (the kernels are built with "
+          f"-fmad=false)")
+    best = max((r for r in rows if r["variant"] == "fma"), key=lambda r: r["tflops"])
+    c = best["nchains"]
+    plain_ms = median_ms(lambda: fma_chains_plain(x, c, STEPS), repeats=1, warmup=0)
+    work = flops(n, c, STEPS)
+    return {"launches": launches, "max_abs_err": worst, "ms": best["ms"],
+            "plain_ms": plain_ms, **roofline(work, 8 * n)}
+
+
 def reset_counts():
     from smcnuts_torch.ops.arma_fused import arma_ll_vg, arma_ll_vg_plain
     from smcnuts_torch.ops.nuts_cuda import nuts_tree, nuts_tree_plain
+    from smcnuts_torch.ops.peak import fma_chains
 
     nuts_tree.launches = 0
     nuts_tree.model_launches = {k: 0 for k in nuts_tree.model_launches}
@@ -276,6 +390,7 @@ def reset_counts():
     nuts_tree_plain.model_calls = 0
     arma_ll_vg.launches = 0
     arma_ll_vg_plain.calls = 0
+    fma_chains.launches = 0
 
 
 def read_counts():
@@ -387,22 +502,23 @@ def single_run_diff(one, res, b):
             if v is not None and not torch.equal(v, getattr(res, f)[b])]
 
 
-def bound_ms(name, out, survivors=(), bundle_rows=0):
-    """(ms, "operations" | "bytes"): the least time the card could take for
-    the trees of `out`: their model evaluations (the kernel's own leapfrogs
-    output) x the model's operations over the FP32 peak, or the bytes moved
-    (every input read once, every output written once, and for a staged
-    dispatch every survivor's bundle column written once and read once) over
-    the memory rate, whichever is larger."""
+def tree_roofline(name, out, survivors=(), bundle_rows=0, model=None):
+    """The bound keys (`roofline`) for the trees of `out`: their model
+    evaluations (the kernel's own leapfrogs output) x the model's
+    operations, and the bytes moved (every input read once, every output
+    written once, and for a staged dispatch every survivor's bundle column
+    written once and read once). A generated `model` counts its program's
+    operations, exact, and its data block."""
     x_out, _, st = out
     B, n, D = x_out.shape
     P = B * n
-    ops = float(st["leapfrogs"].sum()) * OPS_PER_LEAPFROG[name]
-    floats = (P * D + 3 * B + B * D + MODEL_DATA_FLOATS[name]  # inputs
+    per_leapfrog = OPS_PER_LEAPFROG[name] if model is None else model.n_ops
+    data_floats = MODEL_DATA_FLOATS[name] if model is None else model.data.numel()
+    ops = float(st["leapfrogs"].sum()) * per_leapfrog
+    floats = (P * D + 3 * B + B * D + data_floats  # inputs
               + 2 * P * D + len(st) * P  # outputs
               + 2 * bundle_rows * sum(survivors))
-    t_ops, t_bytes = 1e3 * ops / PEAK_FP32, 1e3 * 4 * floats / PEAK_BYTES
-    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+    return roofline(ops, 4 * floats)
 
 
 def time_pair(label, model, args, smi):
@@ -491,14 +607,12 @@ def staged_kernel_phase(name, model, batch_args, single_out, plain_out, smi):
     plain_ms = median_ms(
         lambda: nuts_tree_plain(model, *batch_args, compaction=own),
         repeats=1, warmup=0)
-    bound, bound_by = bound_ms(name, staged_out, survivors,
-                               build_library().bundle_rows(x.shape[2]))
+    bound = tree_roofline(name, staged_out, survivors,
+                          build_library().bundle_rows(x.shape[2]))
     print(f"time {name} staged {own}, {RUNS} x {N} x depth {depth} [philox]: "
           f"kernel {ms:.4f} ms in {len(own) + 1} launches, plain {plain_ms:.1f} ms "
-          f"(CUDA events, median of 5 and one call); bound {bound:.5f} ms by "
-          f"{bound_by} ({smi})")
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound, "bound_by": bound_by}
+          f"(CUDA events, median of 5 and one call); {bound_text(bound)} ({smi})")
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, **bound}
 
 
 def arma_kernel_phase(smi):
@@ -542,11 +656,10 @@ def arma_kernel_phase(smi):
     time_pair(f"arma {N} x depth {MAX_DEPTH} [philox]", model, main_args, smi)
     ms, plain_ms = time_pair(f"arma {RUNS} x {N} x depth {MAX_DEPTH} [philox]",
                              model, batch_args, smi)
-    bound, bound_by = bound_ms("arma", single_out)
+    bound = tree_roofline("arma", single_out)
     print(f"arma: max |kernel - plain| on agreeing lanes, all cases: {worst:.3g}; "
-          f"bound at {RUNS} x {N}: {bound:.5f} ms by {bound_by}")
-    whole = {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-             "bound_ms": bound, "bound_by": bound_by}
+          f"at {RUNS} x {N}: {bound_text(bound)}")
+    whole = {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, **bound}
     return whole, staged_kernel_phase("arma", model, batch_args, single_out,
                                       plain_out, smi)
 
@@ -587,11 +700,10 @@ def prmwcd_kernel_phase(smi):
         single_out, plain_out))
     ms, plain_ms = time_pair(f"PRMwCD {RUNS} x {N} x depth {MAX_DEPTH} [philox]",
                              model, batch_args, smi)
-    bound, bound_by = bound_ms("prmwcd", single_out)
+    bound = tree_roofline("prmwcd", single_out)
     print(f"PRMwCD: max |kernel - plain| on agreeing lanes, all cases: {worst:.3g}; "
-          f"bound at {RUNS} x {N}: {bound:.5f} ms by {bound_by}")
-    whole = {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-             "bound_ms": bound, "bound_by": bound_by}
+          f"at {RUNS} x {N}: {bound_text(bound)}")
+    whole = {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, **bound}
     return whole, staged_kernel_phase("prmwcd", model, batch_args, single_out,
                                       plain_out, smi)
 
@@ -1067,12 +1179,12 @@ def autodiff_kernel_phase(name, smi):
         single_out, plain_out))
     ms, plain_ms = time_pair(f"{name} {RUNS} x {N} x depth {MAX_DEPTH} [philox]",
                              model, batch_args, smi)
-    bound, bound_by = bound_ms(name, single_out)
+    bound = tree_roofline(name, single_out)
     staged = staged_kernel_phase(name, model, batch_args, single_out, plain_out, smi)
     worst = max(worst, staged["max_abs_err"])
     print(f"{name}: max |kernel - plain| on agreeing lanes, all cases, staged "
-          f"included: {worst:.3g}; bound at {RUNS} x {N}: {bound:.5f} ms by "
-          f"{bound_by}; staged dispatch {staged['ms']:.4f} ms")
+          f"included: {worst:.3g}; at {RUNS} x {N}: {bound_text(bound)}; staged "
+          f"dispatch {staged['ms']:.4f} ms")
     # What the model's compaction hint rests on: 100 x 512 lanes at the step
     # size of the model's own run.
     cfg = AUTODIFF_MODELS[name]
@@ -1082,8 +1194,7 @@ def autodiff_kernel_phase(name, smi):
     candidate_times(f"{name} {4 * RUNS} x {N}, step {cfg['step']}, depth "
                     f"{cfg['depth']}", model, wide, smi,
                     ((1,), (2,), (3,), (1, 2), (2, 4), tuple(range(1, cfg["depth"]))))
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound, "bound_by": bound_by}
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, **bound}
 
 
 def autodiff_kernels_phase(smi):
@@ -1136,7 +1247,7 @@ def profile_call(label, model, cfg, smi, momentum_proposal=None,
     model = model.to("cuda")
     start = init_state(model, cfg, SEEDS, "cuda")
     seeds = torch.tensor(SEEDS, dtype=torch.int64, device="cuda")
-    backend = resolve_backend(cfg, torch.device("cuda"))
+    backend = resolve_backend(cfg, torch.device("cuda"), model)
     step_draws = iteration_draws(cfg, seeds, range(k), cfg.n_particles, model.dim,
                                  start.x.dtype, uses_fused_path(cfg, momentum_proposal))
 
@@ -1352,13 +1463,17 @@ def fused_cloud(n, seed, device):
     return x
 
 
-def fused_bound_ms(n):
-    """(ms, by): the fused kernel's least time for n particles: n x
-    ARMA_FUSED_OPS over the FP32 peak, or 16 bytes in and 20 out a particle
-    and y once over the memory rate, whichever is larger."""
-    t_ops = 1e3 * n * ARMA_FUSED_OPS / PEAK_FP32
-    t_bytes = 1e3 * (36 * n + 4 * ARMA_T) / PEAK_BYTES
-    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+def fused_roofline(n):
+    """The bound keys (`roofline`) of the fused kernel for n particles:
+    n x ARMA_FUSED_OPS operations; 16 bytes in and 20 out a particle and y
+    once."""
+    return roofline(n * ARMA_FUSED_OPS, 36 * n + 4 * ARMA_T)
+
+
+def bound_text(bound):
+    """The bound keys as one printed phrase."""
+    return (f"bound {bound['bound_ms']:.5f} ms by {bound['bound_by']} (FMUL+FADD: "
+            f"{bound['bound_unfused_ms']:.5f} ms)")
 
 
 def arma_fused_kernel_phase(smi):
@@ -1399,13 +1514,12 @@ def arma_fused_kernel_phase(smi):
         theta = fused_cloud(n, 7, dev)
         ms = median_ms(lambda: arma_ll_vg(theta, y), repeats=5)
         plain_ms = median_ms(lambda: arma_ll_vg_plain(theta, y), repeats=5)
-        bound, by = fused_bound_ms(n)
-        times[n] = (ms, plain_ms, bound, by)
+        bound = fused_roofline(n)
+        times[n] = (ms, plain_ms, bound)
         print(f"time K5 at {n} lanes: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
-              f"bound {bound:.5f} ms by {by} (CUDA events, median of 5; {smi})")
-    ms, plain_ms, bound, by = times[ARMA_FUSED_TIMED[0]]
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-            "bound_by": by}
+              f"{bound_text(bound)} (CUDA events, median of 5; {smi})")
+    ms, plain_ms, bound = times[ARMA_FUSED_TIMED[0]]
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, **bound}
 
 
 def eager_config(**kw):
@@ -1551,12 +1665,11 @@ def unfused_kernel_phase(smi):
                           out, nuts_tree_plain(model, *args, r=r))
     ms = median_ms(lambda: nuts_tree(model, *args, r=r), repeats=5)
     plain_ms = median_ms(lambda: nuts_tree_plain(model, *args, r=r), repeats=1, warmup=0)
-    bound, by = bound_ms("arma", out)
+    bound = tree_roofline("arma", out)
     print(f"time K1u {RUNS} x {N} x depth {MAX_DEPTH} [philox, r given]: kernel "
           f"{ms:.4f} ms, plain {plain_ms:.1f} ms (CUDA events, median of 5 and one call); "
-          f"bound {bound:.5f} ms by {by} ({smi})")
-    return r_given, {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-                     "bound_ms": bound, "bound_by": by}
+          f"{bound_text(bound)} ({smi})")
+    return r_given, {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, **bound}
 
 
 def wide_eager_phase(smi):
@@ -1634,6 +1747,190 @@ def fused_phase(smi):
     return k5, k1u
 
 
+# ---- phase 11: user-written densities, generated in-kernel models (K7).
+
+GENERATED_BUILD_CAP_S = 120.0
+EAGER_CARD_K = 5  # iterations of the eager (autograd) run on the card
+
+
+def generated_build(label, model):
+    """Build one generated library; print its seconds and ptxas's lines."""
+    from smcnuts_torch.ops.generated import build_generated
+
+    lib = build_generated(model.tile_model)
+    tm = model.tile_model
+    print(f"{label}: {tm.autodiff} mode, {tm.n_ops} operations, {tm.data.numel()} "
+          f"data floats, source hash {tm.hash}; built {os.path.relpath(lib.path)} "
+          f"in {lib.build_seconds:.1f} s")
+    if lib.build_seconds > GENERATED_BUILD_CAP_S:
+        raise AssertionError(f"{label}: the build took {lib.build_seconds:.1f} s, "
+                             f"more than {GENERATED_BUILD_CAP_S:.0f}")
+    for line in lib.log.splitlines():
+        if ("Compiling entry" in line or "registers" in line or "spill" in line
+                or "stack frame" in line):
+            print("  ptxas:", line.strip())
+
+
+def generated_kernel_case(label, model, hand, x, step, smi):
+    """K7 against its plain version at 25 x 512 x depth 10 under zero bits
+    and Philox (to the bit, else phase 3's contract), the staged dispatch
+    with a split after every depth against the single kernel (to the bit),
+    and against the hand-written kernel of the same density on identical
+    inputs (logp0 at atol/rtol 1e-4 on every lane, integer outputs on
+    MIN_AGREE of the lanes); both timed in turns. Returns the kernels-line
+    fields."""
+    from smcnuts_torch.ops.draws import PHILOX, ZERO_BITS
+    from smcnuts_torch.ops.nuts_cuda import nuts_tree, nuts_tree_plain
+    from smcnuts_torch.utils.timing import median_ms
+
+    dev = x.device
+    seeds = torch.arange(RUNS, dtype=torch.int32, device=dev)
+    ones = torch.ones(x.shape[-1], device=dev)
+    worst, plain_ms = 0.0, None
+    for source in (ZERO_BITS, PHILOX):
+        args = (x, seeds, step, 1.0, ones, MAX_DEPTH, source)
+        out_k = nuts_tree(model, *args)
+        t0 = time.perf_counter()
+        out_p = nuts_tree_plain(model, *args)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        diff = bitwise_differences(out_k, out_p)
+        worst = max(worst, check_outputs(f"{label} [{source}] kernel vs plain", out_k,
+                                         out_p, nan_lanes=True))
+        print(f"{label} [{source}]: kernel and plain version "
+              f"{'equal to the bit' if not diff else f'differ in {diff}'}; plain "
+              f"{plain_s:.1f} s")
+        staged = nuts_tree(model, *args, compaction=tuple(range(1, MAX_DEPTH)))
+        if bitwise_differences(staged, out_k):
+            raise AssertionError(f"{label} [{source}]: staged differs from single")
+        out_h = nuts_tree(hand, *args)
+        torch.cuda.synchronize()
+        lp_k, lp_h = out_k[2]["logp0"], out_h[2]["logp0"]
+        bad = (lp_k - lp_h).abs() > ATOL + RTOL * lp_h.abs()
+        if bad.any():
+            raise AssertionError(f"{label} [{source}]: logp0 differs from the hand "
+                                 f"kernel's on {int(bad.sum())} lanes")
+        agree = float(((out_k[2]["depth"] == out_h[2]["depth"])
+                       & (out_k[2]["leapfrogs"] == out_h[2]["leapfrogs"])
+                       & (out_k[2]["moved"] == out_h[2]["moved"])).float().mean())
+        if agree < MIN_AGREE:
+            raise AssertionError(f"{label} [{source}]: integer outputs agree with the "
+                                 f"hand kernel's on only {100 * agree:.3f}% of lanes")
+        print(f"{label} [{source}]: staged (a split after every depth) equal to the "
+              f"single kernel to the bit; against the hand kernel: logp0 within "
+              f"{float((lp_k - lp_h).abs().max()):.3g}, integer outputs agree on "
+              f"{100 * agree:.3f}% of lanes, max |x diff| "
+              f"{float((out_k[0] - out_h[0]).abs().max()):.3g}, max |delta_h diff| "
+              f"{float((out_k[2]['delta_h'] - out_h[2]['delta_h']).abs().nan_to_num().max()):.3g}")
+        if source == PHILOX:
+            plain_ms = median_ms(lambda: nuts_tree_plain(model, *args), repeats=1, warmup=0)
+            single = out_k
+    times = {"hand": [], "generated": []}
+    for who in ("hand", "generated", "generated", "hand"):
+        m = hand if who == "hand" else model
+        times[who].append(median_ms(lambda: nuts_tree(m, *args), repeats=5))
+    ms, hand_ms = min(times["generated"]), min(times["hand"])
+    bound = tree_roofline("generated", single, model=model.tile_model)
+    print(f"time {label}, {RUNS} x {N} x depth {MAX_DEPTH} [philox]: generated "
+          f"{times['generated']} ms, hand {times['hand']} ms (CUDA events, median of "
+          f"5, in turns hand, generated, generated, hand): {ms / hand_ms:.3f}x; plain "
+          f"{plain_ms:.1f} ms; {bound_text(bound)} "
+          f"({model.tile_model.n_ops} operations x "
+          f"{float(single[2]['leapfrogs'].sum()):.0f} leapfrogs; {smi})")
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, **bound}
+
+
+def generated_split(label, model, hand, cfg, smi):
+    """Where a generated model's main-path call spends the time beside the
+    hand model's: `init_state` of each alone (CUDA events, the second of two
+    calls), then `profile_call` of each (the first iterations of the loop).
+    A measurement, not a check."""
+    from smcnuts_torch.sampler import init_state
+    from smcnuts_torch.utils.timing import CudaTimer
+
+    init_ms = {}
+    for who, m in (("generated", model), ("hand", hand)):
+        for _ in range(2):
+            with CudaTimer() as t:
+                init_state(m, cfg, SEEDS, "cuda").logw.sum().item()
+        init_ms[who] = t.ms
+    print(f"{label}: init_state {init_ms['generated']:.1f} ms generated, "
+          f"{init_ms['hand']:.1f} ms hand (CUDA events, second call; {smi})")
+    profile_call(f"{label} (generated)", model, cfg, smi)
+    profile_call(f"{label} (hand)", hand, cfg, smi)
+
+
+def generated_phase(smi):
+    """Phase 11: returns what the kernels line says of K7f and K7r."""
+    from smcnuts_torch import SMCConfig, run_smc, run_smc_batched
+    from smcnuts_torch.models import get_model
+    from smcnuts_torch.models.arma import arma_model_fwd
+    from smcnuts_torch.models.base import CallableModel
+    from smcnuts_torch.models.eightschools import make_eightschools_generated
+
+    phase("11. user-written densities: generated in-kernel models (K7f, K7r)")
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    arma = arma_model_fwd().to(dev)
+    t1 = time.perf_counter()
+    schools = make_eightschools_generated().to(dev)
+    print(f"traced and simplified: arma (T=200, forward) in {t1 - t0:.1f} s, eight "
+          f"schools (reverse) in {time.perf_counter() - t1:.1f} s")
+    generated_build("K7f arma", arma)
+    generated_build("K7r eight schools", schools)
+
+    k7f = generated_kernel_case("K7f arma", arma, get_model("arma").to(dev),
+                                particles(RUNS * N, 6, dev).view(RUNS, N, 4), STEP, smi)
+    es = AUTODIFF_MODELS["eightschools"]
+    k7r = generated_kernel_case("K7r eight schools", schools,
+                                get_model("eightschools").to(dev),
+                                autodiff_cloud("eightschools", (RUNS, N), 5, dev),
+                                es["cloud_step"], smi)
+
+    # The main path: the generated arma at bench.py's configuration, inside
+    # the PARITY bands.
+    cfg = workload_config(False)
+    res, k7f["launches"] = strategy_run("generated arma, forwards", "generated", arma,
+                                        cfg, smi)
+    parity_bands("generated arma, forwards", "arma", res.mean_estimate[:, K].cpu(),
+                 res.variance_estimate[:, K])
+    generated_split("arma, forwards", arma, get_model("arma").to(dev), cfg, smi)
+    # Eight schools at phase 9's configuration, inside the bands of the hand
+    # kernel's run with the same seeds.
+    k = es["k"]
+    cfg = SMCConfig(n_particles=es["n"], n_iterations=k, step_size=es["step"],
+                    lkernel=es["lkernel"], tempering=True, save_history=False,
+                    max_tree_depth=es["depth"])
+    label = f"generated eight schools {es['lkernel']} tempered"
+    res, k7r["launches"] = strategy_run(label, "generated", schools, cfg, smi)
+    ref = run_smc_batched(get_model("eightschools"), cfg, SEEDS, "cuda")
+    estimates_band(f"{label} vs the hand kernel's {RUNS} runs",
+                   res.mean_estimate[:, k], res.variance_estimate[:, k],
+                   ref.mean_estimate[:, k].double().mean(0),
+                   ref.variance_estimate[:, k].double().mean(0))
+    generated_split("eight schools, tempered", schools, get_model("eightschools").to(dev),
+                    cfg, smi)
+
+    # The same density without a generated model: eager, by autograd, on the card.
+    eager = CallableModel("eightschools", schools.dim, schools._logprior, schools._loglik,
+                          schools._constrain)
+    cfg = SMCConfig(n_particles=es["n"], n_iterations=EAGER_CARD_K, step_size=es["step"],
+                    max_tree_depth=es["depth"])
+    reset_counts()
+    t0 = time.perf_counter()
+    res = run_smc(eager, cfg, 0, "cuda")
+    wall = time.perf_counter() - t0
+    counts, plain_calls = read_counts()
+    check_series("eager eight schools (autograd) on the card", res, EAGER_CARD_K)
+    if sum(counts.values()) != 0 or plain_calls != EAGER_CARD_K:
+        raise AssertionError(f"the eager run must take the plain tree: {counts}, "
+                             f"{plain_calls}")
+    print(f"eager eight schools (autograd, no generated model) on the card: "
+          f"{EAGER_CARD_K} iterations in {wall:.1f} s (host clock), no kernel launch, "
+          f"final mean {[round(v, 3) for v in res.mean_estimate[EAGER_CARD_K].tolist()[:2]]}")
+    return k7f, k7r
+
+
 def partial_run(only, smi):
     """The phases named in `only` (after device and build), for development:
     no kernels line and no "ok" line, so it cannot pass for the whole run."""
@@ -1642,7 +1939,8 @@ def partial_run(only, smi):
               "staged_times": staged_times_phase, "cli": lambda smi: cli_phase(),
               "autodiff": autodiff_kernels_phase, "strategies": strategies_phase,
               "fused_kernel": arma_fused_kernel_phase, "eager": eager_arma_phase,
-              "unfused": unfused_kernel_phase, "wide_eager": wide_eager_phase}
+              "unfused": unfused_kernel_phase, "wide_eager": wide_eager_phase,
+              "generated": generated_phase}
     for key in only:
         phases[key](smi)
     print(f"\nchip_smoke: partial run of {only} passed; no result line")
@@ -1653,6 +1951,7 @@ def main():
     name, smi = device_phase()
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     build_phase()
+    k8 = peak_phase(smi)
     if len(sys.argv) == 3 and sys.argv[1] == "--only":
         return partial_run(sys.argv[2].split(","), smi)
     arma, arma_staged = arma_kernel_phase(smi)
@@ -1665,9 +1964,10 @@ def main():
     strategies = strategies_phase(smi)
     strategies["eightschools"] += schools_cli
     k5, k1u = fused_phase(smi)
-    source = "smcnuts_torch/csrc/nuts_tree.cu"
-    # No single PyTorch call builds a NUTS tree or computes the fused ARMA
-    # value and gradient, so no kernel has a library time.
+    k7f, k7r = generated_phase(smi)
+    source = "smcnuts_torch/csrc/nuts_tree.cuh"
+    # No single PyTorch call builds a NUTS tree, computes the fused ARMA
+    # value and gradient or runs FMA chains, so no kernel has a library time.
     kernels = [
         dict(name="nuts_tree_arma", route="cuda", source=source,
              replaces="smcnuts_tpu/ops/nuts_pallas.py:154",
@@ -1701,11 +2001,26 @@ def main():
         # K1u: the whole-tree kernel with the momenta given (the unfused path).
         dict(name="nuts_tree_arma_r_given", route="cuda", source=source,
              replaces="smcnuts_tpu/ops/nuts_pallas.py:999", **k1u),
+        # K7: generated models inlined into the K1 template, one library each.
+        dict(name="nuts_tree_generated_arma_forward", route="cuda",
+             source="smcnuts_torch/ops/generated.py",
+             replaces="smcnuts_tpu/ops/nuts_pallas.py:1674", **k7f),
+        dict(name="nuts_tree_generated_eightschools_reverse", route="cuda",
+             source="smcnuts_torch/ops/generated.py",
+             replaces="smcnuts_tpu/ops/nuts_pallas.py:1126", **k7r),
+        # K8: the FP32 peak, through its own entry point (ops/peak.peak_table).
+        dict(name="fma_peak", route="cuda", source="smcnuts_torch/csrc/fma_peak.cu",
+             replaces="experiments/bench_vpu_peak.py:38", **k8),
     ]
     for kernel in kernels:
         kernel["library_ms"] = None
         if kernel["launches"] < 1:
             raise AssertionError(f"{kernel['name']}: the main path never launched it")
+        print(f"{kernel['name']}: {kernel['ms']:.4f} ms, {bound_text(kernel)}, "
+              f"{kernel['bound_ms'] / kernel['ms']:.3f} of it at the data sheet's "
+              f"{PEAK_FP32 / 1e12:.0f} TFLOP/s, "
+              f"{kernel['bound_unfused_ms'] / kernel['ms']:.3f} at the measured "
+              f"FMUL+FADD {MEASURED_PEAK['fmul_fadd'] / 1e12:.3f} TFLOP/s ({smi})")
     print(f"\nchip_smoke: all phases passed in {time.perf_counter() - started:.0f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -13,8 +13,11 @@ the whole-tree NUTS proposal as a CUDA kernel per model (`ops/nuts_cuda.py`),
 run whole or in stages with lane compaction inside the kernel, with its plain
 PyTorch version, which is also the eager backend, run in blocks of lanes; for
 arma that backend can take the likelihood's value and gradient from a fused
-CUDA kernel (`make_arma(fused="cuda")`, `ops/arma_fused.py`). The entry
-points run on the card unless the caller asks for "cpu".
+CUDA kernel (`make_arma(fused="cuda")`, `ops/arma_fused.py`); user-written
+per-particle densities (`models.base.CallableModel`), eager by autograd or on
+the kernel through a generated in-kernel model (`ops/generated.py`); and the
+card's FP32 peak (`ops/peak.py`). The entry points run on the card unless the
+caller asks for "cpu".
 """
 
 __version__ = "0.1.0"

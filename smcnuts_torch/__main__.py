@@ -4,8 +4,8 @@ Prints the JSON summary of the JAX package's CLI (same keys) for the models
 arma, prmwcd, eightschools and logistic, with any of the three L-kernel
 strategies, `--tempering` (always on with the asymptotic strategy, as in that
 CLI) and either resampling scheme. The flags of that CLI that this port does
-not run yet (the Stan frontend, the mesh, checkpoints, the output file) raise
-NotImplementedError naming their ROADMAP item.
+not run yet (the Stan frontend, the mesh, checkpoints and their chunk size,
+the output file) raise NotImplementedError naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -19,6 +19,7 @@ _NOT_PORTED = {  # flag attribute -> ROADMAP item
     "stan_tile": "Queue 1 item 11",
     "mesh": "Queue 1 item 10",
     "checkpoint": "Queue 1 item 9",
+    "chunk_size": "Queue 1 item 9",
     "output": "Queue 1 item 9",
 }
 
@@ -53,11 +54,12 @@ def main(argv=None) -> dict:
     p.add_argument("--stan-tile", action="store_true")
     p.add_argument("--mesh", action="store_true")
     p.add_argument("--checkpoint", default=None)
+    p.add_argument("--chunk-size", type=int, default=None)
     p.add_argument("--output", default=None)
     args = p.parse_args(argv)
 
     for flag, item in _NOT_PORTED.items():
-        if getattr(args, flag):
+        if getattr(args, flag) not in (None, False):
             raise NotImplementedError(
                 f"--{flag.replace('_', '-')} is not ported to smcnuts_torch "
                 f"yet (ROADMAP {item})"

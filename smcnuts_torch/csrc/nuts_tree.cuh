@@ -1,0 +1,419 @@
+#pragma once
+
+// Whole-tree NUTS proposal, one thread per particle, for sm_90a, as one
+// kernel or as stages with lane compaction between them: the kernel
+// template, included by nuts_tree.cu (the hand-written models' entries) and by
+// every generated model's translation unit (smcnuts_torch/ops/generated.py).
+//
+// Replaces these TPU kernels of smcnuts_tpu/ops/nuts_pallas.py:
+//   - _nuts_kernel in its single-kernel fused form (momenta drawn in-kernel,
+//     delta_h / ke0 / moved and the optional accept-reject from the epilogue),
+//     launched by _nuts_pallas_batched through nuts_batch_pallas_fused;
+//   - the same kernel with the momenta given (nuts_batch_pallas), here the
+//     r != nullptr case;
+//   - the tile models it inlines, behind the Model template parameter: the
+//     hand-written ones of nuts_tree.cu, and the generated ones of
+//     tile_model_from_logp / tile_model_from_logp_fwd (ops/generated.py);
+//   - the compacted multi-stage dispatch: _nuts_kernel with start_depth,
+//     stop_depth, cont_in and cont_out (nuts_pallas.py:154-259, :503-562) and
+//     the sort-and-gather glue between its stages (:775-915).
+// Two instantiations for each entry that SMCNUTS_ENTRY defines: the first
+// stage (prologue; the whole tree when its stop depth is the maximum depth)
+// and the continuation stage. The model's data reach the kernel generically
+// (model_data.cuh).
+// Its plain PyTorch version is smcnuts_torch/ops/nuts_cuda.py::nuts_tree_plain.
+//
+// What bounds it on this card: FP32 throughput and latency in the model of every
+// leaf (arma: the serial T=200 error recurrence, each step depending on the
+// last; PRMwCD: 100 observations of ~50 operations and one expf), and warp
+// divergence, since a warp runs until its deepest tree ends while lanes stop
+// at different depths. With N=512 particles the grid is 4 blocks, so most SMs
+// are idle; at 25 x 512 it is 100 blocks, one per SM, every warp resident at
+// once, and the launch lasts as long as its deepest tree.
+//
+// Design: each thread walks its own tree with real early exit, so the TPU
+// kernel's per-lane masks become plain control flow. Run parameters (phi,
+// step size, inverse mass, seed) are read per run at p / n_per_run, so B runs
+// of one SMC iteration share one launch. The block stages the model's data in
+// shared memory once. The checkpoint stack, 2 x (kMaxDepth+1) x D floats a
+// thread, lives in local memory. Random numbers are addressed by their place
+// in the tree and keyed by the run's seed alone (draws.cuh), so run b of a
+// batch draws what it would draw alone, and a lane draws the same bits
+// whichever stage and slot it is in.
+//
+// Staging (the answer to warp divergence): a stage runs doublings
+// start_depth..stop_depth. A thread whose tree ends inside the stage runs the
+// epilogue and writes its outputs at its own lane, at whichever stage that
+// is, so the epilogue runs exactly once a lane. A thread whose tree goes on
+// reserves a slot in the next stage's bundle with one atomicAdd a warp and
+// writes its carriers and its lane index there; the next launch gives thread
+// t slot t, so the lanes still at work fill dense warps. There is no sort, no
+// gather and no un-permute, and the host never reads the survivor count: the
+// continuation is launched over every lane, and a block whose first slot is
+// past the count returns before it touches shared memory. The bundle is
+// (8 D + 11, P) floats, slot-minor, so neighbouring threads touch neighbouring
+// addresses. The start state is not carried: the epilogue reads x0 again from
+// the input and draws r0 again from the same address of the stream, which
+// also keeps 2 D floats a thread out of the registers during the walk.
+//
+// What staging buys on an H100 (chip_smoke.py phase 6b): nothing up to one
+// block an SM (25 x 512 lanes), where no warp waits for another and the
+// dispatch lasts as long as its deepest tree either way; past that, warps that
+// end early make room for waiting ones, and because a stage costs only a
+// launch and one pass over the survivors' carriers, a split after every
+// doubling is the fastest choice (about 2x at 400 x 512 PRMwCD lanes).
+
+#include <cstdint>
+
+#include <cuda_runtime.h>
+
+#include "draws.cuh"
+#include "model_data.cuh"
+
+namespace smcnuts {
+
+constexpr int kMaxDepth = 10;  // compile-time bound on max_depth
+constexpr int kThreads = 128;  // threads per block
+constexpr float kDivergence = 100.0f;  // nats
+constexpr float kTwoPi = 6.28318530717958647693;
+constexpr int kStats = 8;  // logp0, logp_prop, accept_stat, depth, leapfrogs, delta_h, ke0, moved
+
+// Rows of the bundle a stage hands to the next: the lane index (its bits),
+// 8 vectors of D, 10 scalars.
+constexpr int bundle_rows(int dim) { return 8 * dim + 11; }
+
+struct TreeArgs {
+  const float* x;         // (P, D)
+  const float* r;         // (P, D), or nullptr: momenta drawn in-kernel
+  const float* data;      // (n_data,): the model's block of floats
+  int n_data;
+  ModelScalars scalars;   // the model's scalar constants
+  const int32_t* seed;    // (n_runs,)
+  const float* phi;       // (n_runs,)
+  const float* eps;       // (n_runs,)
+  const float* inv_mass;  // (n_runs, D)
+  int n_per_run;
+  int total;              // P = n_runs * n_per_run
+  int max_depth;
+  bool zero_bits;
+  bool acc_rej;           // accept-reject in the epilogue
+  int start_depth;        // first doubling of this stage
+  int stop_depth;         // last doubling of this stage; max_depth in the final one
+  const float* cont_in;   // (bundle_rows(D), P): a continuation stage's lanes
+  const int* n_in;        // how many slots of cont_in are filled
+  float* cont_out;        // the bundle a non-final stage fills
+  int* n_out;             // its slot counter, zero before the launch
+  float* x_out;           // (P, D)
+  float* r_out;           // (P, D)
+  float* stats;           // (kStats, P)
+};
+
+template <int D>
+__device__ __forceinline__ float kinetic(const float* im, const float* r) {
+  float acc = 0.0f;
+#pragma unroll
+  for (int d = 0; d < D; ++d) acc = acc + (im[d] * r[d]) * r[d];
+  return 0.5f * acc;
+}
+
+// sum_d (dx_d * im_d) * v_d, summed over d in order.
+template <int D>
+__device__ __forceinline__ float dot_im(const float* dx, const float* im, const float* v) {
+  float acc = 0.0f;
+#pragma unroll
+  for (int d = 0; d < D; ++d) acc = acc + (dx[d] * im[d]) * v[d];
+  return acc;
+}
+
+template <int D>
+__device__ __forceinline__ void copy(float* dst, const float* src) {
+#pragma unroll
+  for (int d = 0; d < D; ++d) dst[d] = src[d];
+}
+
+// r0_d ~ N(0, 1 / im_d) from the prologue's draws 2d and 2d + 1.
+__device__ __forceinline__ float start_momentum(const TreeDraws& draws, float im_d, int d) {
+  const float u1 = draws.uniform(kPrologue, 0, 2 * d);
+  const float u2 = draws.uniform(kPrologue, 0, 2 * d + 1);
+  return (sqrtf(-2.0f * logf(u1)) * cosf(kTwoPi * u2)) * rsqrtf(im_d);
+}
+
+// A slot of the next stage's bundle for every calling thread: the threads of
+// the warp that are here together take consecutive slots from one atomicAdd.
+__device__ __forceinline__ int reserve_slot(int* counter) {
+  const unsigned mask = __activemask();
+  const int lane = threadIdx.x & 31;
+  const int leader = __ffs(mask) - 1;
+  int base = 0;
+  if (lane == leader) base = atomicAdd(counter, __popc(mask));
+  base = __shfl_sync(mask, base, leader);
+  return base + __popc(mask & ((1u << lane) - 1u));
+}
+
+template <int D>
+__device__ __forceinline__ void load_rows(float* dst, const float* src, int row, int P, int slot) {
+#pragma unroll
+  for (int d = 0; d < D; ++d) dst[d] = src[(row + d) * P + slot];
+}
+
+template <int D>
+__device__ __forceinline__ void store_rows(float* dst, const float* src, int row, int P, int slot) {
+#pragma unroll
+  for (int d = 0; d < D; ++d) dst[(row + d) * P + slot] = src[d];
+}
+
+// kCont = false: the first stage, thread t is lane t and runs the prologue.
+// kCont = true: a continuation stage, thread t takes slot t of cont_in.
+template <class Model, bool kCont>
+__global__ void __launch_bounds__(kThreads) nuts_tree_kernel(const TreeArgs a) {
+  constexpr int D = Model::D;
+  const int P = a.total;
+  int n_lanes = P;
+  if constexpr (kCont) {
+    n_lanes = *a.n_in;
+    if (static_cast<int>(blockIdx.x * blockDim.x) >= n_lanes) return;  // no lane for this block
+  }
+  extern __shared__ float data_s[];
+  for (int t = threadIdx.x; t < a.n_data; t += blockDim.x) data_s[t] = a.data[t];
+  __syncthreads();
+
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= n_lanes) return;  // padding threads
+  int p = t;
+  if constexpr (kCont) p = __float_as_int(a.cont_in[t]);
+  const int run = p / a.n_per_run;
+  const Model model(data_s, a.n_data, a.scalars);
+  const float phi = a.phi[run];
+  const float eps = a.eps[run];
+  float im[D];
+#pragma unroll
+  for (int d = 0; d < D; ++d) im[d] = a.inv_mass[run * D + d];
+  const TreeDraws draws{static_cast<uint32_t>(a.seed[run]),
+                        static_cast<uint32_t>(p - run * a.n_per_run), a.zero_bits};
+
+  float xm[D], rm[D], gm[D], xp[D], rp[D], gp[D], xs[D], rs[D];
+  float lps, n, logu, H0, logp0, ke0, alpha_sum, alpha_cnt, lf_cnt, depth_done;
+  if constexpr (kCont) {
+    const float* c = a.cont_in;
+    load_rows<D>(xm, c, 1 + 0 * D, P, t); load_rows<D>(rm, c, 1 + 1 * D, P, t);
+    load_rows<D>(gm, c, 1 + 2 * D, P, t); load_rows<D>(xp, c, 1 + 3 * D, P, t);
+    load_rows<D>(rp, c, 1 + 4 * D, P, t); load_rows<D>(gp, c, 1 + 5 * D, P, t);
+    load_rows<D>(xs, c, 1 + 6 * D, P, t); load_rows<D>(rs, c, 1 + 7 * D, P, t);
+    const float* sc = c + (1 + 8 * D) * P + t;
+    lps = sc[0 * P]; n = sc[1 * P]; logu = sc[2 * P]; H0 = sc[3 * P]; logp0 = sc[4 * P];
+    ke0 = sc[5 * P]; alpha_sum = sc[6 * P]; alpha_cnt = sc[7 * P]; lf_cnt = sc[8 * P];
+    depth_done = sc[9 * P];
+  } else {
+    // Prologue: momenta, start energy, slice variable.
+    float x0[D], r0[D], g0[D];
+#pragma unroll
+    for (int d = 0; d < D; ++d) x0[d] = a.x[p * D + d];
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      r0[d] = a.r != nullptr ? a.r[p * D + d] : start_momentum(draws, im[d], d);
+    }
+    logp0 = model.logp_grad(x0, phi, g0);
+    ke0 = kinetic<D>(im, r0);
+    H0 = logp0 - ke0;
+    logu = H0 - (-logf(draws.uniform(kPrologue, 0, 2 * D)));
+    copy<D>(xm, x0); copy<D>(rm, r0); copy<D>(gm, g0);
+    copy<D>(xp, x0); copy<D>(rp, r0); copy<D>(gp, g0);
+    copy<D>(xs, x0); copy<D>(rs, r0);
+    lps = logp0; n = 1.0f;
+    alpha_sum = 0.0f; alpha_cnt = 0.0f; lf_cnt = 0.0f; depth_done = 0.0f;
+  }
+  float ck_x[(kMaxDepth + 1) * D], ck_r[(kMaxDepth + 1) * D];
+
+  bool stopped = false;
+  for (int depth = a.start_depth; depth <= a.stop_depth; ++depth) {
+    const bool back = !(draws.uniform(kDirection, depth, 0) < 0.5f);
+    const float direction = back ? -1.0f : 1.0f;
+    float x[D], r[D], g[D], xpr[D], rpr[D];
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      x[d] = back ? xm[d] : xp[d];
+      r[d] = back ? rm[d] : rp[d];
+      g[d] = back ? gm[d] : gp[d];
+      xpr[d] = x[d];
+      rpr[d] = r[d];
+    }
+    float lppr = lps, nsub = 0.0f;
+    bool sstop = false;
+    const float deps = direction * eps;
+    const float half = 0.5f * deps;
+
+    const int num_leaves = 1 << depth;
+    for (int leaf = 0; leaf < num_leaves && !sstop; ++leaf) {
+      float r_half[D], x1[D], g1[D], r1[D];
+#pragma unroll
+      for (int d = 0; d < D; ++d) r_half[d] = r[d] + half * g[d];
+#pragma unroll
+      for (int d = 0; d < D; ++d) x1[d] = x[d] + (deps * im[d]) * r_half[d];
+      const float lp1 = model.logp_grad(x1, phi, g1);
+#pragma unroll
+      for (int d = 0; d < D; ++d) r1[d] = r_half[d] + half * g1[d];
+
+      const float joint = lp1 - kinetic<D>(im, r1);
+      const bool ok = isfinite(joint);
+      const bool valid = ok && (logu < joint);
+      const bool div = !ok || ((logu - kDivergence) >= joint);
+      nsub = nsub + (valid ? 1.0f : 0.0f);
+      if (valid && draws.uniform(kLeaf, depth, leaf) * nsub < 1.0f) {
+        copy<D>(xpr, x1);
+        copy<D>(rpr, r1);
+        lppr = lp1;
+      }
+      const float ratio = expf(joint - H0);
+      alpha_sum = alpha_sum + (ok ? (ratio > 1.0f ? 1.0f : ratio) : 0.0f);  // NaN stays NaN
+      alpha_cnt = alpha_cnt + 1.0f;
+      lf_cnt = lf_cnt + 1.0f;
+
+      // Checkpoints: even leaves store the left end of the sub-trees they
+      // open, odd leaves test every sub-tree they close.
+      const int idx_max = __popc(leaf >> 1);
+      bool turned = false;
+      if ((leaf & 1) == 0) {
+        copy<D>(ck_x + idx_max * D, x1);
+        copy<D>(ck_r + idx_max * D, r1);
+      } else {
+        const int idx_min = idx_max - (__popc(leaf ^ (leaf + 1)) - 1) + 1;
+        for (int slot = idx_min; slot <= idx_max; ++slot) {
+          float dx[D];
+#pragma unroll
+          for (int d = 0; d < D; ++d) dx[d] = direction * (x1[d] - ck_x[slot * D + d]);
+          turned = turned || dot_im<D>(dx, im, ck_r + slot * D) < 0.0f ||
+                   dot_im<D>(dx, im, r1) < 0.0f;
+        }
+      }
+      sstop = div || turned;
+      copy<D>(x, x1);
+      copy<D>(r, r1);
+      copy<D>(g, g1);
+    }
+
+    if (back) {
+      copy<D>(xm, x); copy<D>(rm, r); copy<D>(gm, g);
+    } else {
+      copy<D>(xp, x); copy<D>(rp, r); copy<D>(gp, g);
+    }
+    if (!sstop && draws.uniform(kAccept, depth, 0) * n < nsub) {
+      copy<D>(xs, xpr);
+      copy<D>(rs, rpr);
+      lps = lppr;
+    }
+    n = n + nsub;
+    depth_done = depth_done + 1.0f;
+
+    float dx[D];
+#pragma unroll
+    for (int d = 0; d < D; ++d) dx[d] = xp[d] - xm[d];
+    if (sstop || dot_im<D>(dx, im, rm) < 0.0f || dot_im<D>(dx, im, rp) < 0.0f) {
+      stopped = true;
+      break;
+    }
+  }
+
+  if (!stopped && a.stop_depth < a.max_depth) {
+    // The tree goes on: hand the carriers to the next stage.
+    const int slot = reserve_slot(a.n_out);
+    float* c = a.cont_out;
+    c[slot] = __int_as_float(p);
+    store_rows<D>(c, xm, 1 + 0 * D, P, slot); store_rows<D>(c, rm, 1 + 1 * D, P, slot);
+    store_rows<D>(c, gm, 1 + 2 * D, P, slot); store_rows<D>(c, xp, 1 + 3 * D, P, slot);
+    store_rows<D>(c, rp, 1 + 4 * D, P, slot); store_rows<D>(c, gp, 1 + 5 * D, P, slot);
+    store_rows<D>(c, xs, 1 + 6 * D, P, slot); store_rows<D>(c, rs, 1 + 7 * D, P, slot);
+    float* sc = c + (1 + 8 * D) * P + slot;
+    sc[0 * P] = lps; sc[1 * P] = n; sc[2 * P] = logu; sc[3 * P] = H0; sc[4 * P] = logp0;
+    sc[5 * P] = ke0; sc[6 * P] = alpha_sum; sc[7 * P] = alpha_cnt; sc[8 * P] = lf_cnt;
+    sc[9 * P] = depth_done;
+    return;
+  }
+
+  // Epilogue, once a lane, in the stage where its tree ends. delta_h is the
+  // value before the accept-reject, moved the one after it.
+  const float dh = (lps - kinetic<D>(im, rs)) - H0;
+  bool keep = true;
+  if (a.acc_rej) {
+    // u <= min(1, exp(dh)) as u <= exp(min(dh, 0)); a NaN dh stays NaN and rejects.
+    keep = draws.uniform(kAccRej, 0, 0) <= expf(dh > 0.0f ? 0.0f : dh);
+    if (!keep) lps = logp0;
+  }
+  float moved = 1.0f;
+#pragma unroll
+  for (int d = 0; d < D; ++d) {
+    const float x0 = a.x[p * D + d];
+    float xo = xs[d], ro = rs[d];
+    if (!keep) {
+      xo = x0;
+      ro = a.r != nullptr ? a.r[p * D + d] : start_momentum(draws, im[d], d);
+    }
+    moved = moved * (xo != x0 ? 1.0f : 0.0f);
+    a.x_out[p * D + d] = xo;
+    a.r_out[p * D + d] = ro;
+  }
+  const float astat = alpha_sum / (alpha_cnt > 1.0f ? alpha_cnt : 1.0f);
+  a.stats[0 * P + p] = logp0;
+  a.stats[1 * P + p] = lps;
+  a.stats[2 * P + p] = astat;
+  a.stats[3 * P + p] = depth_done;
+  a.stats[4 * P + p] = lf_cnt + 1.0f;
+  a.stats[5 * P + p] = dh;
+  a.stats[6 * P + p] = ke0;
+  a.stats[7 * P + p] = moved;
+}
+
+template <class Model>
+int launch(const float* x, const float* r, const float* data, int n_data, const float* scalars,
+           int n_scalars, const int32_t* seed, const float* phi, const float* eps,
+           const float* inv_mass, int n_runs, int n_per_run, int max_depth, int zero_bits,
+           int acc_rej, int start_depth, int stop_depth, const float* cont_in, const int* n_in,
+           float* cont_out, int* n_out, float* x_out, float* r_out, float* stats, void* stream) {
+  const bool cont = cont_in != nullptr;
+  const bool last = stop_depth == max_depth;
+  if (max_depth < 0 || max_depth > kMaxDepth || n_runs < 1 || n_per_run < 1 ||
+      n_scalars < 0 || n_scalars > kMaxScalars || !Model::accepts(n_data, n_scalars) ||
+      start_depth < 0 || start_depth > stop_depth || stop_depth > max_depth ||
+      cont != (start_depth > 0) || cont != (n_in != nullptr) ||
+      last != (cont_out == nullptr) || last != (n_out == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  ModelScalars s{};
+  for (int i = 0; i < n_scalars; ++i) s.v[i] = scalars[i];
+  const TreeArgs args{x, r, data, n_data, s, seed, phi, eps, inv_mass, n_per_run,
+                      n_runs * n_per_run, max_depth, zero_bits != 0, acc_rej != 0,
+                      start_depth, stop_depth, cont_in, n_in, cont_out, n_out,
+                      x_out, r_out, stats};
+  // A continuation stage is launched over every lane too: the count of its
+  // lanes stays on the device.
+  const int blocks = (args.total + kThreads - 1) / kThreads;
+  const size_t smem = static_cast<size_t>(n_data) * sizeof(float);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (cont) {
+    nuts_tree_kernel<Model, true><<<blocks, kThreads, smem, st>>>(args);
+  } else {
+    nuts_tree_kernel<Model, false><<<blocks, kThreads, smem, st>>>(args);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace smcnuts
+
+// Each entry launches one stage of one tree per particle on `stream`
+// (doublings start_depth..stop_depth; the whole tree for 0..max_depth) and
+// returns cudaGetLastError(). It does not synchronise and allocates nothing:
+// the caller owns every buffer. `scalars` is a host array of n_scalars
+// floats. A stage with start_depth > 0 reads its lanes from cont_in / n_in; a
+// stage with stop_depth < max_depth fills cont_out / n_out (n_out zeroed by
+// the caller); the pointers a stage does not use are null.
+#define SMCNUTS_ENTRY(NAME, MODEL)                                                              \
+  int NAME(const float* x, const float* r, const float* data, int n_data, const float* scalars, \
+           int n_scalars, const int32_t* seed, const float* phi, const float* eps,              \
+           const float* inv_mass, int n_runs, int n_per_run, int max_depth, int zero_bits,      \
+           int acc_rej, int start_depth, int stop_depth, const float* cont_in,                  \
+           const int* n_in, float* cont_out, int* n_out, float* x_out, float* r_out,            \
+           float* stats, void* stream) {                                                        \
+    return smcnuts::launch<MODEL>(x, r, data, n_data, scalars, n_scalars, seed, phi, eps,       \
+                                  inv_mass, n_runs, n_per_run, max_depth, zero_bits, acc_rej,   \
+                                  start_depth, stop_depth, cont_in, n_in, cont_out, n_out,      \
+                                  x_out, r_out, stats, stream);                                 \
+  }

@@ -29,7 +29,8 @@ import torch
 from torch import nn
 
 from ..ops.arma_fused import arma_loglik_grad, make_arma_loglik_vg
-from .base import EVERY_DEPTH, LOG_SQRT_2PI, cauchy_lpdf, normal_lpdf
+from ..ops.generated import tile_model_from_logp_fwd
+from .base import EVERY_DEPTH, LOG_SQRT_2PI, CallableModel, cauchy_lpdf, normal_lpdf
 
 ASSET = os.path.join(
     os.path.dirname(os.path.abspath(__file__)),
@@ -165,6 +166,60 @@ class ArmaModel(nn.Module):
 
 def make_arma(y=None, fused=None) -> ArmaModel:
     return ArmaModel(y, fused)
+
+
+def arma_logprior_seq(coords):
+    """The priors and the exp transform's Jacobian of one particle, its
+    coordinates a sequence of four scalars (`arma_tile_model_fwd`'s form)."""
+    mu, beta, th, ls = coords
+    z = torch.exp(ls) / 2.5
+    return (
+        -0.5 * (mu / 10.0) ** 2 - _LOG_10 - LOG_SQRT_2PI
+        - 0.5 * (beta / 2.0) ** 2 - _LOG_2 - LOG_SQRT_2PI
+        - 0.5 * (th / 2.0) ** 2 - _LOG_2 - LOG_SQRT_2PI
+        - _LOG_PI - _LOG_2_5 - torch.log1p(z * z)
+        + ls
+    )
+
+
+def arma_loglik_seq(y):
+    """loglik(coords) of the T observations y (Python floats), the error
+    recurrence unrolled as `arma_tile_model_fwd` writes it."""
+    yf = [float(v) for v in np.asarray(y, np.float64)]
+    T = len(yf)
+
+    def loglik(coords):
+        mu, beta, th, ls = coords
+        err = yf[0] - mu - beta * mu
+        s2 = err * err
+        for t in range(1, T):
+            err = yf[t] - mu - beta * yf[t - 1] - th * err
+            s2 = s2 + err * err
+        return -T * (LOG_SQRT_2PI + ls) - 0.5 * s2 * torch.exp(-2.0 * ls)
+
+    return loglik
+
+
+def arma_model_fwd(y=None) -> CallableModel:
+    """arma as a user's torch density: a `CallableModel` whose logprior and
+    loglik take one particle, with the generated forward-mode in-kernel model
+    of the scalar density lprior + phi * loglik. The observations enter as
+    Python floats (rounded to float32 in the kernel, as `arma_tile_model_fwd`
+    rounds them)."""
+    if y is None:
+        y = load_asset()["y"]
+    loglik = arma_loglik_seq(y)
+
+    def logp_seq(coords, phi):
+        return arma_logprior_seq(coords) + phi * loglik(coords)
+
+    return CallableModel(
+        "arma", 4, lambda t: arma_logprior_seq(t.unbind(0)),
+        lambda t: loglik(t.unbind(0)),
+        constrain=lambda t: torch.cat([t[:3], torch.exp(t[3:4])]),
+        param_names=ArmaModel.param_names,
+        tile_model=tile_model_from_logp_fwd(logp_seq, 4, name="arma"),
+    )
 
 
 def ground_truth():

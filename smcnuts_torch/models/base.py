@@ -8,8 +8,11 @@ with different temperatures can share one call). Densities include Stan's
 normalising constants and the log-Jacobian of the constraining transform, as
 in the JAX package.
 
-`logp_and_grad` is written in closed form, not by autograd: it is the plain
-version of the model that the CUDA NUTS kernel inlines.
+`logp_and_grad` of the hand-written models is written in closed form, not
+by autograd: it is the plain version of the model that the CUDA NUTS kernel
+inlines. `CallableModel` is the exception: a user's per-particle density,
+differentiated by autograd on the eager backend and, with a generated
+in-kernel model (`ops/generated.py`), run inside the kernel.
 
 A model also carries its compaction hints, the splits that
 `SMCConfig(compaction="auto")` takes for it (`sampler.resolve_compaction`):
@@ -27,9 +30,10 @@ at 204,800; the hints are that tuple.
 from __future__ import annotations
 
 import math
-from typing import Protocol, Sequence
+from typing import Callable, Protocol, Sequence
 
 import torch
+from torch import nn
 
 LOG_SQRT_2PI = float(0.5 * math.log(2.0 * math.pi))
 # The target_accept at which every model's adapted hint was measured.
@@ -62,6 +66,67 @@ class Model(Protocol):
     ) -> tuple[torch.Tensor, torch.Tensor]: ...
 
     def constrain(self, x: torch.Tensor) -> torch.Tensor: ...
+
+
+class CallableModel(nn.Module):
+    """A model from per-particle callables, the port of the JAX package's
+    `Model` (`smcnuts_tpu/models/base.py:31-95`).
+
+    `logprior(theta)`, `loglik(theta)` and `constrain(theta)` take one
+    particle's unconstrained parameters, a (D,) tensor, and are written in
+    torch ops; data they need are Python floats or tensors made on theta's
+    device (`theta.new_tensor(values)`), so the model runs on any device and
+    in float32 and float64. The batched methods are their `torch.func.vmap`,
+    and `logp_and_grad` is `vmap(grad_and_value(logprior + phi * loglik))`:
+    autograd, on the eager backend, on the CPU or the card.
+
+    `tile_model`, optional, is a generated in-kernel model of the same
+    density (`ops.generated.tile_model_from_logp` or `_fwd`): with it the
+    model runs on the CUDA NUTS kernel (float32), and the plain tree takes
+    that model's program, the kernel's plain version, in place of autograd.
+    Without it `nuts_backend="cuda"` raises. The compaction hints are (), the
+    JAX TileModel's default."""
+
+    compaction_hint = ()
+    compaction_hint_adapted = ()
+
+    def __init__(self, name: str, dim: int, logprior: Callable, loglik: Callable,
+                 constrain: Callable | None = None, constrained_dim: int | None = None,
+                 param_names: Sequence[str] | None = None, tile_model=None):
+        super().__init__()
+        if tile_model is not None and tile_model.dim != dim:
+            raise ValueError(f"the tile model has dimension {tile_model.dim}, the "
+                             f"model {dim}")
+        self.name = name
+        self.dim = int(dim)
+        self.constrained_dim = self.dim if constrained_dim is None else int(constrained_dim)
+        self.param_names = tuple(param_names if param_names is not None else
+                                 (f"theta.{i + 1}" for i in range(self.constrained_dim)))
+        self._logprior, self._loglik = logprior, loglik
+        self._constrain = constrain if constrain is not None else (lambda t: t)
+        self.tile_model = tile_model
+
+    def _logp(self, theta, phi):
+        return self._logprior(theta) + phi * self._loglik(theta)
+
+    def logprior(self, x):
+        return torch.func.vmap(self._logprior)(x)
+
+    def loglik(self, x):
+        return torch.func.vmap(self._loglik)(x)
+
+    def logp(self, x, phi=1.0):
+        return self.logprior(x) + phi * self.loglik(x)
+
+    def logp_and_grad(self, x, phi=1.0):
+        per_particle = isinstance(phi, torch.Tensor) and phi.dim() > 0
+        grad, value = torch.func.vmap(
+            torch.func.grad_and_value(self._logp), in_dims=(0, 0 if per_particle else None)
+        )(x, phi)
+        return value, grad
+
+    def constrain(self, x):
+        return torch.func.vmap(self._constrain)(x)
 
 
 def _log(v):

@@ -5,6 +5,11 @@ Unconstrained parameters x = [mu, log_tau, tt_1..tt_J] (D = 2 + J, J = 8):
     mu ~ N(0, 5); tau ~ HalfCauchy(0, 5) with the exp transform (+ log_tau
     Jacobian); tt_j ~ N(0, 1); y_j ~ N(mu + tau tt_j, sigma_j).
 Constrained output: [mu, tau, theta_1..theta_J], theta_j = mu + tau tt_j.
+
+`make_eightschools_generated()` is the same density written as a user would
+write it, per particle in torch ops (`CallableModel`): gradients by autograd
+on the eager backend and, inside the CUDA kernel, by the generated
+reverse-mode model of `ops/generated.tile_model_from_logp`.
 """
 
 from __future__ import annotations
@@ -15,7 +20,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from .base import LOG_SQRT_2PI, cauchy_lpdf, normal_lpdf
+from ..ops.generated import tile_model_from_logp
+from .base import LOG_SQRT_2PI, CallableModel, cauchy_lpdf, normal_lpdf
 
 Y = np.array([28.0, 8.0, -3.0, 7.0, -1.0, 1.0, 18.0, 12.0])
 SIGMA = np.array([15.0, 10.0, 16.0, 11.0, 9.0, 11.0, 10.0, 18.0])
@@ -134,3 +140,46 @@ class EightSchoolsModel(nn.Module):
 
 def make_eightschools(y=None, sigma=None) -> EightSchoolsModel:
     return EightSchoolsModel(y, sigma)
+
+
+def eightschools_logprior(theta):
+    """log p(mu, log_tau, tt) of one particle (D,), with the exp transform's
+    Jacobian: the JAX density's prior (`smcnuts_tpu/models/eightschools.py`)."""
+    mu, log_tau, tt = theta[0], theta[1], theta[2:]
+    lp = normal_lpdf(mu, 0.0, 5.0)
+    lp = lp + cauchy_lpdf(torch.exp(log_tau), 0.0, 5.0) + LOG_2 + log_tau
+    return lp + torch.sum(normal_lpdf(tt, 0.0, 1.0))
+
+
+def eightschools_loglik(y=None, sigma=None):
+    """loglik(theta) of one particle: y_j ~ N(mu + tau tt_j, sigma_j). The
+    data are tensors made on theta's device."""
+    y = [float(v) for v in (Y if y is None else y)]
+    sigma = [float(v) for v in (SIGMA if sigma is None else sigma)]
+
+    def loglik(theta):
+        mu, tau, tt = theta[0], torch.exp(theta[1]), theta[2:]
+        return torch.sum(normal_lpdf(theta.new_tensor(y), mu + tau * tt,
+                                     theta.new_tensor(sigma)))
+
+    return loglik
+
+
+def make_eightschools_generated(y=None, sigma=None) -> CallableModel:
+    """Eight schools as a per-particle torch density with its generated
+    reverse-mode in-kernel model."""
+    loglik = eightschools_loglik(y, sigma)
+    dim = 2 + len(Y if y is None else y)
+
+    def constrain(theta):
+        tau = torch.exp(theta[1:2])
+        return torch.cat([theta[:1], tau, theta[0] + tau * theta[2:]])
+
+    def logp(theta, phi):
+        return eightschools_logprior(theta) + phi * loglik(theta)
+
+    return CallableModel(
+        "eightschools", dim, eightschools_logprior, loglik, constrain=constrain,
+        param_names=("mu", "tau") + tuple(f"theta.{j + 1}" for j in range(dim - 2)),
+        tile_model=tile_model_from_logp(logp, dim, name="eightschools"),
+    )

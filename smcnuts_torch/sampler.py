@@ -69,7 +69,7 @@ import numpy as np
 import torch
 
 from .config import SMCConfig
-from .models.base import ADAPTED_HINT_TARGET, COMPACTION_MIN_LANES, LOG_SQRT_2PI
+from .models.base import ADAPTED_HINT_TARGET, COMPACTION_MIN_LANES, LOG_SQRT_2PI, CallableModel
 from .ops.adaptation import (
     DualAveragingState,
     da_init,
@@ -136,15 +136,24 @@ _SERIES = (
 )
 
 
-def resolve_backend(cfg: SMCConfig, device: torch.device) -> str:
+def resolve_backend(cfg: SMCConfig, device: torch.device, model=None) -> str:
     """The proposal backend: cuda (the kernel) or eager (the plain tree).
 
-    "auto" picks cuda on a CUDA device and eager on the CPU."""
+    "auto" picks cuda on a CUDA device and eager on the CPU, and eager for a
+    `CallableModel` without a generated in-kernel model, which "cuda" refuses
+    (as the JAX package's pallas backend refuses a model without a
+    tile_model, `smcnuts_tpu/sampler.py:246-250`)."""
+    no_kernel = isinstance(model, CallableModel) and model.tile_model is None
     backend = cfg.nuts_backend
     if backend == "auto":
-        backend = "cuda" if device.type == "cuda" else "eager"
+        backend = "cuda" if device.type == "cuda" and not no_kernel else "eager"
     if backend == "cuda" and device.type != "cuda":
         raise ValueError(f"nuts_backend='cuda' needs a CUDA device, got {device}")
+    if backend == "cuda" and no_kernel:
+        raise ValueError(
+            f"model '{model.name}' has no tile_model; the cuda NUTS backend is "
+            "unavailable for it: run it on nuts_backend='eager' (autograd), or "
+            "give it a generated tile_model (ops.generated.tile_model_from_logp)")
     if cfg.dtype == "float64" and device.type == "cuda":
         raise NotImplementedError(
             "float64 on CUDA is not ported to smcnuts_torch yet "
@@ -552,7 +561,7 @@ def run_smc_batched(model, cfg: SMCConfig, seeds, device="cuda",
     device. The device defaults to the card and is never replaced by the
     CPU: without a CUDA device the call raises unless "cpu" is asked for."""
     device = resolve_device(device)
-    backend = resolve_backend(cfg, device)
+    backend = resolve_backend(cfg, device, model)
     model = model.to(device)
     seeds = [int(s) for s in seeds]
     if not seeds or not all(0 <= s < 2**63 for s in seeds):

@@ -23,6 +23,8 @@ _MODULES = (
     "smcnuts_torch.models.gaussian", "smcnuts_torch.models.eightschools",
     "smcnuts_torch.models.logistic", "smcnuts_torch.ops.arma_fused",
     "smcnuts_torch.ops.nuts", "smcnuts_torch.proposals", "smcnuts_torch.config",
+    "smcnuts_torch.ops.generated", "smcnuts_torch.ops.peak", "smcnuts_torch.models.base",
+    "smcnuts_torch.models.arma",
 )
 
 
@@ -43,6 +45,13 @@ def test_imports_with_jax_blocked():
         "from smcnuts_torch import FullNormalProposal, SMCConfig\n"
         "make_arma(fused='plain').logp_and_grad(torch.zeros(2, 4))\n"
         "FullNormalProposal((0.0, 0.0), ((1.0, 0.0), (0.0, 1.0))).logpdf(torch.zeros(3, 2))\n"
+        "from smcnuts_torch.models.arma import arma_model_fwd\n"
+        "from smcnuts_torch.models.eightschools import make_eightschools_generated\n"
+        "m = arma_model_fwd([0.1, -0.2, 0.3, 0.05])\n"
+        "m.logp_and_grad(torch.zeros(2, 4)); m.tile_model.logp_and_grad(torch.zeros(2, 4))\n"
+        "make_eightschools_generated().tile_model.source\n"
+        "from smcnuts_torch.ops.peak import fma_chains\n"
+        "fma_chains(torch.zeros(4), 4, 2)\n"
         "SMCConfig(n_particles=4, n_iterations=1, step_size=0.1, fused_epilogue=False,\n"
         "          eager_block_size=2)\n"
         "print('ok')\n"
@@ -110,6 +119,12 @@ def test_kernel_sources_of_every_model_are_in_the_package():
         assert os.path.isfile(os.path.join(csrc, f"{model}_model.cuh")), model
         assert f'#include "{model}_model.cuh"' in kernel
         assert f"smcnuts_nuts_tree_{model}" in kernel
+    # The kernel template that generated models include, and K8.
+    assert '#include "nuts_tree.cuh"' in kernel
+    with open(os.path.join(csrc, "nuts_tree.cuh")) as f:
+        assert "#define SMCNUTS_ENTRY" in f.read()
+    with open(os.path.join(csrc, "fma_peak.cu")) as f:
+        assert "smcnuts_fma_peak" in f.read()
     with open(os.path.join(csrc, "arma_fused.cu")) as f:
         fused = f.read()
     assert '#include "arma_model.cuh"' in fused and "arma_loglik_grad(" in fused
