@@ -44,10 +44,17 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
    and with all nine must equal the single kernel to the bit on every lane
    and output, and is held to the plain version by the contract above. The
    staged dispatch (median of 5) and its plain version (one call) are timed.
-4. PRMwCD kernel vs plain: the same contract and cases for the PRMwCD
-   instantiation (a 13-vector inverse mass), plus the batched main path's
-   shape, 25 runs x 512 at max_depth 10, where both are timed; then the
-   staged dispatch as in phase 3.
+4. PRMwCD kernel vs plain: the same cases for the PRMwCD instantiation (a
+   group of 16 lanes a particle; a 13-vector inverse mass), plus the batched
+   main path's shape, 25 runs x 512 at max_depth 10, where both are timed,
+   each held to the plain version summing in the kernel's group order to
+   the bit; then PRMwCD's measurement entries (`ops.nuts_cuda.
+   PRMWCD_VARIANTS`: the W = 1 witness, one thread a particle; W = 32 in
+   blocks of 64; the main path's W = 16 in blocks of 128), each equal to the
+   bit to the plain version at its width or to the main entry, all timed in
+   turns with the main entry (median of 6 medians of 5) beside ptxas's
+   registers, stack and spills for each; then the staged dispatch as in
+   phase 3, every single kernel equal to its plain version to the bit.
 5. arma main path, one run: SMCSampler(K=100, N=512, step 0.01, max depth 10)
    on the GPU, then `python -m smcnuts_torch` through its main(). Each run
    must launch the kernel exactly 100 times and the plain tree never; every
@@ -71,7 +78,7 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
    first 20 iterations of its loop under torch.profiler (device kernels an
    iteration, device busy time, idle share). Last,
    PRMwCD with 100 runs and compaction="auto" for 5 iterations: past
-   COMPACTION_MIN_LANES "auto" takes the hint, and the runs equal
+   the model's compaction_min_lanes "auto" takes the hint, and the runs equal
    those with compaction=None.
 6b. times of the staged dispatch: each workload's K iterations are driven
    once more through init_state and smc_step, and on the population they
@@ -79,9 +86,12 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
    (CUDA events, median of 5), with the survivors after each split, the
    stage launches, and the per-warp lockstep waste (lane-steps a warp walks
    over lane-steps its trees need) from the kernel's own leapfrogs and depth
-   outputs. Each population is also tiled to 2, 4 and 16 times the lanes:
-   past the lanes the card holds at once, a warp that ends early makes room
-   for a waiting one, and compaction has something to remove.
+   outputs (the trees a warp holds: 32, PRMwCD's 2), and the block's tail
+   (the same count at the trees a block holds). The first 2 and 5 runs of each
+   population are timed alone, and each population is also tiled to 2, 4 and
+   16 times the lanes: past the lanes the card holds at once, a warp or block
+   that ends early makes room for a waiting one, and compaction has
+   something to remove.
 7. CLI: `python -m smcnuts_torch --model prmwcd --device cuda`, without and
    with --adapt-step-size --adapt-mass-matrix, through its main(): 100
    launches each and finite estimates; then `--model eightschools --lkernel
@@ -163,7 +173,8 @@ bound_unfused_ms, the same with the FMUL+FADD peak measured in phase 2b for
 the operations, what a build with -fmad=false can reach; no single PyTorch
 call builds a NUTS tree,
 computes the fused ARMA value and gradient or runs FMA chains, so there is no
-library time); the
+library time). The PRMwCD W = 1 witness's row is a measurement entry: 0
+launches on the main path and "measurement_entry": true. The
 last line is {"ok": true, "device": {...}}. Without a CUDA device, or without the
 repository beside it, the script fails before printing any result.
 """
@@ -434,19 +445,26 @@ def prmwcd_particles(shape, seed, device):
             + scale[..., None] * torch.tensor(sd, device=device) * z).contiguous()
 
 
-def compare(label, model, args, r=None):
+def compare(label, model, args, r=None, bitwise=False):
     """Run kernel and plain version on the same inputs; return max abs err."""
     from smcnuts_torch.ops.nuts_cuda import nuts_tree, nuts_tree_plain
 
     return check_outputs(label, nuts_tree(model, *args, r=r),
-                         nuts_tree_plain(model, *args, r=r))
+                         nuts_tree_plain(model, *args, r=r), bitwise=bitwise)
 
 
-def check_outputs(label, out_k, out_p, nan_lanes=False, quiet=False):
+def check_outputs(label, out_k, out_p, nan_lanes=False, quiet=False, bitwise=False):
     """Hold a kernel's outputs to the plain version's by the contract of
     phase 3; return max abs err on agreeing lanes. With nan_lanes, a value
-    that is not finite passes where the other side holds the same value."""
+    that is not finite passes where the other side holds the same value.
+    With bitwise, every output must also equal the plain version's to the
+    bit (NaN equal to NaN)."""
     torch.cuda.synchronize()
+    if bitwise:
+        diff = bitwise_differences(out_k, out_p)
+        if diff:
+            raise AssertionError(f"{label}: the kernel differs from its plain "
+                                 f"version in {diff}")
     xk, rk, sk = out_k
     xp, rp, sp = out_p
     agree = ((sk["depth"] == sp["depth"]) & (sk["leapfrogs"] == sp["leapfrogs"])
@@ -535,11 +553,13 @@ def time_pair(label, model, args, smi):
     return k_ms, p_ms
 
 
-def staged_kernel_phase(name, model, batch_args, single_out, plain_out, smi):
+def staged_kernel_phase(name, model, batch_args, single_out, plain_out, smi,
+                        bitwise=False):
     """The staged dispatch of one model at the batched main path's shape,
     against the single kernel (to the bit) and the plain version (by the
-    contract); returns what the kernels line says of it. single_out and
-    plain_out are the outputs for batch_args, computed by the caller."""
+    contract; with bitwise, to the bit); returns what the kernels line says
+    of it. single_out and plain_out are the outputs for batch_args, computed
+    by the caller."""
     from smcnuts_torch.ops.draws import PHILOX, ZERO_BITS
     from smcnuts_torch.ops.nuts_cuda import build_library, nuts_tree, nuts_tree_plain
     from smcnuts_torch.utils.timing import median_ms
@@ -575,7 +595,7 @@ def staged_kernel_phase(name, model, batch_args, single_out, plain_out, smi):
             single = nuts_tree(model, *args, **kw)
             plain = nuts_tree_plain(model, *args, **kw)
         worst = max(worst, check_outputs(f"{label} single kernel", single, plain,
-                                         nan_lanes=True))
+                                         nan_lanes=True, bitwise=bitwise))
         dh, moved = single[2]["delta_h"], single[2]["moved"]
         if source == ZERO_BITS:
             nan = torch.isnan(dh)
@@ -594,7 +614,8 @@ def staged_kernel_phase(name, model, batch_args, single_out, plain_out, smi):
                 raise AssertionError(f"{label}: splits {splits} differ from the "
                                      f"single kernel in {diff}")
             worst = max(worst, check_outputs(f"{label} splits {splits}", staged,
-                                             plain, nan_lanes=True, quiet=True))
+                                             plain, nan_lanes=True, quiet=True,
+                                             bitwise=bitwise))
         print(f"{label}: {len(split_sets)} split tuples ({own}, "
               f"{REFERENCE_SPLITS[name]}, one split at each depth "
               f"1..{depth - 1}, all of them) equal the single kernel "
@@ -676,20 +697,23 @@ def prmwcd_kernel_phase(smi):
     im = torch.tensor([0.5, 2.0, 1.5, 0.25, 1.0, 0.8, 1.2, 0.6, 1.4, 0.9, 1.1,
                        0.7, 3.0], device=dev)
     seed2 = torch.tensor([11, 12], dtype=torch.int32, device=dev)
+    phis = torch.tensor([1.0, 0.4], device=dev)
     worst = 0.0
     for source in (ZERO_BITS, PHILOX):
         worst = max(worst, compare(
             f"[{source}] phi 1.0 | 0.4, 2 runs x 1024, depth 6", model,
-            (prmwcd_particles((2, 1024), 1, dev), seed2, STEP,
-             torch.tensor([1.0, 0.4], device=dev), ones, 6, source)))
+            (prmwcd_particles((2, 1024), 1, dev), seed2, STEP, phis, ones, 6, source),
+            bitwise=True))
         worst = max(worst, compare(
             f"[{source}] 13-vector inv_mass, 2048, depth 6", model,
-            (prmwcd_particles((1, 2048), 2, dev), 13, STEP, 1.0, im, 6, source)))
+            (prmwcd_particles((1, 2048), 2, dev), 13, STEP, 1.0, im, 6, source),
+            bitwise=True))
     r = torch.randn(1, 2048, 13, generator=torch.Generator(device=dev).manual_seed(3),
                     device=dev)
     worst = max(worst, compare(
         "[zero_bits] r given, 2048, depth 0", model,
-        (prmwcd_particles((1, 2048), 4, dev), 0, STEP, 0.7, im, 0, ZERO_BITS), r=r))
+        (prmwcd_particles((1, 2048), 4, dev), 0, STEP, 0.7, im, 0, ZERO_BITS), r=r,
+        bitwise=True))
     batch_args = (prmwcd_particles((RUNS, N), 5, dev),
                   torch.arange(RUNS, dtype=torch.int32, device=dev), STEP, 1.0,
                   ones, MAX_DEPTH, PHILOX)
@@ -697,15 +721,124 @@ def prmwcd_kernel_phase(smi):
     plain_out = nuts_tree_plain(model, *batch_args)
     worst = max(worst, check_outputs(
         f"[philox] batched main path shape, {RUNS} x {N}, depth {MAX_DEPTH}",
-        single_out, plain_out))
+        single_out, plain_out, bitwise=True))
+    print("PRMwCD: the group kernel equals its plain version to the bit in every case")
     ms, plain_ms = time_pair(f"PRMwCD {RUNS} x {N} x depth {MAX_DEPTH} [philox]",
                              model, batch_args, smi)
     bound = tree_roofline("prmwcd", single_out)
     print(f"PRMwCD: max |kernel - plain| on agreeing lanes, all cases: {worst:.3g}; "
           f"at {RUNS} x {N}: {bound_text(bound)}")
     whole = {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, **bound}
+    witness = prmwcd_variants(model, batch_args, single_out, smi)
     return whole, staged_kernel_phase("prmwcd", model, batch_args, single_out,
-                                      plain_out, smi)
+                                      plain_out, smi, bitwise=True), witness
+
+
+# Rounds of phase 4's timing in turns: each round times every PRMwCD entry
+# (median of 5), in the opposite order to the round before.
+VARIANT_ROUNDS = 6
+
+
+def prmwcd_ptxas(log):
+    """ptxas's stack and register lines for every instantiation of the NUTS
+    kernel with the PRMwCD model, by a readable name (group width, stage,
+    threads a block)."""
+    import re
+
+    lines, name = {}, None
+    for line in log.splitlines():
+        if "Compiling entry" in line:
+            name = line.split("'")[1] if "'" in line else line
+            lines[name] = []
+        elif name is not None and ("stack frame" in line or "registers" in line):
+            lines[name].append(line.split(":", 1)[-1].strip())
+    # nuts_tree_kernel<PrmwcdModel<NCov, W>, kCont, kBlock>, mangled.
+    pattern = re.compile(r"PrmwcdModelILi\d+ELi(\d+)EEELb([01])ELi(\d+)E")
+    out = {}
+    for mangled, info in lines.items():
+        m = pattern.search(mangled)
+        if m is None:
+            continue
+        w, cont, block = m.groups()
+        label = (f"W={w}, {'continuation' if cont == '1' else 'first stage'}, "
+                 f"{block} threads")
+        out[label] = "; ".join(info)
+    if not out:
+        raise AssertionError("no PRMwCD instantiation found in the nvcc log")
+    return out
+
+
+def prmwcd_variants(model, batch_args, single_out, smi):
+    """PRMwCD's measurement entries (`ops.nuts_cuda.PRMWCD_VARIANTS`) at the
+    batched main path's shape: each entry of another group width than the
+    main path's equal to the plain version at its width
+    (`logp_and_grad(group=W)`) to the bit, the W = 1 witness (one thread a
+    particle, the sequential sums) also at phi 1.0 and 0.4 under zero bits;
+    the entry of the main path's width (in blocks of 128 threads) equal to
+    the main path's entry to the bit. Then every entry timed in turns (CUDA
+    events, median of VARIANT_ROUNDS medians of 5), with ptxas's lines.
+    Returns what the kernels line says of the witness: a measurement entry,
+    which the main path launches no time."""
+    import statistics
+
+    from smcnuts_torch.models.prmwcd import GROUP
+    from smcnuts_torch.ops.draws import ZERO_BITS
+    from smcnuts_torch.ops.nuts_cuda import (
+        PRMWCD_VARIANTS, build_library, nuts_tree, nuts_tree_plain, nuts_tree_variant)
+    from smcnuts_torch.utils.timing import CudaTimer, median_ms
+
+    dev = batch_args[0].device
+    nuts_tree_variant.launches = dict.fromkeys(PRMWCD_VARIANTS, 0)
+    small = (prmwcd_particles((2, 1024), 1, dev),
+             torch.tensor([11, 12], dtype=torch.int32, device=dev), STEP,
+             torch.tensor([1.0, 0.4], device=dev), torch.ones(13, device=dev), 6,
+             ZERO_BITS)
+    errs = {"w1": [check_outputs(
+        "witness W=1 [zero_bits] phi 1.0 | 0.4, 2 runs x 1024, depth 6",
+        nuts_tree_variant("w1", model, *small),
+        nuts_tree_plain(model.at_group(1), *small), bitwise=True)]}
+    outs, plain_ms, plains = {}, {}, {}
+    for variant, (_, group, block) in PRMWCD_VARIANTS.items():
+        out = nuts_tree_variant(variant, model, *batch_args)
+        label = f"{variant} (W={group}, {block} threads) {RUNS} x {N}, depth {MAX_DEPTH}"
+        if group == GROUP:
+            diff = bitwise_differences(out, single_out)
+            if diff:
+                raise AssertionError(f"{label}: differs from the main entry in {diff}")
+            print(f"{label}: equal to the main path's entry to the bit")
+        else:
+            if group not in plains:
+                with CudaTimer() as t:
+                    plains[group] = nuts_tree_plain(model.at_group(group), *batch_args)
+                plain_ms[variant] = t.ms
+            errs.setdefault(variant, []).append(check_outputs(
+                f"{label} vs plain group={group}", out, plains[group], bitwise=True))
+        outs[variant] = out
+    calls = {"main": lambda: nuts_tree(model, *batch_args)}
+    calls.update({v: (lambda v=v: nuts_tree_variant(v, model, *batch_args))
+                  for v in PRMWCD_VARIANTS})
+    names = list(calls)
+    rounds = {k: [] for k in names}
+    for i in range(VARIANT_ROUNDS):
+        for k in (names if i % 2 == 0 else names[::-1]):
+            rounds[k].append(median_ms(calls[k], repeats=5))
+    med = {k: statistics.median(v) for k, v in rounds.items()}
+    lib = build_library()
+    described = {"main": f"W={GROUP}, {lib.prmwcd_block} threads, the main path's entry"}
+    described.update({v: f"W={g}, {b} threads" for v, (_, g, b) in PRMWCD_VARIANTS.items()})
+    for k in names:
+        print(f"time PRMwCD {k} ({described[k]}), {RUNS} x {N} x depth {MAX_DEPTH} "
+              f"[philox]: {med[k]:.4f} ms, {med['w1'] / med[k]:.3f}x faster than the "
+              f"W=1 witness (CUDA events, median of {VARIANT_ROUNDS} medians of 5 in "
+              f"turns: {', '.join(f'{v:.4f}' for v in rounds[k])}; {smi})")
+    for label, info in prmwcd_ptxas(lib.log).items():
+        print(f"  ptxas PRMwCD {label}: {info}")
+    witness = outs["w1"]
+    bound = tree_roofline("prmwcd", witness)
+    print(f"witness W=1: {bound_text(bound)}; launches in this phase (not on the "
+          f"main path) {nuts_tree_variant.launches['w1']}")
+    return {"launches": 0, "measurement_entry": True, "max_abs_err": max(errs["w1"]),
+            "ms": med["w1"], "plain_ms": plain_ms["w1"], **bound}
 
 
 def check_run(label, mean, means_ok_sd):
@@ -895,7 +1028,7 @@ def compaction_on(label, name, model, cfg, res_auto, smi):
 
 def wide_auto_run(smi, tiles=4, k=5):
     """PRMwCD with tiles x RUNS runs and the default compaction="auto": past
-    COMPACTION_MIN_LANES "auto" must take the model's hint, so k
+    the model's compaction_min_lanes "auto" must take its hint, so k
     iterations are k dispatches of len(hint) + 1 kernel launches, and equal
     the same runs with compaction=None to the bit. Returns the launches of
     the continuation-stage kernel."""
@@ -903,7 +1036,6 @@ def wide_auto_run(smi, tiles=4, k=5):
 
     from smcnuts_torch import run_smc_batched
     from smcnuts_torch.models import get_model
-    from smcnuts_torch.models.base import COMPACTION_MIN_LANES
     from smcnuts_torch.sampler import resolve_compaction
     from smcnuts_torch.utils.timing import CudaTimer
 
@@ -911,7 +1043,7 @@ def wide_auto_run(smi, tiles=4, k=5):
     cfg = dataclasses.replace(workload_config(False), n_iterations=k)
     seeds = list(range(tiles * RUNS))
     splits = resolve_compaction(cfg, model, len(seeds) * N)
-    if len(seeds) * N <= COMPACTION_MIN_LANES or splits != model.compaction_hint:
+    if len(seeds) * N <= model.compaction_min_lanes or splits != model.compaction_hint:
         raise AssertionError(f"\"auto\" at {len(seeds) * N} lanes gave {splits}")
     results, walls = {}, {}
     for compaction in ("auto", None, None, "auto"):
@@ -935,7 +1067,8 @@ def wide_auto_run(smi, tiles=4, k=5):
     if diff:
         raise AssertionError(f"wide run: \"auto\" differs from None in {diff}")
     print(f"prmwcd, {len(seeds)} runs x N={N} x K={k} ({len(seeds) * N} lanes, "
-          f"past COMPACTION_MIN_LANES {COMPACTION_MIN_LANES}): \"auto\" "
+          f"past the model's compaction_min_lanes {model.compaction_min_lanes}): "
+          f"\"auto\" "
           f"is {splits}, {k} dispatches of {len(splits) + 1} kernel launches, "
           f"every field equal to compaction=None; wall in turns, auto "
           f"{', '.join(f'{v:.1f}' for v in walls['auto'])} ms, None "
@@ -961,11 +1094,14 @@ def batched_phase(smi):
             final_mean = res.mean_estimate[:, K].cpu()
         host_s = time.perf_counter() - t0
         counts, plain_calls = read_counts()
+        _, cont_first = read_stage_counts()
         wall_ms = t.ms
-        print(f"{label}: kernel launches {counts}, plain calls {plain_calls}")
+        print(f"{label}: kernel launches {counts}, plain calls {plain_calls}, "
+              f"continuation-stage launches {cont_first[name]}")
         if counts[name] != K or sum(counts.values()) != K or plain_calls != 0:
             raise AssertionError(f"{label}: not one kernel launch per iteration")
         launches[name] += counts[name]
+        cont_launches[name] += cont_first[name]
         check_series(label, res, K)
         if res.mean_estimate.shape[0] != RUNS:
             raise AssertionError(f"{label}: expected {RUNS} runs")
@@ -1015,13 +1151,27 @@ def survivor_counts():
     return [] if nuts_tree.survivors is None else nuts_tree.survivors.tolist()
 
 
+def tree_slots(model):
+    """(trees a warp holds, trees a block holds) in the NUTS kernel: PRMwCD
+    runs a group of models.prmwcd.GROUP lanes a tree, every other model one
+    lane, in blocks of 128 threads."""
+    from smcnuts_torch.models.prmwcd import GROUP, PrmwcdModel
+    from smcnuts_torch.ops.nuts_cuda import build_library
+
+    if isinstance(model, PrmwcdModel):
+        return 32 // GROUP, build_library().prmwcd_block // GROUP
+    return 32, 128
+
+
 def candidate_times(label, model, args, smi, candidates=None):
     """Time the single kernel and each candidate split tuple on one
     population (CUDA events, median of 5), the single kernel first and
-    last; print survivors, launches and the per-warp lockstep waste."""
+    last; print survivors, launches, the per-warp lockstep waste and the
+    block's tail (lockstep_waste at the trees a warp and a block hold)."""
     from smcnuts_torch.ops.nuts_cuda import lockstep_waste, nuts_tree
     from smcnuts_torch.utils.timing import median_ms
 
+    warp, block = tree_slots(model)
     single = nuts_tree(model, *args)
     depth, leapfrogs = single[2]["depth"], single[2]["leapfrogs"]
     hist = torch.bincount(depth.reshape(-1).int()).tolist()
@@ -1035,11 +1185,13 @@ def candidate_times(label, model, args, smi, candidates=None):
             raise AssertionError(f"{label}: splits {splits} differ from the "
                                  f"single kernel")
         ms = median_ms(lambda: nuts_tree(model, *args, compaction=splits), repeats=5)
-        walked, needed = lockstep_waste(leapfrogs, depth, splits)
+        walked, needed = lockstep_waste(leapfrogs, depth, splits, width=warp)
+        tail, _ = lockstep_waste(leapfrogs, depth, splits, width=block)
         rows.append((splits, ms))
         print(f"  {label} splits {splits or 'none'}: {ms:.4f} ms, "
-              f"{len(splits) + 1} launches, survivors {survivors}, waste at "
-              f"width 32 {walked / needed:.4f} ({walked} / {needed} lane-steps)")
+              f"{len(splits) + 1} launches, survivors {survivors}, waste of a "
+              f"warp ({warp} trees) {walked / needed:.4f} ({walked} / {needed} "
+              f"lane-steps), of a block ({block} trees) {tail / needed:.4f}")
     best = min(rows, key=lambda row: row[1])
     print(f"{label}: fastest {best[0] or 'none'} at {best[1]:.4f} ms; single "
           f"kernel {rows[0][1]:.4f} and {rows[-1][1]:.4f} ms ({smi})")
@@ -1067,10 +1219,17 @@ def staged_times_phase(smi):
         args = (carry.x, tree_seeds[K], carry.step_size, 1.0, carry.inv_mass,
                 MAX_DEPTH, PHILOX)
         candidate_times(label, model, args, smi)
+        few = tuple(c for c in CANDIDATE_SPLITS if len(c) > 1) + WIDE_SINGLES[label]
+        # The first runs of the population alone: around one block an SM of
+        # the PRMwCD kernel (1,024 trees at 16 lanes a tree fill 128 blocks).
+        for runs in (2, 5):
+            part = (carry.x[:runs], tree_seeds[K][:runs], carry.step_size[:runs], 1.0,
+                    carry.inv_mass[:runs], MAX_DEPTH, PHILOX)
+            candidate_times(f"{label} runs 0..{runs - 1} ({runs} x {N})", model, part,
+                            smi, few)
         # The same population tiled over more runs, each with its own seed.
         # Once the lanes exceed what the card holds at once, a warp that ends
         # early makes room for a waiting one.
-        few = tuple(c for c in CANDIDATE_SPLITS if len(c) > 1) + WIDE_SINGLES[label]
         for tiles in (2, 4, 16):
             wide = (carry.x.repeat(tiles, 1, 1),
                     torch.arange(tiles * RUNS, dtype=torch.int32, device=dev),
@@ -1291,7 +1450,8 @@ def strategy_run(label, name, model, cfg, smi, profiled=False):
     K dispatches, no plain call, finite series, the tempered schedule, runs 0
     and the last equal to their single runs, and for the asymptotic strategy
     the estimates of the other save_history mode equal to the bit. Returns
-    (result, kernel launches of the batched run)."""
+    (result, dispatches of the batched run, its launches of the
+    continuation-stage kernel)."""
     import dataclasses
 
     from smcnuts_torch import run_smc, run_smc_batched
@@ -1305,7 +1465,7 @@ def strategy_run(label, name, model, cfg, smi, profiled=False):
         res.mean_estimate[:, k].cpu()
     host_s = time.perf_counter() - t0
     counts, plain_calls = read_counts()
-    stage_launches, _ = read_stage_counts()
+    stage_launches, cont = read_stage_counts()
     if counts[name] != k or sum(counts.values()) != k or plain_calls != 0:
         raise AssertionError(f"{label}: {counts} dispatches, {plain_calls} plain "
                              f"calls; expected {k} and 0")
@@ -1357,7 +1517,7 @@ def strategy_run(label, name, model, cfg, smi, profiled=False):
     print(f"{label}: {same}")
     if profiled:
         profile_call(label, model, cfg, smi)
-    return res, counts[name]
+    return res, counts[name], cont[name]
 
 
 def strategies_phase(smi):
@@ -1365,10 +1525,11 @@ def strategies_phase(smi):
     from smcnuts_torch.models import get_model, tempered_moments
 
     phase(f"9. the three strategies, full width, {RUNS} runs each")
-    launches = {}
+    launches, cont = {}, {}
 
-    def add(name, n):
+    def add(name, n, n_cont):
         launches[name] = launches.get(name, 0) + n
+        cont[name] = cont.get(name, 0) + n_cont
 
     for name in ("arma", "prmwcd"):
         for lkernel in ("asymptoticLKernel", "GaussianApproxLKernel"):
@@ -1377,9 +1538,9 @@ def strategies_phase(smi):
                             lkernel=lkernel, tempering=asym, save_history=asym,
                             max_tree_depth=MAX_DEPTH)
             label = f"{name} {lkernel}"
-            res, n = strategy_run(label, name, get_model(name), cfg, smi,
-                                  profiled=True)
-            add(name, n)
+            res, n, n_cont = strategy_run(label, name, get_model(name), cfg, smi,
+                                          profiled=True)
+            add(name, n, n_cont)
             parity_bands(label, name, res.mean_estimate[:, K].cpu(),
                          res.variance_estimate[:, K])
 
@@ -1388,8 +1549,8 @@ def strategies_phase(smi):
                         lkernel=c["lkernel"], tempering=True, save_history=False,
                         max_tree_depth=c["depth"])
         label = f"{name} {c['lkernel']} tempered"
-        res, n = strategy_run(label, name, autodiff_model(name), cfg, smi)
-        add(name, n)
+        res, n, n_cont = strategy_run(label, name, autodiff_model(name), cfg, smi)
+        add(name, n, n_cont)
         k = c["k"]
         mean, var = res.mean_estimate[:, k].double().cpu(), res.variance_estimate[:, k].double().cpu()
         if name == "gaussian":
@@ -1429,7 +1590,7 @@ def strategies_phase(smi):
             estimates_band(f"{label} vs plain-tree run (N=4096, K={REF_K}, forwards)",
                            mean, var, ref.mean_estimate[REF_K],
                            ref.variance_estimate[REF_K])
-    return launches
+    return launches, cont
 
 # ---- phase 10: the eager backend with the fused ARMA kernel (K5), the
 # unfused proposal path on the whole-tree kernel (K1u), a wide eager run.
@@ -1890,8 +2051,8 @@ def generated_phase(smi):
     # The main path: the generated arma at bench.py's configuration, inside
     # the PARITY bands.
     cfg = workload_config(False)
-    res, k7f["launches"] = strategy_run("generated arma, forwards", "generated", arma,
-                                        cfg, smi)
+    res, k7f["launches"], _ = strategy_run("generated arma, forwards", "generated",
+                                           arma, cfg, smi)
     parity_bands("generated arma, forwards", "arma", res.mean_estimate[:, K].cpu(),
                  res.variance_estimate[:, K])
     generated_split("arma, forwards", arma, get_model("arma").to(dev), cfg, smi)
@@ -1902,7 +2063,7 @@ def generated_phase(smi):
                     lkernel=es["lkernel"], tempering=True, save_history=False,
                     max_tree_depth=es["depth"])
     label = f"generated eight schools {es['lkernel']} tempered"
-    res, k7r["launches"] = strategy_run(label, "generated", schools, cfg, smi)
+    res, k7r["launches"], _ = strategy_run(label, "generated", schools, cfg, smi)
     ref = run_smc_batched(get_model("eightschools"), cfg, SEEDS, "cuda")
     estimates_band(f"{label} vs the hand kernel's {RUNS} runs",
                    res.mean_estimate[:, k], res.variance_estimate[:, k],
@@ -1955,13 +2116,13 @@ def main():
     if len(sys.argv) == 3 and sys.argv[1] == "--only":
         return partial_run(sys.argv[2].split(","), smi)
     arma, arma_staged = arma_kernel_phase(smi)
-    prmwcd, prmwcd_staged = prmwcd_kernel_phase(smi)
+    prmwcd, prmwcd_staged, prmwcd_w1 = prmwcd_kernel_phase(smi)
     arma_launches = main_path_phase(smi)
     batched, cont = batched_phase(smi)
     staged_times_phase(smi)
     prm_cli, schools_cli = cli_phase()
     autodiff = autodiff_kernels_phase(smi)
-    strategies = strategies_phase(smi)
+    strategies, strategies_cont = strategies_phase(smi)
     strategies["eightschools"] += schools_cli
     k5, k1u = fused_phase(smi)
     k7f, k7r = generated_phase(smi)
@@ -1980,10 +2141,15 @@ def main():
         # K4: the continuation-stage instantiations of the staged dispatch.
         dict(name="nuts_tree_arma_staged", route="cuda", source=source,
              replaces="smcnuts_tpu/ops/nuts_pallas.py:794",
-             launches=cont["arma"], **arma_staged),
+             launches=cont["arma"] + strategies_cont["arma"], **arma_staged),
         dict(name="nuts_tree_prmwcd_staged", route="cuda", source=source,
              replaces="smcnuts_tpu/ops/nuts_pallas.py:794",
-             launches=cont["prmwcd"], **prmwcd_staged),
+             launches=cont["prmwcd"] + strategies_cont["prmwcd"], **prmwcd_staged),
+        # The W = 1 witness of K1 + K3 (one thread a particle), a measurement
+        # entry that the main path never dispatches: 0 launches, and marked.
+        dict(name="nuts_tree_prmwcd_w1", route="cuda",
+             source="smcnuts_torch/csrc/prmwcd_variants.cu",
+             replaces="smcnuts_tpu/ops/nuts_pallas.py:1803", **prmwcd_w1),
     ]
     # K6: the densities the JAX package differentiates inside its kernel
     # (elementwise_tile_model), each inlined into its own K1 instantiation.
@@ -2014,7 +2180,7 @@ def main():
     ]
     for kernel in kernels:
         kernel["library_ms"] = None
-        if kernel["launches"] < 1:
+        if kernel["launches"] < 1 and not kernel.get("measurement_entry"):
             raise AssertionError(f"{kernel['name']}: the main path never launched it")
         print(f"{kernel['name']}: {kernel['ms']:.4f} ms, {bound_text(kernel)}, "
               f"{kernel['bound_ms'] / kernel['ms']:.3f} of it at the data sheet's "

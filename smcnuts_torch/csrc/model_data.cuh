@@ -7,6 +7,11 @@
 //   static bool accepts(int n_data, int n_scalars);   // host-side check
 //   __device__ Model(const float* data_s, int n_data, const ModelScalars&);
 //   __device__ float logp_grad(const float* x, float phi, float* grad) const;
+// and, optionally,
+//   static constexpr int kGroup;  // W: lanes that evaluate one particle
+// in which case the kernel calls logp_grad from the W lanes of a group
+// together, each holding the same x, and every lane must return the same
+// bits (group_lane, group_mask below).
 #pragma once
 
 namespace smcnuts {
@@ -16,5 +21,22 @@ constexpr int kMaxScalars = 4;
 struct ModelScalars {
   float v[kMaxScalars];
 };
+
+// The calling thread's lane in its group of W: groups are W consecutive
+// threads of a block (W divides 32 and the block size).
+template <int W>
+__device__ __forceinline__ int group_lane() {
+  return W == 1 ? 0 : static_cast<int>(threadIdx.x % W);
+}
+
+// The lanes of the calling thread's group, as a warp mask.
+template <int W>
+__device__ __forceinline__ unsigned group_mask() {
+  if constexpr (W == 32) {
+    return 0xffffffffu;
+  } else {
+    return ((1u << W) - 1u) << ((threadIdx.x & 31u) & ~static_cast<unsigned>(W - 1));
+  }
+}
 
 }  // namespace smcnuts

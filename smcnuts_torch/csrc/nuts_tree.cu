@@ -5,7 +5,9 @@
 // The hand-written models replace these tile models of
 // smcnuts_tpu/ops/nuts_pallas.py, each with its gradient written out by hand:
 // arma_tile_model(y).tile_fn as ArmaModel (arma_model.cuh),
-// prmwcd_tile_model(y, X, q).tile_fn as PrmwcdModel<11> (prmwcd_model.cuh),
+// prmwcd_tile_model(y, X, q).tile_fn as PrmwcdModel<11, 16>
+// (prmwcd_model.cuh; a half warp a particle, the observations and the prior
+// split over its lanes),
 // and elementwise_tile_model (in-kernel jax.vjp) over the gaussian,
 // eightschools and logistic densities as GaussianModel<2|3|5>
 // (gaussian_model.cuh), EightSchoolsModel<8> (eightschools_model.cuh) and
@@ -22,6 +24,9 @@
 namespace smcnuts {
 
 constexpr int kPrmwcdCov = 11;  // covariates of the PRMwCD instantiation (D = 13)
+constexpr int kPrmwcdGroup = 16;  // lanes a PRMwCD particle: a half warp
+constexpr int kPrmwcdBlock = 64;  // threads a block of the PRMwCD entry: 4 particles
+using PrmwcdGroupModel = PrmwcdModel<kPrmwcdCov, kPrmwcdGroup>;
 constexpr int kSchools = 8;     // schools of the eight-schools instantiation (D = 10)
 constexpr int kLogisticDim = 8; // covariates of the logistic instantiation
 
@@ -33,6 +38,15 @@ int smcnuts_nuts_tree_max_depth() { return smcnuts::kMaxDepth; }
 
 int smcnuts_prmwcd_n_cov() { return smcnuts::kPrmwcdCov; }
 
+int smcnuts_prmwcd_group() { return smcnuts::kPrmwcdGroup; }
+
+int smcnuts_prmwcd_block() { return smcnuts::kPrmwcdBlock; }
+
+// Blocks of the PRMwCD entry an SM holds at once, with n_data floats of data.
+int smcnuts_prmwcd_blocks_per_sm(int n_data) {
+  return smcnuts::blocks_per_sm<smcnuts::PrmwcdGroupModel, smcnuts::kPrmwcdBlock>(n_data);
+}
+
 int smcnuts_eightschools_j() { return smcnuts::kSchools; }
 
 int smcnuts_logistic_dim() { return smcnuts::kLogisticDim; }
@@ -41,7 +55,7 @@ int smcnuts_nuts_tree_bundle_rows(int dim) { return smcnuts::bundle_rows(dim); }
 
 // The entries (SMCNUTS_ENTRY of nuts_tree.cuh says what each does).
 SMCNUTS_ENTRY(smcnuts_nuts_tree_arma, smcnuts::ArmaModel)
-SMCNUTS_ENTRY(smcnuts_nuts_tree_prmwcd, smcnuts::PrmwcdModel<smcnuts::kPrmwcdCov>)
+SMCNUTS_ENTRY(smcnuts_nuts_tree_prmwcd, smcnuts::PrmwcdGroupModel, smcnuts::kPrmwcdBlock)
 // The Gaussian's dimensions: the list of ops/nuts_cuda.py::GAUSSIAN_DIMS.
 SMCNUTS_ENTRY(smcnuts_nuts_tree_gaussian2, smcnuts::GaussianModel<2>)
 SMCNUTS_ENTRY(smcnuts_nuts_tree_gaussian3, smcnuts::GaussianModel<3>)

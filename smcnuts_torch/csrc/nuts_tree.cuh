@@ -1,9 +1,10 @@
 #pragma once
 
-// Whole-tree NUTS proposal, one thread per particle, for sm_90a, as one
-// kernel or as stages with lane compaction between them: the kernel
-// template, included by nuts_tree.cu (the hand-written models' entries) and by
-// every generated model's translation unit (smcnuts_torch/ops/generated.py).
+// Whole-tree NUTS proposal for sm_90a, one tree per particle, as one kernel
+// or as stages with lane compaction between them: the kernel template,
+// included by nuts_tree.cu and prmwcd_variants.cu (the hand-written models'
+// entries) and by every generated model's translation
+// unit (smcnuts_torch/ops/generated.py).
 //
 // Replaces these TPU kernels of smcnuts_tpu/ops/nuts_pallas.py:
 //   - _nuts_kernel in its single-kernel fused form (momenta drawn in-kernel,
@@ -23,47 +24,75 @@
 // (model_data.cuh).
 // Its plain PyTorch version is smcnuts_torch/ops/nuts_cuda.py::nuts_tree_plain.
 //
-// What bounds it on this card: FP32 throughput and latency in the model of every
-// leaf (arma: the serial T=200 error recurrence, each step depending on the
-// last; PRMwCD: 100 observations of ~50 operations and one expf), and warp
-// divergence, since a warp runs until its deepest tree ends while lanes stop
-// at different depths. With N=512 particles the grid is 4 blocks, so most SMs
-// are idle; at 25 x 512 it is 100 blocks, one per SM, every warp resident at
-// once, and the launch lasts as long as its deepest tree.
+// Groups. A model may name a group width W (Model::kGroup, model_data.cuh;
+// 1 when it names none, and then the kernel is one thread a particle). With
+// W > 1 the W threads t = W s .. W s + W - 1 of the grid work on particle
+// slot s together, as lanes 0..W-1 of its group: every lane holds the whole
+// tree state and runs the same control flow, and only the model's evaluation
+// is split over the lanes, which leave identical bits in every lane (the
+// model's own reduction: prmwcd_model.cuh). The draws are addressed by their
+// place in the tree, so every lane draws the same bits. Every branch is then
+// uniform inside a group, and lane 0 alone writes what leaves the kernel. A
+// block of kBlock threads holds kBlock / W particles. PRMwCD runs at W = 16,
+// a half warp a particle, in blocks of 64 threads; every other model at
+// W = 1 in blocks of 128.
 //
-// Design: each thread walks its own tree with real early exit, so the TPU
+// What bounds it on this card: FP32 issue and latency in the model of every
+// leaf (arma: the serial T=200 error recurrence, each step depending on the
+// last; PRMwCD: 100 observations of ~50 operations and one expf), and the
+// deepest tree, since a tree's leapfrogs run one after another. At W = 1 a
+// warp holds 32 trees and runs until the deepest of them ends (warp
+// divergence), and with N=512 particles the grid is 4 blocks, so most SMs are
+// idle; at 25 x 512 it is 100 blocks, one per SM, one warp a scheduler, so
+// nothing hides the latency of a dependent operation, and the launch lasts as
+// long as its deepest tree. At W = 16 (PRMwCD) a warp holds two trees, the
+// chain of the deepest tree shrinks to 6-7 observations a lane and a 4-step
+// butterfly a leapfrog, and 25 x 512 trees are 6,400 warps, more than the
+// card holds at once; what bounds it then is instruction issue: the tree
+// control, which every lane of a group issues alike, and the registers, which
+// cap the warps an SM holds (measured on an H100 in chip_smoke.py phase 4:
+// PERF.md keeps the widths, blocks and placements tried).
+//
+// Design: each group walks its own tree with real early exit, so the TPU
 // kernel's per-lane masks become plain control flow. Run parameters (phi,
 // step size, inverse mass, seed) are read per run at p / n_per_run, so B runs
 // of one SMC iteration share one launch. The block stages the model's data in
 // shared memory once. The checkpoint stack, 2 x (kMaxDepth+1) x D floats a
-// thread, lives in local memory. Random numbers are addressed by their place
-// in the tree and keyed by the run's seed alone (draws.cuh), so run b of a
-// batch draws what it would draw alone, and a lane draws the same bits
-// whichever stage and slot it is in.
+// tree, lives in local memory at W = 1 and, one copy a group, in shared
+// memory after the data at W > 1 (a copy a lane would multiply its traffic
+// by W), and so do a group's carriers, 8 D floats touched only between
+// doublings, which takes PRMwCD from 255 registers a thread to 168
+// (group_floats). Random numbers are addressed by their place in the tree and
+// keyed by the run's seed alone (draws.cuh), so run b of a batch draws what
+// it would draw alone, and a lane draws the same bits whichever stage and
+// slot it is in.
 //
-// Staging (the answer to warp divergence): a stage runs doublings
-// start_depth..stop_depth. A thread whose tree ends inside the stage runs the
-// epilogue and writes its outputs at its own lane, at whichever stage that
-// is, so the epilogue runs exactly once a lane. A thread whose tree goes on
-// reserves a slot in the next stage's bundle with one atomicAdd a warp and
-// writes its carriers and its lane index there; the next launch gives thread
-// t slot t, so the lanes still at work fill dense warps. There is no sort, no
+// Staging (the answer to warp divergence and to the block's tail): a stage
+// runs doublings start_depth..stop_depth. A group whose tree ends inside the
+// stage runs the epilogue and writes its outputs at its own particle, at
+// whichever stage that is, so the epilogue runs exactly once a particle. A
+// group whose tree goes on reserves a slot in the next stage's bundle (one
+// atomicAdd a warp at W = 1, one a group at W > 1) and writes its carriers
+// and its particle index there; the next launch gives group g slot g, so the
+// trees still at work fill dense warps and blocks. There is no sort, no
 // gather and no un-permute, and the host never reads the survivor count: the
-// continuation is launched over every lane, and a block whose first slot is
-// past the count returns before it touches shared memory. The bundle is
-// (8 D + 11, P) floats, slot-minor, so neighbouring threads touch neighbouring
+// continuation is launched over every particle, and a block whose first slot
+// is past the count returns before it touches shared memory. The bundle is
+// (8 D + 11, P) floats, slot-minor, so neighbouring slots touch neighbouring
 // addresses. The start state is not carried: the epilogue reads x0 again from
 // the input and draws r0 again from the same address of the stream, which
 // also keeps 2 D floats a thread out of the registers during the walk.
 //
-// What staging buys on an H100 (chip_smoke.py phase 6b): nothing up to one
-// block an SM (25 x 512 lanes), where no warp waits for another and the
-// dispatch lasts as long as its deepest tree either way; past that, warps that
-// end early make room for waiting ones, and because a stage costs only a
+// What staging buys on an H100 at W = 1 (chip_smoke.py phase 6b): nothing up
+// to one block an SM (25 x 512 lanes), where no warp waits for another and
+// the dispatch lasts as long as its deepest tree either way; past that, warps
+// that end early make room for waiting ones, and because a stage costs only a
 // launch and one pass over the survivors' carriers, a split after every
-// doubling is the fastest choice (about 2x at 400 x 512 PRMwCD lanes).
+// doubling is the fastest choice (about 2x at 400 x 512 PRMwCD lanes). For
+// PRMwCD's group kernel models/base.py keeps the measurement.
 
 #include <cstdint>
+#include <type_traits>
 
 #include <cuda_runtime.h>
 
@@ -73,7 +102,7 @@
 namespace smcnuts {
 
 constexpr int kMaxDepth = 10;  // compile-time bound on max_depth
-constexpr int kThreads = 128;  // threads per block
+constexpr int kThreads = 128;  // threads per block, unless an entry names another count
 constexpr float kDivergence = 100.0f;  // nats
 constexpr float kTwoPi = 6.28318530717958647693;
 constexpr int kStats = 8;  // logp0, logp_prop, accept_stat, depth, leapfrogs, delta_h, ke0, moved
@@ -138,6 +167,16 @@ __device__ __forceinline__ float start_momentum(const TreeDraws& draws, float im
   return (sqrtf(-2.0f * logf(u1)) * cosf(kTwoPi * u2)) * rsqrtf(im_d);
 }
 
+// The group width of a model: Model::kGroup where it names one, else 1.
+template <class Model, class = void>
+struct GroupWidth {
+  static constexpr int value = 1;
+};
+template <class Model>
+struct GroupWidth<Model, std::void_t<decltype(Model::kGroup)>> {
+  static constexpr int value = Model::kGroup;
+};
+
 // A slot of the next stage's bundle for every calling thread: the threads of
 // the warp that are here together take consecutive slots from one atomicAdd.
 __device__ __forceinline__ int reserve_slot(int* counter) {
@@ -148,6 +187,15 @@ __device__ __forceinline__ int reserve_slot(int* counter) {
   if (lane == leader) base = atomicAdd(counter, __popc(mask));
   base = __shfl_sync(mask, base, leader);
   return base + __popc(mask & ((1u << lane) - 1u));
+}
+
+// A slot of the next stage's bundle for the calling group of W lanes: lane 0
+// takes it and hands it to the group.
+template <int W>
+__device__ __forceinline__ int reserve_group_slot(int* counter) {
+  int slot = 0;
+  if (group_lane<W>() == 0) slot = atomicAdd(counter, 1);
+  return __shfl_sync(group_mask<W>(), slot, 0, W);
 }
 
 template <int D>
@@ -162,23 +210,37 @@ __device__ __forceinline__ void store_rows(float* dst, const float* src, int row
   for (int d = 0; d < D; ++d) dst[(row + d) * P + slot] = src[d];
 }
 
-// kCont = false: the first stage, thread t is lane t and runs the prologue.
-// kCont = true: a continuation stage, thread t takes slot t of cont_in.
-template <class Model, bool kCont>
-__global__ void __launch_bounds__(kThreads) nuts_tree_kernel(const TreeArgs a) {
+// Floats of shared memory a group keeps after the model's data: at W > 1
+// its checkpoint stack and its carriers (the ends of the trajectory, their
+// gradients and the sample: 8 vectors of D), one copy a group; at W = 1
+// none (the stack in local memory, the carriers in registers).
+template <class Model>
+__host__ __device__ constexpr int group_floats() {
+  return GroupWidth<Model>::value > 1 ? (2 * (kMaxDepth + 1) + 8) * Model::D : 0;
+}
+
+// kCont = false: the first stage, group t is particle t and runs the prologue.
+// kCont = true: a continuation stage, group t takes slot t of cont_in.
+// A group is one thread at W = 1, and then t is the thread's index.
+template <class Model, bool kCont, int kBlock>
+__global__ void __launch_bounds__(kBlock) nuts_tree_kernel(const TreeArgs a) {
   constexpr int D = Model::D;
+  constexpr int W = GroupWidth<Model>::value;
+  static_assert(W >= 1 && W <= 32 && 32 % W == 0 && kBlock % 32 == 0, "group width");
+  constexpr bool kShared = W > 1;  // the stack and the carriers in shared memory
   const int P = a.total;
   int n_lanes = P;
   if constexpr (kCont) {
     n_lanes = *a.n_in;
-    if (static_cast<int>(blockIdx.x * blockDim.x) >= n_lanes) return;  // no lane for this block
+    if (static_cast<int>(blockIdx.x * blockDim.x / W) >= n_lanes) return;  // no lane for this block
   }
   extern __shared__ float data_s[];
   for (int t = threadIdx.x; t < a.n_data; t += blockDim.x) data_s[t] = a.data[t];
   __syncthreads();
 
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= n_lanes) return;  // padding threads
+  const int t = (blockIdx.x * blockDim.x + threadIdx.x) / W;
+  const int lane = group_lane<W>();
+  if (t >= n_lanes) return;  // padding threads, whole groups
   int p = t;
   if constexpr (kCont) p = __float_as_int(a.cont_in[t]);
   const int run = p / a.n_per_run;
@@ -191,7 +253,21 @@ __global__ void __launch_bounds__(kThreads) nuts_tree_kernel(const TreeArgs a) {
   const TreeDraws draws{static_cast<uint32_t>(a.seed[run]),
                         static_cast<uint32_t>(p - run * a.n_per_run), a.zero_bits};
 
-  float xm[D], rm[D], gm[D], xp[D], rp[D], gp[D], xs[D], rs[D];
+  // The group's shared memory; every lane of the group stores the same
+  // values there, and a __syncwarp after each batch of stores orders them
+  // before the group's next reads.
+  float* const group_s = data_s + a.n_data + (threadIdx.x / W) * group_floats<Model>();
+  constexpr int kC = kShared ? 1 : D;
+  float xm_r[kC], rm_r[kC], gm_r[kC], xp_r[kC], rp_r[kC], gp_r[kC], xs_r[kC], rs_r[kC];
+  float* const carriers_s = group_s + 2 * (kMaxDepth + 1) * D;
+  float* const xm = kShared ? carriers_s + 0 * D : xm_r;
+  float* const rm = kShared ? carriers_s + 1 * D : rm_r;
+  float* const gm = kShared ? carriers_s + 2 * D : gm_r;
+  float* const xp = kShared ? carriers_s + 3 * D : xp_r;
+  float* const rp = kShared ? carriers_s + 4 * D : rp_r;
+  float* const gp = kShared ? carriers_s + 5 * D : gp_r;
+  float* const xs = kShared ? carriers_s + 6 * D : xs_r;
+  float* const rs = kShared ? carriers_s + 7 * D : rs_r;
   float lps, n, logu, H0, logp0, ke0, alpha_sum, alpha_cnt, lf_cnt, depth_done;
   if constexpr (kCont) {
     const float* c = a.cont_in;
@@ -222,7 +298,11 @@ __global__ void __launch_bounds__(kThreads) nuts_tree_kernel(const TreeArgs a) {
     lps = logp0; n = 1.0f;
     alpha_sum = 0.0f; alpha_cnt = 0.0f; lf_cnt = 0.0f; depth_done = 0.0f;
   }
-  float ck_x[(kMaxDepth + 1) * D], ck_r[(kMaxDepth + 1) * D];
+  if constexpr (kShared) __syncwarp(group_mask<W>());
+  constexpr int kStack = (kMaxDepth + 1) * D;
+  float ck_xl[kShared ? 1 : kStack], ck_rl[kShared ? 1 : kStack];
+  float* const ck_x = kShared ? group_s : ck_xl;
+  float* const ck_r = kShared ? group_s + kStack : ck_rl;
 
   bool stopped = false;
   for (int depth = a.start_depth; depth <= a.stop_depth; ++depth) {
@@ -275,6 +355,7 @@ __global__ void __launch_bounds__(kThreads) nuts_tree_kernel(const TreeArgs a) {
       if ((leaf & 1) == 0) {
         copy<D>(ck_x + idx_max * D, x1);
         copy<D>(ck_r + idx_max * D, r1);
+        if constexpr (kShared) __syncwarp(group_mask<W>());
       } else {
         const int idx_min = idx_max - (__popc(leaf ^ (leaf + 1)) - 1) + 1;
         for (int slot = idx_min; slot <= idx_max; ++slot) {
@@ -303,6 +384,7 @@ __global__ void __launch_bounds__(kThreads) nuts_tree_kernel(const TreeArgs a) {
     }
     n = n + nsub;
     depth_done = depth_done + 1.0f;
+    if constexpr (kShared) __syncwarp(group_mask<W>());
 
     float dx[D];
 #pragma unroll
@@ -315,7 +397,13 @@ __global__ void __launch_bounds__(kThreads) nuts_tree_kernel(const TreeArgs a) {
 
   if (!stopped && a.stop_depth < a.max_depth) {
     // The tree goes on: hand the carriers to the next stage.
-    const int slot = reserve_slot(a.n_out);
+    int slot;
+    if constexpr (W == 1) {
+      slot = reserve_slot(a.n_out);
+    } else {
+      slot = reserve_group_slot<W>(a.n_out);
+    }
+    if (lane != 0) return;
     float* c = a.cont_out;
     c[slot] = __int_as_float(p);
     store_rows<D>(c, xm, 1 + 0 * D, P, slot); store_rows<D>(c, rm, 1 + 1 * D, P, slot);
@@ -338,6 +426,7 @@ __global__ void __launch_bounds__(kThreads) nuts_tree_kernel(const TreeArgs a) {
     keep = draws.uniform(kAccRej, 0, 0) <= expf(dh > 0.0f ? 0.0f : dh);
     if (!keep) lps = logp0;
   }
+  if (lane != 0) return;  // lane 0 writes the group's outputs
   float moved = 1.0f;
 #pragma unroll
   for (int d = 0; d < D; ++d) {
@@ -362,7 +451,24 @@ __global__ void __launch_bounds__(kThreads) nuts_tree_kernel(const TreeArgs a) {
   a.stats[7 * P + p] = moved;
 }
 
-template <class Model>
+// Dynamic shared memory of a block: the model's data, then each group's.
+template <class Model, int kBlock>
+size_t block_smem(int n_data) {
+  return static_cast<size_t>(n_data + kBlock / GroupWidth<Model>::value * group_floats<Model>()) *
+         sizeof(float);
+}
+
+// Blocks of the first-stage kernel that one SM holds at once with n_data
+// floats of model data (the occupancy calculator's answer), or -1 on error.
+template <class Model, int kBlock = kThreads>
+int blocks_per_sm(int n_data) {
+  int n = 0;
+  const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &n, nuts_tree_kernel<Model, false, kBlock>, kBlock, block_smem<Model, kBlock>(n_data));
+  return err == cudaSuccess ? n : -1;
+}
+
+template <class Model, int kBlock = kThreads>
 int launch(const float* x, const float* r, const float* data, int n_data, const float* scalars,
            int n_scalars, const int32_t* seed, const float* phi, const float* eps,
            const float* inv_mass, int n_runs, int n_per_run, int max_depth, int zero_bits,
@@ -385,13 +491,14 @@ int launch(const float* x, const float* r, const float* data, int n_data, const 
                       x_out, r_out, stats};
   // A continuation stage is launched over every lane too: the count of its
   // lanes stays on the device.
-  const int blocks = (args.total + kThreads - 1) / kThreads;
-  const size_t smem = static_cast<size_t>(n_data) * sizeof(float);
+  constexpr int W = GroupWidth<Model>::value;
+  const int blocks = (args.total * W + kBlock - 1) / kBlock;
+  const size_t smem = block_smem<Model, kBlock>(n_data);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (cont) {
-    nuts_tree_kernel<Model, true><<<blocks, kThreads, smem, st>>>(args);
+    nuts_tree_kernel<Model, true, kBlock><<<blocks, kBlock, smem, st>>>(args);
   } else {
-    nuts_tree_kernel<Model, false><<<blocks, kThreads, smem, st>>>(args);
+    nuts_tree_kernel<Model, false, kBlock><<<blocks, kBlock, smem, st>>>(args);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -405,15 +512,17 @@ int launch(const float* x, const float* r, const float* data, int n_data, const 
 // floats. A stage with start_depth > 0 reads its lanes from cont_in / n_in; a
 // stage with stop_depth < max_depth fills cont_out / n_out (n_out zeroed by
 // the caller); the pointers a stage does not use are null.
-#define SMCNUTS_ENTRY(NAME, MODEL)                                                              \
+// SMCNUTS_ENTRY(NAME, MODEL) launches blocks of kThreads threads,
+// SMCNUTS_ENTRY(NAME, MODEL, THREADS) blocks of THREADS.
+#define SMCNUTS_ENTRY(NAME, ...)                                                                \
   int NAME(const float* x, const float* r, const float* data, int n_data, const float* scalars, \
            int n_scalars, const int32_t* seed, const float* phi, const float* eps,              \
            const float* inv_mass, int n_runs, int n_per_run, int max_depth, int zero_bits,      \
            int acc_rej, int start_depth, int stop_depth, const float* cont_in,                  \
            const int* n_in, float* cont_out, int* n_out, float* x_out, float* r_out,            \
            float* stats, void* stream) {                                                        \
-    return smcnuts::launch<MODEL>(x, r, data, n_data, scalars, n_scalars, seed, phi, eps,       \
-                                  inv_mass, n_runs, n_per_run, max_depth, zero_bits, acc_rej,   \
-                                  start_depth, stop_depth, cont_in, n_in, cont_out, n_out,      \
-                                  x_out, r_out, stats, stream);                                 \
+    return smcnuts::launch<__VA_ARGS__>(x, r, data, n_data, scalars, n_scalars, seed, phi,    \
+                                        eps, inv_mass, n_runs, n_per_run, max_depth,          \
+                                        zero_bits, acc_rej, start_depth, stop_depth, cont_in, \
+                                        n_in, cont_out, n_out, x_out, r_out, stats, stream);  \
   }

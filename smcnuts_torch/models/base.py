@@ -18,13 +18,36 @@ A model also carries its compaction hints, the splits that
 `SMCConfig(compaction="auto")` takes for it (`sampler.resolve_compaction`):
 `compaction_hint` at a fixed step size and `compaction_hint_adapted` under
 step-size adaptation at `ADAPTED_HINT_TARGET`, both used only for dispatches
-of more than `COMPACTION_MIN_LANES` trees. An empty hint means the single
-kernel. The values are measurements on an NVIDIA H100 (`chip_smoke.py` phase
-6b prints them; PERF.md keeps them). There a stage costs one launch and one
-pass over the survivors' carriers, with no sort or gather between stages, so
-for all three measured workloads a split after every doubling (`EVERY_DEPTH`)
-was the fastest or within 5% of the fastest at 51,200 lanes and the fastest
-at 204,800; the hints are that tuple.
+of more than `compaction_min_lanes` trees (`COMPACTION_MIN_LANES` where the
+model names none). An empty hint means the single kernel. The values are
+measurements on an NVIDIA H100 (`chip_smoke.py` phase 6b prints them;
+PERF.md keeps them). There a stage costs one launch and one pass over the
+survivors' carriers, with no sort or gather between stages, so for all three
+measured workloads a split after every doubling (`EVERY_DEPTH`) was the
+fastest or within 5% of the fastest at 51,200 lanes and the fastest at
+204,800; the hints are that tuple.
+
+PRMwCD runs 16 lanes a tree (`models.prmwcd.GROUP`), four trees a block of
+64 threads, so `COMPACTION_MIN_LANES`, one block of the one-thread-a-tree
+kernel on each SM, does not fit it; its threshold counts its own blocks: the
+trees the card holds at once, 132 SMs x 6 blocks x 4 trees = 3,168.
+Measured on the group kernel by `chip_smoke.py` phase 6b (NVIDIA H100 80GB
+HBM3, 700 W; CUDA events, median of 5, the single kernel timed first and
+last), on PRMwCD's population after 100 iterations, first 2 or 5 runs of it,
+or tiled: the split after every doubling took 2.2552 ms against the single
+kernel's 2.0241 / 2.1141 at 1,024 trees, 2.9491 against 2.5444 / 2.5661 at
+2,560, 6.2178 against 6.7163 / 6.8317 at 12,800, 9.7314 against 11.2732 /
+11.4381 at 25,600, 16.7790 against 21.0764 / 21.0964 at 51,200 and 59.7035
+against 77.8875 / 77.8242 at 204,800, the fastest candidate from 25,600 on
+and 0.1% behind the fastest, (7,), at 12,800. Adapted, a split after
+doubling 5 took 0.7198 against 0.6651 / 0.6725 at 1,024, 0.8354 against
+0.7137 / 0.8363 at 2,560, 1.4552 against 1.6197 / 1.6069 at 12,800 and
+2.2936 against 2.6669 / 2.6791 at 25,600 (the fastest at both), 4.5050
+against 4.7543 / 4.8164 at 51,200 (0.8% behind the fastest) and 14.4087
+against 16.4977 / 16.6990 at 204,800 (2.8% behind a split after every
+doubling); a split after every doubling took 1.6758 at 12,800, slower than
+the single kernel (the same design in blocks of 128 threads measured
+alike). Up to 2,560 trees, all resident at once, staging bought nothing.
 """
 
 from __future__ import annotations
@@ -38,9 +61,10 @@ from torch import nn
 LOG_SQRT_2PI = float(0.5 * math.log(2.0 * math.pi))
 # The target_accept at which every model's adapted hint was measured.
 ADAPTED_HINT_TARGET = 0.5
-# A hint pays only for dispatches of more lanes (runs x particles) than this:
-# the H100's 132 SMs x the NUTS kernel's 128 threads a block. Up to one block
-# an SM no warp waits for another, and a dispatch lasts as long as its deepest
+# A hint pays only for dispatches of more lanes (runs x particles) than this,
+# unless the model names its own `compaction_min_lanes`: the H100's 132 SMs x
+# the NUTS kernel's 128 threads a block, one thread a tree. Up to one block an
+# SM no warp waits for another, and a dispatch lasts as long as its deepest
 # tree, staged or not (measured at 12,800 lanes; at 25,600 staging gains 5-9%).
 COMPACTION_MIN_LANES = 132 * 128
 # A split after every doubling below the largest max_tree_depth (10).

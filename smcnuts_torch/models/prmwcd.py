@@ -14,14 +14,28 @@ imports nothing of that package.
 
 from __future__ import annotations
 
+import functools
 import math
 import os
+import types
 
 import numpy as np
 import torch
 from torch import nn
 
 from .base import EVERY_DEPTH, inv_gamma_lpdf, poisson_lpmf
+
+# Lanes that evaluate one particle in the CUDA kernel (kPrmwcdGroup of
+# csrc/nuts_tree.cu, a half warp; ops/nuts_cuda.py checks the two agree): the
+# order in which logp_and_grad sums the observations by default.
+GROUP = 16
+# Threads a block of the PRMwCD kernel (kPrmwcdBlock of csrc/nuts_tree.cu), and
+# the blocks of it an H100 SM holds at once (168 registers a thread cap an SM at
+# 12 warps; the data and the trees' shared memory do not bind). ops/nuts_cuda.py
+# checks both against the built kernel before it launches it, since the
+# compaction threshold below rests on them.
+BLOCK = 64
+BLOCKS_PER_SM = 6
 
 ASSET = os.path.join(
     os.path.dirname(os.path.abspath(__file__)),
@@ -41,7 +55,11 @@ class PrmwcdModel(nn.Module):
 
     name = "prmwcd"
     compaction_hint = EVERY_DEPTH  # measured on an H100, see models/base.py
-    compaction_hint_adapted = EVERY_DEPTH
+    compaction_hint_adapted = (5,)
+    # The hints pay past the trees the card holds at once in the PRMwCD
+    # kernel, counted in its blocks: the H100's 132 SMs x BLOCKS_PER_SM
+    # blocks x BLOCK / GROUP trees a block.
+    compaction_min_lanes = 132 * BLOCKS_PER_SM * (BLOCK // GROUP)
 
     def __init__(self, y=None, X=None, q=None):
         super().__init__()
@@ -80,23 +98,31 @@ class PrmwcdModel(nn.Module):
     def logp(self, x, phi=1.0):
         return self.logprior(x) + phi * self.loglik(x)
 
-    def logp_and_grad(self, x, phi=1.0):
+    def logp_and_grad(self, x, phi=1.0, group=None):
         """Tempered logp and its gradient in closed form.
 
         Written op for op as the kernel's device function
-        (`csrc/prmwcd_model.cuh`) and the JAX package's `prmwcd_tile_model`,
-        so the three round alike: eta by ordered multiply-adds over the
-        covariates, then per observation, in order, ll += y_i eta_i - mu_i,
-        s_resid += resid_i and s_cov_j += resid_i X_ij. The sums over
-        observations run in sequence on one stacked (P, M + 1) accumulator
-        [ll, s_resid, s_cov_1..]: each step adds up_i = [y_i eta_i, resid_i,
-        resid_i X_i] and subtracts down_i = [mu_i, 0, ..], and x - 0 = x, so
-        every column rounds as the kernel's scalar sums do. No matmul or
-        reduction op: their summation order differs from the kernel's."""
+        (`csrc/prmwcd_model.cuh`) at group width W = `group` (None: the
+        kernel's, `GROUP`), so the two round alike. Per observation i, as
+        the JAX package's `prmwcd_tile_model`: eta by ordered multiply-adds
+        over the covariates, mu = exp(eta), the terms y_i eta_i - mu_i,
+        resid_i and resid_i X_ij. Lane l of W sums observations l, l + W,
+        l + 2W, ... in that order on a stacked accumulator [ll, s_resid,
+        s_cov_1..] (lane 0's ll starts from the lgamma constant, the rest
+        from zero): each step adds up_i = [y_i eta_i, resid_i, resid_i X_i]
+        and subtracts down_i = [mu_i, 0, ..], and x - 0 = x, so every column
+        rounds as the kernel's scalar sums do. Then the W partials are
+        reduced by the kernel's xor butterfly, v = v + v[lane ^ o] for
+        o = W/2, ..., 1, and lane 0's sums are taken. W = 1 is the
+        sequential order of the JAX tile model. No matmul or reduction op:
+        their summation order differs from the kernel's."""
         y, X = self._data(x.dtype)
         n_obs, n_cov = X.shape
         M = n_cov + 1
         q = self.q
+        W = GROUP if group is None else int(group)
+        if W < 1 or W & (W - 1) or W > 32:
+            raise ValueError(f"group must be a power of two in 1..32, got {group}")
         b, g = x[:, :M], x[:, M]
         zero = b[:, 0] * 0.0
 
@@ -112,12 +138,20 @@ class PrmwcdModel(nn.Module):
             [mu[..., None], torch.zeros_like(mu)[..., None].expand(-1, -1, M)],
             dim=2,
         )
-        acc = torch.stack(
-            [zero + self.lgamma_const] + [zero] * M, dim=1
-        )  # [ll, s_resid, s_cov_1..s_cov_n_cov]
-        for i in range(n_obs):
-            acc = (acc + up[:, i]) - down[:, i]
-        ll, s_resid, s_cov = acc[:, 0], acc[:, 1], acc[:, 2:]
+        # acc[:, l] holds lane l's [ll, s_resid, s_cov_1..s_cov_n_cov].
+        first = torch.stack([zero + self.lgamma_const] + [zero] * M, dim=1)
+        acc = torch.stack([first] + [torch.stack([zero] * (M + 1), dim=1)] * (W - 1),
+                          dim=1)
+        for lo in range(0, n_obs, W):
+            n = min(W, n_obs - lo)  # lanes that have observation lo + l
+            stepped = (acc[:, :n] + up[:, lo:lo + n]) - down[:, lo:lo + n]
+            acc = torch.cat([stepped, acc[:, n:]], dim=1)
+        lanes = torch.arange(W, device=x.device)
+        o = W // 2
+        while o:
+            acc = acc + acc[:, lanes ^ o]
+            o //= 2
+        ll, s_resid, s_cov = acc[:, 0, 0], acc[:, 0, 1], acc[:, 0, 2:]
 
         # Prior: inverse gamma on Gamma = exp(g) with its Jacobian, EP on the
         # non-intercept betas; |b / Gamma|^q as exp(q (log|b| - g)).
@@ -144,6 +178,14 @@ class PrmwcdModel(nn.Module):
             dim=1,
         )
         return logp, grad
+
+    def at_group(self, group):
+        """A view whose `logp_and_grad` sums at group width `group`: the plain
+        version, for `ops.nuts_cuda.nuts_tree_plain`, of a kernel entry of
+        that width (`ops.nuts_cuda.nuts_tree_variant`)."""
+        return types.SimpleNamespace(
+            name=self.name, dim=self.dim,
+            logp_and_grad=functools.partial(self.logp_and_grad, group=group))
 
     def constrain(self, x):
         M = self.n_cov + 1

@@ -185,13 +185,14 @@ def resolve_compaction(cfg: SMCConfig, model, n_lanes: int) -> tuple:
     `compaction_hint_adapted` was measured under step-size adaptation at
     target_accept = ADAPTED_HINT_TARGET, and another target settles on
     another step size and other depths, so there "auto" takes no hint of
-    either kind and runs the single kernel. Either hint pays only past
-    COMPACTION_MIN_LANES, one block of the kernel on every SM: up to there
+    either kind and runs the single kernel. Either hint pays only past the
+    model's `compaction_min_lanes` (COMPACTION_MIN_LANES, one block of the
+    one-thread-a-tree kernel on every SM, where it names none): up to there
     no warp waits for another and a dispatch lasts as long as its deepest
     tree, staged or not, so "auto" runs the single kernel there too."""
     if cfg.compaction != "auto":
         return tuple(cfg.compaction or ())
-    if n_lanes <= COMPACTION_MIN_LANES:
+    if n_lanes <= getattr(model, "compaction_min_lanes", COMPACTION_MIN_LANES):
         return ()
     if not cfg.adapt_step_size:
         return tuple(getattr(model, "compaction_hint", ()))

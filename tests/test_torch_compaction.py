@@ -328,8 +328,15 @@ def test_models_carry_their_hints(name):
         assert isinstance(hint, tuple)
         assert all(isinstance(s, int) and 0 < s < 10 for s in hint)
         assert list(hint) == sorted(set(hint))
-    wide = COMPACTION_MIN_LANES + 1
-    assert resolve_compaction(_cfg(), model, 25 * 512) == ()  # bench.py's width
+    # arma's kernel runs a thread a tree and takes the shared threshold;
+    # PRMwCD's runs 16 lanes a tree and counts its own blocks
+    # (models/base.py), so bench.py's width stages it.
+    narrow = getattr(model, "compaction_min_lanes", COMPACTION_MIN_LANES)
+    assert narrow == {"arma": COMPACTION_MIN_LANES, "prmwcd": 132 * 6 * 4}[name]
+    assert resolve_compaction(_cfg(), model, narrow) == ()
+    wide = narrow + 1
+    bench = resolve_compaction(_cfg(), model, 25 * 512)  # bench.py's width
+    assert bench == {"arma": (), "prmwcd": model.compaction_hint}[name]
     assert resolve_compaction(_cfg(), model, wide) == model.compaction_hint
     assert resolve_compaction(
         _cfg(adapt_step_size=True, target_accept=ADAPTED_HINT_TARGET), model,

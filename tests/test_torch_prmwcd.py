@@ -10,10 +10,16 @@ The plain tree with PRMwCD inlined against `nuts_batch_pallas_fused` over
 `prmwcd_tile_model`, interpreted with zero bits (one jitted kernel for the
 module, N=40, max_depth 2, seed, phi and inverse mass as runtime values):
 integer outputs exactly, floats at atol/rtol 1e-4 (delta_h: see
-`_assert_outputs_match`). Then the r-given depth-0 tree, one leapfrog,
-against jax.grad. Under zero bits every momentum component starts at 5.77
-(Box-Muller of 2^-24), so the trajectories are violent: at depth 3 the two
-implementations' last-bit differences grow past 1e-4 in the momenta.
+`_assert_outputs_match`); the plain tree sums in the kernel's group order
+(W = 16 lanes a particle, tests/test_torch_prmwcd_group.py). Then the
+r-given depth-0 tree, one leapfrog, against jax.grad, in the same order;
+its accept_stat reads 1.8e-4 from JAX (an accept_stat near 1, inside
+atol + rtol |value|; W = 32 reads 2.1e-4, past it, and
+tests/test_torch_prmwcd_group.py holds that order to the sequential one
+within the float32 summation bound). Under zero bits every momentum
+component starts at 5.77 (Box-Muller of 2^-24), so the trajectories are
+violent: at depth 3 the two implementations' last-bit differences grow past
+1e-4 in the momenta.
 """
 
 import jax
