@@ -22,28 +22,39 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
 2b. peak (K8): the FP32 peak kernel (csrc/fma_peak.cu) against its plain
    chain at 64 steps (FMUL+FADD equal to the bit; FMA within one spacing of
    the chain's value a step and chain), then 4, 8, 16 and 32 chains of 2,000
-   steps a thread, FMA and FMUL+FADD, on 8 blocks of 256 threads an SM (CUDA
-   events, median of 5 of 20 launches, TFLOP/s counted as
+   steps a thread, FMA and FMUL+FADD, on 8 blocks of 256 threads an SM (the
+   device alone, median of 5 of 20 launches back to back, TFLOP/s counted as
    experiments/bench_vpu_peak.py:92 counts them). Every later bound divides
    by the card's FP32 rate (the data sheet's 67 TFLOP/s, which counts a
    fused multiply-add as two); its second bound, bound_unfused_ms, divides by
    the measured FMUL+FADD rate, the most the port's -fmad=false builds reach.
-3. arma kernel vs plain: `nuts_tree` (the CUDA kernel) and `nuts_tree_plain`
-   on the same CUDA inputs, with zero-bits and Philox draws, phi 1.0 and 0.4
-   (two runs in one launch), a non-unit inverse mass, the r-given variant at
-   max_depth 0, and the main path's shape (N=512, max_depth 10). Fails when
-   fewer than 99.9% of lanes agree on depth, leapfrogs and moved; when x, r,
-   logp0, logp_prop or delta_h differ on agreeing lanes by more than
-   atol 1e-4 + rtol 1e-4; or when an output is not finite. Times both
-   (CUDA events; the kernel's median of 5, the plain version's one call) at
-   N=512 and at the batched shape 25 x 512.
+3. arma kernel vs plain: `nuts_tree` (the CUDA kernel, a group of
+   models.arma.GROUP lanes a tree) and `nuts_tree_plain` (the model in the
+   same group order) on the same CUDA inputs, with zero-bits and Philox
+   draws, phi 1.0 and 0.4 (two runs in one launch), a non-unit inverse mass,
+   the r-given variant at max_depth 0, each with lanes at log_sigma +-20,
+   +-60 and |theta| >= 2 (a density that is not finite or nearly so), and the
+   main path's shape (N=512, max_depth 10): every output equal to the bit
+   (NaN equal to NaN), and the contract of the other models (below) too.
+   Times both at N=512 and at the batched shape 25 x 512: the kernel on the
+   device alone (utils/timing.device_ms: 20 launches queued back to back
+   behind a device-side wait, events around them) and one call timed alone
+   (the host's launch included), the plain version one call. Then the W = 1
+   witness (`ops.nuts_cuda.ARMA_VARIANTS`, one thread a tree, the sequential
+   order) equal to the bit to the plain version at group=1, timed in turns
+   with the main entry at 25 x 512 and at 1,048,576 trees, with ptxas's
+   lines for each.
    Then the staged dispatch at 25 x 512, depth 10: for Philox and zero bits,
    the accept-reject epilogue off and on (the zero-bits cloud holds a lane
    with a NaN density, the only kind zero bits reject), and r given, the
    kernel with the reference's splits, with one split at every depth 1..9
    and with all nine must equal the single kernel to the bit on every lane
-   and output, and is held to the plain version by the contract above. The
-   staged dispatch (median of 5) and its plain version (one call) are timed.
+   and output, and is held to the plain version to the bit. The staged
+   dispatch (as above) and its plain version (one call) are timed.
+   The contract of the models not held to the bit (phases 8, 11): fails when
+   fewer than 99.9% of lanes agree on depth, leapfrogs and moved; when x, r,
+   logp0, logp_prop or delta_h differ on agreeing lanes by more than
+   atol 1e-4 + rtol 1e-4; or when an output is not finite.
 4. PRMwCD kernel vs plain: the same cases for the PRMwCD instantiation (a
    group of 16 lanes a particle; a 13-vector inverse mass), plus the batched
    main path's shape, 25 runs x 512 at max_depth 10, where both are timed,
@@ -52,7 +63,7 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
    PRMWCD_VARIANTS`: the W = 1 witness, one thread a particle; W = 32 in
    blocks of 64; the main path's W = 16 in blocks of 128), each equal to the
    bit to the plain version at its width or to the main entry, all timed in
-   turns with the main entry (median of 6 medians of 5) beside ptxas's
+   turns with the main entry (median of 6 device times) beside ptxas's
    registers, stack and spills for each; then the staged dispatch as in
    phase 3, every single kernel equal to its plain version to the bit.
 5. arma main path, one run: SMCSampler(K=100, N=512, step 0.01, max depth 10)
@@ -83,10 +94,11 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
 6b. times of the staged dispatch: each workload's K iterations are driven
    once more through init_state and smc_step, and on the population they
    end with, the single kernel and every candidate split tuple are timed
-   (CUDA events, median of 5), with the survivors after each split, the
-   stage launches, and the per-warp lockstep waste (lane-steps a warp walks
-   over lane-steps its trees need) from the kernel's own leapfrogs and depth
-   outputs (the trees a warp holds: 32, PRMwCD's 2), and the block's tail
+   (the device alone, 20 launches back to back), with the survivors after
+   each split, the stage launches, and the per-warp lockstep waste (lane-steps
+   a warp walks over lane-steps its trees need) from the kernel's own leapfrogs
+   and depth outputs (the trees a warp holds: 32, arma's 4, PRMwCD's 2), and
+   the block's tail
    (the same count at the trees a block holds). The first 2 and 5 runs of each
    population are timed alone, and each population is also tiled to 2, 4 and
    16 times the lanes: past the lanes the card holds at once, a warp or block
@@ -125,11 +137,14 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
    bit; for the asymptotic strategy the estimates made inside the loop
    (save_history=False) equal those from the saved history to the bit.
 10. the eager backend on the card with the fused ARMA kernel, and the unfused
-   proposal path. (a) The fused ARMA value and gradient (K5) against its
-   plain version at 1, 513, 4,096, 12,800 and 1,048,576 lanes, with lanes at
-   log_sigma +-20 and +-60: equal to the bit, or within atol 1e-4 + rtol 1e-4
-   with the same non-finite lanes; timed with its plain version and its bound
-   at 4,096 (the eager tree's block), 12,800 and 1,048,576 lanes. (b) The
+   proposal path. (a) The fused ARMA value and gradient (K5, models.arma.GROUP
+   lanes a particle) against its plain version in the same order at 1, 513,
+   4,096, 12,800 and 1,048,576 lanes, with lanes at log_sigma +-20, +-60 and
+   |theta| >= 2: equal to the bit; its W = 1 witness likewise against the
+   plain version at group=1; both timed in turns on the device alone, with
+   the plain version, one call timed alone and the bound, at 4,096 (the
+   eager tree's block), 12,800 and 1,048,576 lanes; the device-alone time
+   beside torch.profiler's device time of the same launches. (b) The
    slice's path, run_smc_batched(make_arma(fused="cuda"), eager,
    fused_epilogue=False) at 25 x 512 x K=100, depth 10, blocks of 4,096: K5
    launched once per model evaluation of the tree, the whole-tree kernel and
@@ -173,8 +188,11 @@ bound_unfused_ms, the same with the FMUL+FADD peak measured in phase 2b for
 the operations, what a build with -fmad=false can reach; no single PyTorch
 call builds a NUTS tree,
 computes the fused ARMA value and gradient or runs FMA chains, so there is no
-library time). The PRMwCD W = 1 witness's row is a measurement entry: 0
-launches on the main path and "measurement_entry": true. The
+library time). Every "ms" is the device's time alone (utils/timing.device_ms);
+"host_call_ms" beside it is one call timed alone between two events, the
+host's launch included, as the rows were timed before. The W = 1 witnesses'
+rows (arma's NUTS kernel, PRMwCD's, K5) are measurement entries: 0 launches
+on the main path and "measurement_entry": true. The
 last line is {"ok": true, "device": {...}}. Without a CUDA device, or without the
 repository beside it, the script fails before printing any result.
 """
@@ -219,6 +237,9 @@ WIDE_SINGLES = {"arma": ((2,), (3,), (4,)), "prmwcd": ((6,), (7,), (8,)),
 # NVIDIA's data sheet for the H100 SXM at 700 W: FP32 outside the tensor
 # cores (a multiply-add counts as two) and device memory.
 PEAK_FP32, PEAK_BYTES = 67e12, 3.35e12
+# Launches queued back to back behind a device-side wait for each device time
+# of the kernels line (utils/timing.py::device_ms).
+DEVICE_REPEATS = 20
 # The FP32 rates this run measures (phase 2b, K8): "fmul_fadd", the rate of
 # separately rounded multiplies and adds, the most a kernel built with
 # -fmad=false reaches (every bound_unfused_ms divides by it); "fma" beside it.
@@ -369,8 +390,8 @@ def peak_phase(smi):
     launches = fma_chains.launches
     for r in rows:
         print(f"peak {r['variant']:9s} {r['nchains']:2d} chains: {r['ms']:.4f} ms a "
-              f"launch, {r['tflops']:.3f} TFLOP/s (CUDA events, median of 5 of 20 "
-              f"launches; {smi})")
+              f"launch, {r['tflops']:.3f} TFLOP/s (device alone, median of 5 of 20 "
+              f"launches back to back; {smi})")
     for variant in ("fma", "fmul_fadd"):
         MEASURED_PEAK[variant] = 1e12 * max(r["tflops"] for r in rows
                                             if r["variant"] == variant)
@@ -382,9 +403,10 @@ def peak_phase(smi):
     best = max((r for r in rows if r["variant"] == "fma"), key=lambda r: r["tflops"])
     c = best["nchains"]
     plain_ms = median_ms(lambda: fma_chains_plain(x, c, STEPS), repeats=1, warmup=0)
+    host_ms = median_ms(lambda: fma_chains(x, c, STEPS, "fma"), repeats=5)
     work = flops(n, c, STEPS)
     return {"launches": launches, "max_abs_err": worst, "ms": best["ms"],
-            "plain_ms": plain_ms, **roofline(work, 8 * n)}
+            "host_call_ms": host_ms, "plain_ms": plain_ms, **roofline(work, 8 * n)}
 
 
 def reset_counts():
@@ -445,12 +467,13 @@ def prmwcd_particles(shape, seed, device):
             + scale[..., None] * torch.tensor(sd, device=device) * z).contiguous()
 
 
-def compare(label, model, args, r=None, bitwise=False):
+def compare(label, model, args, r=None, nan_lanes=False, bitwise=False):
     """Run kernel and plain version on the same inputs; return max abs err."""
     from smcnuts_torch.ops.nuts_cuda import nuts_tree, nuts_tree_plain
 
     return check_outputs(label, nuts_tree(model, *args, r=r),
-                         nuts_tree_plain(model, *args, r=r), bitwise=bitwise)
+                         nuts_tree_plain(model, *args, r=r), nan_lanes=nan_lanes,
+                         bitwise=bitwise)
 
 
 def check_outputs(label, out_k, out_p, nan_lanes=False, quiet=False, bitwise=False):
@@ -539,18 +562,36 @@ def tree_roofline(name, out, survivors=(), bundle_rows=0, model=None):
     return roofline(ops, 4 * floats)
 
 
+def kernel_times(fn):
+    """What the kernels line says of a kernel's time: ms, the device's time a
+    call of fn (`utils.timing.device_ms`: DEVICE_REPEATS calls back to back
+    behind a device-side wait, events around them), and host_call_ms, the
+    median of 5 calls each timed alone between two events on an idle
+    stream, the host's launch included (how the rows were timed before
+    device_ms; kept beside the device time so that the two compare)."""
+    from smcnuts_torch.utils.timing import device_ms, median_ms
+
+    return {"ms": device_ms(fn, repeats=DEVICE_REPEATS),
+            "host_call_ms": median_ms(fn, repeats=5)}
+
+
+def times_text(t):
+    """A kernel's times (`kernel_times`) as one printed phrase."""
+    return (f"kernel {t['ms']:.4f} ms on the device alone ({DEVICE_REPEATS} launches "
+            f"back to back), {t['host_call_ms']:.4f} ms a call timed alone")
+
+
 def time_pair(label, model, args, smi):
-    """(kernel ms, plain ms): CUDA events; the kernel's median of 5 after one
-    warmup, the plain version's one call (the caller has just run it on
-    these inputs, and one run takes seconds)."""
+    """The kernel's times (`kernel_times`) and plain_ms, the plain version's
+    one call (CUDA events; the caller has just run it on these inputs, and
+    one run takes seconds)."""
     from smcnuts_torch.ops.nuts_cuda import nuts_tree, nuts_tree_plain
     from smcnuts_torch.utils.timing import median_ms
 
-    k_ms = median_ms(lambda: nuts_tree(model, *args), repeats=5)
-    p_ms = median_ms(lambda: nuts_tree_plain(model, *args), repeats=1, warmup=0)
-    print(f"time {label}: kernel {k_ms:.4f} ms, plain {p_ms:.1f} ms "
-          f"(CUDA events, median of 5 and one call; {smi})")
-    return k_ms, p_ms
+    t = kernel_times(lambda: nuts_tree(model, *args))
+    t["plain_ms"] = median_ms(lambda: nuts_tree_plain(model, *args), repeats=1, warmup=0)
+    print(f"time {label}: {times_text(t)}, plain {t['plain_ms']:.1f} ms ({smi})")
+    return t
 
 
 def staged_kernel_phase(name, model, batch_args, single_out, plain_out, smi,
@@ -624,48 +665,72 @@ def staged_kernel_phase(name, model, batch_args, single_out, plain_out, smi,
               f"survivors after {own}: {survivors}")
     staged_out = nuts_tree(model, *batch_args, compaction=own)
     survivors = survivor_counts()
-    ms = median_ms(lambda: nuts_tree(model, *batch_args, compaction=own), repeats=5)
+    t = kernel_times(lambda: nuts_tree(model, *batch_args, compaction=own))
     plain_ms = median_ms(
         lambda: nuts_tree_plain(model, *batch_args, compaction=own),
         repeats=1, warmup=0)
     bound = tree_roofline(name, staged_out, survivors,
                           build_library().bundle_rows(x.shape[2]))
     print(f"time {name} staged {own}, {RUNS} x {N} x depth {depth} [philox]: "
-          f"kernel {ms:.4f} ms in {len(own) + 1} launches, plain {plain_ms:.1f} ms "
-          f"(CUDA events, median of 5 and one call); {bound_text(bound)} ({smi})")
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, **bound}
+          f"{times_text(t)}, in {len(own) + 1} launches a call, plain {plain_ms:.1f} ms "
+          f"(one call); {bound_text(bound)} ({smi})")
+    return {"max_abs_err": worst, **t, "plain_ms": plain_ms, **bound}
+
+
+def arma_cloud(n, seed, device):
+    """arma particles (n, 4): the cloud of `particles`, and where n allows,
+    lanes with log_sigma = +-20 and +-60 (inv_s2 of e^-40, e^40, 0 and inf
+    in float32) and lanes with |theta| >= 2, where the error recurrence
+    overflows (an inf in the sequential order, an inf or a NaN in the group
+    order: a density that is not finite either way)."""
+    x = particles(n, seed, device).contiguous()
+    for i, (col, v) in enumerate(((3, 20.0), (3, -20.0), (3, 60.0), (3, -60.0),
+                                  (2, 2.0), (2, -2.5), (2, 3.0), (2, -7.0))):
+        if 4 * (i + 1) < n:
+            x[4 * (i + 1), col] = v
+    return x
+
+
+# arma trees timed at the width where one thread a tree fills the card.
+WIDE_TREES = 1 << 20
 
 
 def arma_kernel_phase(smi):
     from smcnuts_torch.models import get_model
+    from smcnuts_torch.models.arma import GROUP
     from smcnuts_torch.ops.draws import PHILOX, ZERO_BITS
-    from smcnuts_torch.ops.nuts_cuda import nuts_tree, nuts_tree_plain
+    from smcnuts_torch.ops.nuts_cuda import build_library, nuts_tree, nuts_tree_plain
 
     phase("3. arma kernel vs plain")
     dev = torch.device("cuda")
     model = get_model("arma").to(dev)
+    lib = build_library()
+    print(f"arma entry: W={GROUP} lanes a tree, blocks of {lib.arma_block} threads, "
+          f"{lib.arma_blocks_per_sm} blocks an SM at once")
     ones = torch.ones(4, device=dev)
     im = torch.tensor([0.5, 2.0, 1.5, 0.25], device=dev)
     seed2 = torch.tensor([11, 12], dtype=torch.int32, device=dev)
+    phis = torch.tensor([1.0, 0.4], device=dev)
     worst = 0.0
     for source in (ZERO_BITS, PHILOX):
-        x2 = particles(4096, 1, dev).view(2, 2048, 4)
+        x2 = arma_cloud(4096, 1, dev).view(2, 2048, 4)
         worst = max(worst, compare(
             f"[{source}] phi 1.0 | 0.4, 2 runs x 2048, depth 6", model,
-            (x2, seed2, 0.01, torch.tensor([1.0, 0.4], device=dev), ones, 6,
-             source)))
-        x1 = particles(4096, 2, dev)[None]
+            (x2, seed2, 0.01, phis, ones, 6, source), nan_lanes=True, bitwise=True))
+        x1 = arma_cloud(4096, 2, dev)[None]
         worst = max(worst, compare(
             f"[{source}] inv_mass {im.tolist()}, 4096, depth 6", model,
-            (x1, 13, 0.01, 1.0, im, 6, source)))
+            (x1, 13, 0.01, 1.0, im, 6, source), nan_lanes=True, bitwise=True))
     r = torch.randn(1, 4096, 4, generator=torch.Generator(device=dev).manual_seed(3),
                     device=dev)
     worst = max(worst, compare(
         "[zero_bits] r given, 4096, depth 0", model,
-        (particles(4096, 4, dev)[None], 0, 0.01, 0.7, im, 0, ZERO_BITS), r=r))
+        (arma_cloud(4096, 4, dev)[None], 0, 0.01, 0.7, im, 0, ZERO_BITS), r=r,
+        nan_lanes=True, bitwise=True))
     main_args = (particles(N, 5, dev)[None], 21, STEP, 1.0, ones, MAX_DEPTH, PHILOX)
     worst = max(worst, compare(
-        f"[philox] main path shape, {N}, depth {MAX_DEPTH}", model, main_args))
+        f"[philox] main path shape, {N}, depth {MAX_DEPTH}", model, main_args,
+        bitwise=True))
     batch_args = (particles(RUNS * N, 6, dev).view(RUNS, N, 4),
                   torch.arange(RUNS, dtype=torch.int32, device=dev), STEP, 1.0,
                   ones, MAX_DEPTH, PHILOX)
@@ -673,16 +738,26 @@ def arma_kernel_phase(smi):
     plain_out = nuts_tree_plain(model, *batch_args)
     worst = max(worst, check_outputs(
         f"[philox] batched main path shape, {RUNS} x {N}, depth {MAX_DEPTH}",
-        single_out, plain_out))
+        single_out, plain_out, bitwise=True))
+    print(f"arma: the group kernel (W={GROUP}) equals its plain version to the bit "
+          f"in every case, the lanes whose density is not finite included")
     time_pair(f"arma {N} x depth {MAX_DEPTH} [philox]", model, main_args, smi)
-    ms, plain_ms = time_pair(f"arma {RUNS} x {N} x depth {MAX_DEPTH} [philox]",
-                             model, batch_args, smi)
+    times = time_pair(f"arma {RUNS} x {N} x depth {MAX_DEPTH} [philox]",
+                      model, batch_args, smi)
     bound = tree_roofline("arma", single_out)
     print(f"arma: max |kernel - plain| on agreeing lanes, all cases: {worst:.3g}; "
           f"at {RUNS} x {N}: {bound_text(bound)}")
-    whole = {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, **bound}
+    whole = {"max_abs_err": worst, **times, **bound}
+    small = (arma_cloud(2048, 7, dev).view(2, 1024, 4), seed2, 0.01, phis, ones, 6,
+             ZERO_BITS)
+    wide = (particles(WIDE_TREES, 8, dev)[None], 31, STEP, 1.0, ones, MAX_DEPTH, PHILOX)
+    witness = measurement_entries("arma", model, batch_args, single_out, small, smi,
+                                  wide=wide)
+    wide_out = nuts_tree(model, *wide)
+    print(f"arma at {WIDE_TREES} trees, depth {MAX_DEPTH}: "
+          f"{bound_text(tree_roofline('arma', wide_out))}")
     return whole, staged_kernel_phase("arma", model, batch_args, single_out,
-                                      plain_out, smi)
+                                      plain_out, smi, bitwise=True), witness
 
 
 def prmwcd_kernel_phase(smi):
@@ -723,26 +798,31 @@ def prmwcd_kernel_phase(smi):
         f"[philox] batched main path shape, {RUNS} x {N}, depth {MAX_DEPTH}",
         single_out, plain_out, bitwise=True))
     print("PRMwCD: the group kernel equals its plain version to the bit in every case")
-    ms, plain_ms = time_pair(f"PRMwCD {RUNS} x {N} x depth {MAX_DEPTH} [philox]",
-                             model, batch_args, smi)
+    times = time_pair(f"PRMwCD {RUNS} x {N} x depth {MAX_DEPTH} [philox]",
+                      model, batch_args, smi)
     bound = tree_roofline("prmwcd", single_out)
     print(f"PRMwCD: max |kernel - plain| on agreeing lanes, all cases: {worst:.3g}; "
           f"at {RUNS} x {N}: {bound_text(bound)}")
-    whole = {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, **bound}
-    witness = prmwcd_variants(model, batch_args, single_out, smi)
+    whole = {"max_abs_err": worst, **times, **bound}
+    small = (prmwcd_particles((2, 1024), 1, dev),
+             torch.tensor([11, 12], dtype=torch.int32, device=dev), STEP,
+             torch.tensor([1.0, 0.4], device=dev), torch.ones(13, device=dev), 6,
+             ZERO_BITS)
+    witness = measurement_entries("prmwcd", model, batch_args, single_out, small, smi)
     return whole, staged_kernel_phase("prmwcd", model, batch_args, single_out,
                                       plain_out, smi, bitwise=True), witness
 
 
-# Rounds of phase 4's timing in turns: each round times every PRMwCD entry
-# (median of 5), in the opposite order to the round before.
+# Rounds of the timing in turns of phases 3 and 4: each round times every
+# entry of a model (on the device alone, DEVICE_REPEATS launches), in the
+# opposite order to the round before.
 VARIANT_ROUNDS = 6
 
 
-def prmwcd_ptxas(log):
+def model_ptxas(log, model):
     """ptxas's stack and register lines for every instantiation of the NUTS
-    kernel with the PRMwCD model, by a readable name (group width, stage,
-    threads a block)."""
+    kernel with the model (`"arma"` or `"prmwcd"`), by a readable name
+    (group width, stage, threads a block)."""
     import re
 
     lines, name = {}, None
@@ -752,8 +832,10 @@ def prmwcd_ptxas(log):
             lines[name] = []
         elif name is not None and ("stack frame" in line or "registers" in line):
             lines[name].append(line.split(":", 1)[-1].strip())
+    # nuts_tree_kernel<ArmaModel<W>, kCont, kBlock> or
     # nuts_tree_kernel<PrmwcdModel<NCov, W>, kCont, kBlock>, mangled.
-    pattern = re.compile(r"PrmwcdModelILi\d+ELi(\d+)EEELb([01])ELi(\d+)E")
+    pattern = re.compile({"arma": r"ArmaModelILi(\d+)EEELb([01])ELi(\d+)E",
+                          "prmwcd": r"PrmwcdModelILi\d+ELi(\d+)EEELb([01])ELi(\d+)E"}[model])
     out = {}
     for mangled, info in lines.items():
         m = pattern.search(mangled)
@@ -764,81 +846,97 @@ def prmwcd_ptxas(log):
                  f"{block} threads")
         out[label] = "; ".join(info)
     if not out:
-        raise AssertionError("no PRMwCD instantiation found in the nvcc log")
+        raise AssertionError(f"no {model} instantiation found in the nvcc log")
     return out
 
 
-def prmwcd_variants(model, batch_args, single_out, smi):
-    """PRMwCD's measurement entries (`ops.nuts_cuda.PRMWCD_VARIANTS`) at the
-    batched main path's shape: each entry of another group width than the
-    main path's equal to the plain version at its width
-    (`logp_and_grad(group=W)`) to the bit, the W = 1 witness (one thread a
-    particle, the sequential sums) also at phi 1.0 and 0.4 under zero bits;
-    the entry of the main path's width (in blocks of 128 threads) equal to
-    the main path's entry to the bit. Then every entry timed in turns (CUDA
-    events, median of VARIANT_ROUNDS medians of 5), with ptxas's lines.
-    Returns what the kernels line says of the witness: a measurement entry,
-    which the main path launches no time."""
+def measurement_entries(name, model, batch_args, single_out, small, smi, wide=None):
+    """A model's measurement entries (`ops.nuts_cuda.ARMA_VARIANTS` or
+    `PRMWCD_VARIANTS`) at the batched main path's shape: each entry of another
+    group width than the main path's equal to the plain version at its width
+    (`model.at_group(W)`) to the bit, the W = 1 witness (one thread a particle,
+    the sequential order) also on `small` (phi 1.0 and 0.4, zero bits); an
+    entry of the main path's width equal to the main path's entry to the
+    bit. Then every entry timed in turns (on the device alone, median of
+    VARIANT_ROUNDS), with ptxas's lines; with `wide` (other arguments, not
+    checked against the plain version, which would take too long there) the
+    main entry and the witness once more in turns there. Returns what the
+    kernels line says of the witness: a measurement entry, which the main
+    path launches no time."""
     import statistics
 
-    from smcnuts_torch.models.prmwcd import GROUP
-    from smcnuts_torch.ops.draws import ZERO_BITS
+    from smcnuts_torch.models import arma, prmwcd
     from smcnuts_torch.ops.nuts_cuda import (
-        PRMWCD_VARIANTS, build_library, nuts_tree, nuts_tree_plain, nuts_tree_variant)
-    from smcnuts_torch.utils.timing import CudaTimer, median_ms
+        ARMA_VARIANTS, PRMWCD_VARIANTS, build_library, nuts_tree, nuts_tree_plain,
+        nuts_tree_variant)
+    from smcnuts_torch.utils.timing import CudaTimer, device_ms, median_ms
 
-    dev = batch_args[0].device
-    nuts_tree_variant.launches = dict.fromkeys(PRMWCD_VARIANTS, 0)
-    small = (prmwcd_particles((2, 1024), 1, dev),
-             torch.tensor([11, 12], dtype=torch.int32, device=dev), STEP,
-             torch.tensor([1.0, 0.4], device=dev), torch.ones(13, device=dev), 6,
-             ZERO_BITS)
-    errs = {"w1": [check_outputs(
-        "witness W=1 [zero_bits] phi 1.0 | 0.4, 2 runs x 1024, depth 6",
-        nuts_tree_variant("w1", model, *small),
-        nuts_tree_plain(model.at_group(1), *small), bitwise=True)]}
+    variants = ARMA_VARIANTS if name == "arma" else PRMWCD_VARIANTS
+    group, block = (arma.GROUP, arma.BLOCK) if name == "arma" else (prmwcd.GROUP,
+                                                                     prmwcd.BLOCK)
+    witness_key = next(v for v, (_, g, _) in variants.items() if g == 1)
+    for v in variants:
+        nuts_tree_variant.launches[v] = 0
+    errs = {witness_key: [check_outputs(
+        f"{name} witness W=1 [zero_bits] phi 1.0 | 0.4, small cloud", nuts_tree_variant(
+            witness_key, model, *small), nuts_tree_plain(model.at_group(1), *small),
+        nan_lanes=True, bitwise=True)]}
     outs, plain_ms, plains = {}, {}, {}
-    for variant, (_, group, block) in PRMWCD_VARIANTS.items():
+    for variant, (_, w, b) in variants.items():
         out = nuts_tree_variant(variant, model, *batch_args)
-        label = f"{variant} (W={group}, {block} threads) {RUNS} x {N}, depth {MAX_DEPTH}"
-        if group == GROUP:
+        label = f"{name} {variant} (W={w}, {b} threads) {RUNS} x {N}, depth {MAX_DEPTH}"
+        if w == group:
             diff = bitwise_differences(out, single_out)
             if diff:
                 raise AssertionError(f"{label}: differs from the main entry in {diff}")
             print(f"{label}: equal to the main path's entry to the bit")
         else:
-            if group not in plains:
+            if w not in plains:
                 with CudaTimer() as t:
-                    plains[group] = nuts_tree_plain(model.at_group(group), *batch_args)
+                    plains[w] = nuts_tree_plain(model.at_group(w), *batch_args)
                 plain_ms[variant] = t.ms
             errs.setdefault(variant, []).append(check_outputs(
-                f"{label} vs plain group={group}", out, plains[group], bitwise=True))
+                f"{label} vs plain group={w}", out, plains[w], bitwise=True))
         outs[variant] = out
+    witness_host = median_ms(lambda: nuts_tree_variant(witness_key, model, *batch_args),
+                             repeats=5)
+
+    def in_turns(calls, args_label):
+        names = list(calls)
+        rounds = {k: [] for k in names}
+        for i in range(VARIANT_ROUNDS):
+            for k in (names if i % 2 == 0 else names[::-1]):
+                rounds[k].append(device_ms(calls[k], repeats=DEVICE_REPEATS))
+        med = {k: statistics.median(v) for k, v in rounds.items()}
+        for k in names:
+            print(f"time {name} {k} ({described[k]}), {args_label} [philox]: "
+                  f"{med[k]:.4f} ms, {med[witness_key] / med[k]:.3f}x faster than the "
+                  f"W=1 witness (device alone, {DEVICE_REPEATS} launches back to "
+                  f"back; median of {VARIANT_ROUNDS} in turns: "
+                  f"{', '.join(f'{v:.4f}' for v in rounds[k])}; {smi})")
+        return med
+
+    described = {"main": f"W={group}, {block} threads, the main path's entry"}
+    described.update({v: f"W={w}, {b} threads" for v, (_, w, b) in variants.items()})
     calls = {"main": lambda: nuts_tree(model, *batch_args)}
     calls.update({v: (lambda v=v: nuts_tree_variant(v, model, *batch_args))
-                  for v in PRMWCD_VARIANTS})
-    names = list(calls)
-    rounds = {k: [] for k in names}
-    for i in range(VARIANT_ROUNDS):
-        for k in (names if i % 2 == 0 else names[::-1]):
-            rounds[k].append(median_ms(calls[k], repeats=5))
-    med = {k: statistics.median(v) for k, v in rounds.items()}
+                  for v in variants})
+    med = in_turns(calls, f"{RUNS} x {N} x depth {MAX_DEPTH}")
+    if wide is not None:
+        x = wide[0]
+        in_turns({"main": lambda: nuts_tree(model, *wide),
+                  witness_key: lambda: nuts_tree_variant(witness_key, model, *wide)},
+                 f"{x.shape[0]} x {x.shape[1]} x depth {wide[5]}")
     lib = build_library()
-    described = {"main": f"W={GROUP}, {lib.prmwcd_block} threads, the main path's entry"}
-    described.update({v: f"W={g}, {b} threads" for v, (_, g, b) in PRMWCD_VARIANTS.items()})
-    for k in names:
-        print(f"time PRMwCD {k} ({described[k]}), {RUNS} x {N} x depth {MAX_DEPTH} "
-              f"[philox]: {med[k]:.4f} ms, {med['w1'] / med[k]:.3f}x faster than the "
-              f"W=1 witness (CUDA events, median of {VARIANT_ROUNDS} medians of 5 in "
-              f"turns: {', '.join(f'{v:.4f}' for v in rounds[k])}; {smi})")
-    for label, info in prmwcd_ptxas(lib.log).items():
-        print(f"  ptxas PRMwCD {label}: {info}")
-    witness = outs["w1"]
-    bound = tree_roofline("prmwcd", witness)
-    print(f"witness W=1: {bound_text(bound)}; launches in this phase (not on the "
-          f"main path) {nuts_tree_variant.launches['w1']}")
-    return {"launches": 0, "measurement_entry": True, "max_abs_err": max(errs["w1"]),
-            "ms": med["w1"], "plain_ms": plain_ms["w1"], **bound}
+    for label, info in model_ptxas(lib.log, name).items():
+        print(f"  ptxas {name} {label}: {info}")
+    witness = outs[witness_key]
+    bound = tree_roofline(name, witness)
+    print(f"{name} witness W=1: {bound_text(bound)}; launches in this phase (not on "
+          f"the main path) {nuts_tree_variant.launches[witness_key]}")
+    return {"launches": 0, "measurement_entry": True,
+            "max_abs_err": max(errs[witness_key]), "ms": med[witness_key],
+            "host_call_ms": witness_host, "plain_ms": plain_ms[witness_key], **bound}
 
 
 def check_run(label, mean, means_ok_sd):
@@ -1152,24 +1250,25 @@ def survivor_counts():
 
 
 def tree_slots(model):
-    """(trees a warp holds, trees a block holds) in the NUTS kernel: PRMwCD
-    runs a group of models.prmwcd.GROUP lanes a tree, every other model one
-    lane, in blocks of 128 threads."""
-    from smcnuts_torch.models.prmwcd import GROUP, PrmwcdModel
-    from smcnuts_torch.ops.nuts_cuda import build_library
+    """(trees a warp holds, trees a block holds) in the NUTS kernel: arma and
+    PRMwCD run a group of GROUP lanes a tree in blocks of BLOCK threads (their
+    models/ modules), every other model one lane in blocks of 128 threads."""
+    from smcnuts_torch.models import ArmaModel, PrmwcdModel, arma, prmwcd
 
-    if isinstance(model, PrmwcdModel):
-        return 32 // GROUP, build_library().prmwcd_block // GROUP
+    for cls, mod in ((ArmaModel, arma), (PrmwcdModel, prmwcd)):
+        if isinstance(model, cls):
+            return 32 // mod.GROUP, mod.BLOCK // mod.GROUP
     return 32, 128
 
 
 def candidate_times(label, model, args, smi, candidates=None):
     """Time the single kernel and each candidate split tuple on one
-    population (CUDA events, median of 5), the single kernel first and
-    last; print survivors, launches, the per-warp lockstep waste and the
-    block's tail (lockstep_waste at the trees a warp and a block hold)."""
+    population (on the device alone, DEVICE_REPEATS launches back to back),
+    the single kernel first and last; print survivors, launches, the
+    per-warp lockstep waste and the block's tail (lockstep_waste at the
+    trees a warp and a block hold)."""
     from smcnuts_torch.ops.nuts_cuda import lockstep_waste, nuts_tree
-    from smcnuts_torch.utils.timing import median_ms
+    from smcnuts_torch.utils.timing import device_ms
 
     warp, block = tree_slots(model)
     single = nuts_tree(model, *args)
@@ -1184,7 +1283,8 @@ def candidate_times(label, model, args, smi, candidates=None):
         if bitwise_differences(staged, single):
             raise AssertionError(f"{label}: splits {splits} differ from the "
                                  f"single kernel")
-        ms = median_ms(lambda: nuts_tree(model, *args, compaction=splits), repeats=5)
+        ms = device_ms(lambda: nuts_tree(model, *args, compaction=splits),
+                       repeats=DEVICE_REPEATS)
         walked, needed = lockstep_waste(leapfrogs, depth, splits, width=warp)
         tail, _ = lockstep_waste(leapfrogs, depth, splits, width=block)
         rows.append((splits, ms))
@@ -1336,8 +1436,8 @@ def autodiff_kernel_phase(name, smi):
     worst = max(worst, check_outputs(
         f"{name} [philox] batched shape, {RUNS} x {N}, depth {MAX_DEPTH}",
         single_out, plain_out))
-    ms, plain_ms = time_pair(f"{name} {RUNS} x {N} x depth {MAX_DEPTH} [philox]",
-                             model, batch_args, smi)
+    times = time_pair(f"{name} {RUNS} x {N} x depth {MAX_DEPTH} [philox]",
+                      model, batch_args, smi)
     bound = tree_roofline(name, single_out)
     staged = staged_kernel_phase(name, model, batch_args, single_out, plain_out, smi)
     worst = max(worst, staged["max_abs_err"])
@@ -1353,7 +1453,7 @@ def autodiff_kernel_phase(name, smi):
     candidate_times(f"{name} {4 * RUNS} x {N}, step {cfg['step']}, depth "
                     f"{cfg['depth']}", model, wide, smi,
                     ((1,), (2,), (3,), (1, 2), (2, 4), tuple(range(1, cfg["depth"]))))
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, **bound}
+    return {"max_abs_err": worst, **times, **bound}
 
 
 def autodiff_kernels_phase(smi):
@@ -1608,20 +1708,11 @@ ARMA_FUSED_SIZES = (1, 513, 4096, RUNS * N, 1 << 20)
 # eager_block_size = 4096 lanes (the last block of 25 x 512 holds 512).
 EAGER_BLOCK = 4096
 ARMA_FUSED_TIMED = (EAGER_BLOCK, RUNS * N, 1 << 20)
+# Launches back to back for each device time of K5 (a few microseconds each).
+FUSED_REPEATS = 200
 WIDE_N, WIDE_K, WIDE_BLOCK = 1 << 20, 2, 1 << 18
 FULL_COV = ((1.5, 0.3, 0.0, 0.0), (0.3, 1.0, 0.2, 0.0), (0.0, 0.2, 0.8, 0.0),
             (0.0, 0.0, 0.0, 1.2))
-
-
-def fused_cloud(n, seed, device):
-    """theta (n, 4) for the fused kernel: the arma cloud of `particles`, and
-    where n allows, lanes with log_sigma = +-20 and +-60 (inv_s2 of e^-40,
-    e^40, 0 and inf in float32)."""
-    x = particles(n, seed, device).contiguous()
-    for i, ls in enumerate((20.0, -20.0, 60.0, -60.0)):
-        if 4 * (i + 1) < n:
-            x[4 * (i + 1), 3] = ls
-    return x
 
 
 def fused_roofline(n):
@@ -1637,50 +1728,117 @@ def bound_text(bound):
             f"{bound['bound_unfused_ms']:.5f} ms)")
 
 
+def fused_equal(label, got, want):
+    """Hold a fused kernel's (loglik, grad) to its plain version's to the bit
+    (NaN equal to NaN); returns the non-finite values of each side."""
+    for name, a, b in (("loglik", got[0], want[0]), ("grad", got[1], want[1])):
+        if not bool(((a == b) | (torch.isnan(a) & torch.isnan(b))).all()):
+            d = (a - b).abs().nan_to_num(nan=float("inf"))
+            raise AssertionError(f"{label}: {name} differs from the plain version "
+                                 f"(max |diff| {float(d.max()):.3g})")
+    return int((~torch.isfinite(got[0])).sum() + (~torch.isfinite(got[1])).sum())
+
+
+def profiled_device_ms(fn, kernel, repeats):
+    """(ms, count): the mean device time of the CUDA kernels whose name holds
+    `kernel` that torch.profiler records over `repeats` calls of fn (one
+    warmup), and how many it recorded: the cross-check of
+    utils/timing.device_ms, which also counts the device's gap between two
+    launches back to back."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(repeats):
+            fn()
+        torch.cuda.synchronize()
+    total_us, count = 0.0, 0
+    for evt in prof.key_averages():
+        if kernel in evt.key:
+            total_us += getattr(evt, "device_time_total", None) or evt.cuda_time_total
+            count += evt.count
+    if count == 0:
+        raise AssertionError(f"the profile holds no device kernel named *{kernel}*")
+    return total_us / 1000.0 / count, count
+
+
 def arma_fused_kernel_phase(smi):
-    """10a: the fused ARMA kernel against its plain version on the same CUDA
-    inputs at five sizes: equal to the bit, or within atol 1e-4 + rtol 1e-4
-    with the same non-finite lanes (same value, inf of one sign or NaN).
-    Timed (CUDA events, median of 5) with its plain version and its bound
-    at the main path's block, 4,096 lanes, at 25 x 512 and at 1,048,576."""
+    """10a: the fused ARMA kernel (W = GROUP lanes a particle) against its
+    plain version at the same width on the same CUDA inputs at five sizes,
+    equal to the bit, the lanes at log_sigma +-20, +-60 and |theta| >= 2
+    included; its measurement entries (`FUSED_VARIANTS`: the one-thread
+    witness and other widths) equal to the bit to the plain version at their
+    width. Then every entry timed in turns on the device alone at the main
+    path's block, 4,096 lanes, at 25 x 512 and at 1,048,576, the main entry's
+    host-inclusive call time beside it, and the device-alone time
+    cross-checked against torch.profiler's."""
+    import statistics
+
     from smcnuts_torch.models import get_model
-    from smcnuts_torch.ops.arma_fused import arma_ll_vg, arma_ll_vg_plain
-    from smcnuts_torch.utils.timing import median_ms
+    from smcnuts_torch.ops.arma_fused import (
+        FUSED_VARIANTS, GROUP, arma_ll_vg, arma_ll_vg_plain, arma_ll_vg_variant)
+    from smcnuts_torch.utils.timing import device_ms, median_ms
 
     phase("10a. fused ARMA value and gradient (K5) vs plain")
     dev = torch.device("cuda")
     y = get_model("arma").to(dev).y32
-    worst, times = 0.0, {}
+    for v in FUSED_VARIANTS:
+        arma_ll_vg_variant.launches[v] = 0
     for n in ARMA_FUSED_SIZES:
-        theta = fused_cloud(n, 40 + n % 97, dev)
-        out_k, out_p = arma_ll_vg(theta, y), arma_ll_vg_plain(theta, y)
-        torch.cuda.synchronize()
-        bitwise, nonfinite = True, 0
-        for name, a, b in (("loglik", out_k[0], out_p[0]), ("grad", out_k[1], out_p[1])):
-            same = (a == b) | (torch.isnan(a) & torch.isnan(b))
-            finite = torch.isfinite(a) & torch.isfinite(b)
-            if not bool((finite | same).all()):
-                raise AssertionError(f"K5 at {n} lanes: {name} is not finite where the "
-                                     f"plain version holds another value")
-            d = torch.where(same, torch.zeros_like(a), (a - b).abs())
-            if bool((d > ATOL + RTOL * b.abs()).any()):
-                raise AssertionError(f"K5 at {n} lanes: {name} differs beyond atol "
-                                     f"{ATOL} + rtol {RTOL}")
-            worst = max(worst, float(d.max()))
-            bitwise = bitwise and bool(same.all())
-            nonfinite += int((~finite).sum())
-        print(f"K5 at {n} lanes: {'equal to the bit' if bitwise else 'within tolerance'}"
-              f", {nonfinite} non-finite values on both sides alike")
+        theta = arma_cloud(n, 40 + n % 97, dev)
+        nonfinite = fused_equal(f"K5 (W={GROUP}) at {n} lanes", arma_ll_vg(theta, y),
+                                arma_ll_vg_plain(theta, y))
+        print(f"K5 (W={GROUP}) at {n} lanes: equal to the plain version at W={GROUP} "
+              f"to the bit, {nonfinite} non-finite values on both sides alike")
+    theta = arma_cloud(EAGER_BLOCK, 41, dev)
+    for v, (_, w) in FUSED_VARIANTS.items():
+        fused_equal(f"K5 {v} at {EAGER_BLOCK} lanes", arma_ll_vg_variant(theta, y, v),
+                    arma_ll_vg_plain(theta, y, group=w))
+    print(f"K5 entries {sorted(FUSED_VARIANTS)} at {EAGER_BLOCK} lanes: each equal to "
+          f"the plain version at its width to the bit")
+    names = ["main", *FUSED_VARIANTS]
+    widths = {"main": GROUP, **{v: w for v, (_, w) in FUSED_VARIANTS.items()}}
+    times = {}
     for n in ARMA_FUSED_TIMED:
-        theta = fused_cloud(n, 7, dev)
-        ms = median_ms(lambda: arma_ll_vg(theta, y), repeats=5)
+        theta = arma_cloud(n, 7, dev)
+        calls = {"main": lambda: arma_ll_vg(theta, y)}
+        calls.update({v: (lambda v=v: arma_ll_vg_variant(theta, y, v))
+                      for v in FUSED_VARIANTS})
+        rounds = {k: [] for k in names}
+        for i in range(VARIANT_ROUNDS):
+            for k in (names if i % 2 == 0 else names[::-1]):
+                rounds[k].append(device_ms(calls[k], repeats=FUSED_REPEATS))
+        med = {k: statistics.median(v) for k, v in rounds.items()}
+        host_ms = median_ms(calls["main"], repeats=5)
         plain_ms = median_ms(lambda: arma_ll_vg_plain(theta, y), repeats=5)
         bound = fused_roofline(n)
-        times[n] = (ms, plain_ms, bound)
-        print(f"time K5 at {n} lanes: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
-              f"{bound_text(bound)} (CUDA events, median of 5; {smi})")
-    ms, plain_ms, bound = times[ARMA_FUSED_TIMED[0]]
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, **bound}
+        times[n] = (med, host_ms, plain_ms, bound)
+        for k in names:
+            print(f"time K5 {k} (W={widths[k]}) at {n} lanes: {med[k]:.5f} ms on the "
+                  f"device alone ({FUSED_REPEATS} launches back to back; median of "
+                  f"{VARIANT_ROUNDS} in turns: {', '.join(f'{v:.5f}' for v in rounds[k])}),"
+                  f" {med['w1'] / med[k]:.3f}x faster than the W=1 witness ({smi})")
+        print(f"time K5 at {n} lanes: a call timed alone {host_ms:.5f} ms (median of 5, "
+              f"the host's launch included), plain {plain_ms:.3f} ms; "
+              f"{bound_text(bound)} ({smi})")
+    theta = arma_cloud(EAGER_BLOCK, 7, dev)
+    prof_ms, count = profiled_device_ms(lambda: arma_ll_vg(theta, y), "arma_ll_vg_kernel",
+                                        FUSED_REPEATS)
+    alone = device_ms(lambda: arma_ll_vg(theta, y), repeats=FUSED_REPEATS)
+    print(f"K5 at {EAGER_BLOCK} lanes: torch.profiler's device time {prof_ms:.5f} ms a "
+          f"kernel (mean of the {count} it recorded of {FUSED_REPEATS} calls) against "
+          f"device_ms {alone:.5f} ms a call ({smi})")
+    med, host_ms, plain_ms, bound = times[ARMA_FUSED_TIMED[0]]
+    k5 = {"max_abs_err": 0.0, "ms": med["main"], "host_call_ms": host_ms,
+          "plain_ms": plain_ms, **bound}
+    witness = {"launches": 0, "measurement_entry": True, "max_abs_err": 0.0,
+               "ms": med["w1"],
+               "host_call_ms": median_ms(lambda: arma_ll_vg_variant(theta, y, "w1"),
+                                         repeats=5),
+               "plain_ms": median_ms(lambda: arma_ll_vg_plain(theta, y, group=1),
+                                     repeats=5), **bound}
+    return k5, witness
 
 
 def eager_config(**kw):
@@ -1823,14 +1981,14 @@ def unfused_kernel_phase(smi):
                     device=dev)
     out = nuts_tree(model, *args, r=r)
     worst = check_outputs(f"K1u [philox] r given, {RUNS} x {N}, depth {MAX_DEPTH}",
-                          out, nuts_tree_plain(model, *args, r=r))
-    ms = median_ms(lambda: nuts_tree(model, *args, r=r), repeats=5)
+                          out, nuts_tree_plain(model, *args, r=r), bitwise=True)
+    t = kernel_times(lambda: nuts_tree(model, *args, r=r))
     plain_ms = median_ms(lambda: nuts_tree_plain(model, *args, r=r), repeats=1, warmup=0)
     bound = tree_roofline("arma", out)
-    print(f"time K1u {RUNS} x {N} x depth {MAX_DEPTH} [philox, r given]: kernel "
-          f"{ms:.4f} ms, plain {plain_ms:.1f} ms (CUDA events, median of 5 and one call); "
+    print(f"time K1u {RUNS} x {N} x depth {MAX_DEPTH} [philox, r given]: "
+          f"{times_text(t)}, plain {plain_ms:.1f} ms (one call); "
           f"{bound_text(bound)} ({smi})")
-    return r_given, {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, **bound}
+    return r_given, {"max_abs_err": worst, **t, "plain_ms": plain_ms, **bound}
 
 
 def wide_eager_phase(smi):
@@ -1899,13 +2057,14 @@ def wide_eager_phase(smi):
 
 
 def fused_phase(smi):
-    """Phase 10: returns what the kernels line says of K5 and K1u."""
-    k5 = arma_fused_kernel_phase(smi)
+    """Phase 10: returns what the kernels line says of K5, its W = 1 witness
+    and K1u."""
+    k5, k5_w1 = arma_fused_kernel_phase(smi)
     k5["launches"] = eager_arma_phase(smi)
     r_given, k1u = unfused_kernel_phase(smi)
     k1u["launches"] = r_given
     wide_eager_phase(smi)
-    return k5, k1u
+    return k5, k5_w1, k1u
 
 
 # ---- phase 11: user-written densities, generated in-kernel models (K7).
@@ -1942,7 +2101,7 @@ def generated_kernel_case(label, model, hand, x, step, smi):
     fields."""
     from smcnuts_torch.ops.draws import PHILOX, ZERO_BITS
     from smcnuts_torch.ops.nuts_cuda import nuts_tree, nuts_tree_plain
-    from smcnuts_torch.utils.timing import median_ms
+    from smcnuts_torch.utils.timing import device_ms, median_ms
 
     dev = x.device
     seeds = torch.arange(RUNS, dtype=torch.int32, device=dev)
@@ -1989,16 +2148,20 @@ def generated_kernel_case(label, model, hand, x, step, smi):
     times = {"hand": [], "generated": []}
     for who in ("hand", "generated", "generated", "hand"):
         m = hand if who == "hand" else model
-        times[who].append(median_ms(lambda: nuts_tree(m, *args), repeats=5))
+        times[who].append(device_ms(lambda: nuts_tree(m, *args), repeats=DEVICE_REPEATS))
     ms, hand_ms = min(times["generated"]), min(times["hand"])
+    host_ms = median_ms(lambda: nuts_tree(model, *args), repeats=5)
     bound = tree_roofline("generated", single, model=model.tile_model)
     print(f"time {label}, {RUNS} x {N} x depth {MAX_DEPTH} [philox]: generated "
-          f"{times['generated']} ms, hand {times['hand']} ms (CUDA events, median of "
-          f"5, in turns hand, generated, generated, hand): {ms / hand_ms:.3f}x; plain "
+          f"{times['generated']} ms, hand {times['hand']} ms (device alone, "
+          f"{DEVICE_REPEATS} launches back to back, in turns hand, generated, "
+          f"generated, hand; a call of the generated timed alone {host_ms:.4f} ms): "
+          f"{ms / hand_ms:.3f}x; plain "
           f"{plain_ms:.1f} ms; {bound_text(bound)} "
           f"({model.tile_model.n_ops} operations x "
           f"{float(single[2]['leapfrogs'].sum()):.0f} leapfrogs; {smi})")
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, **bound}
+    return {"max_abs_err": worst, "ms": ms, "host_call_ms": host_ms, "plain_ms": plain_ms,
+            **bound}
 
 
 def generated_split(label, model, hand, cfg, smi):
@@ -2115,7 +2278,7 @@ def main():
     k8 = peak_phase(smi)
     if len(sys.argv) == 3 and sys.argv[1] == "--only":
         return partial_run(sys.argv[2].split(","), smi)
-    arma, arma_staged = arma_kernel_phase(smi)
+    arma, arma_staged, arma_w1 = arma_kernel_phase(smi)
     prmwcd, prmwcd_staged, prmwcd_w1 = prmwcd_kernel_phase(smi)
     arma_launches = main_path_phase(smi)
     batched, cont = batched_phase(smi)
@@ -2124,13 +2287,14 @@ def main():
     autodiff = autodiff_kernels_phase(smi)
     strategies, strategies_cont = strategies_phase(smi)
     strategies["eightschools"] += schools_cli
-    k5, k1u = fused_phase(smi)
+    k5, k5_w1, k1u = fused_phase(smi)
     k7f, k7r = generated_phase(smi)
     source = "smcnuts_torch/csrc/nuts_tree.cuh"
     # No single PyTorch call builds a NUTS tree, computes the fused ARMA
     # value and gradient or runs FMA chains, so no kernel has a library time.
     kernels = [
-        dict(name="nuts_tree_arma", route="cuda", source=source,
+        # K2, inlined into the K1 instantiation this entry launches.
+        dict(name="nuts_tree_arma", route="cuda", source="smcnuts_torch/csrc/arma_model.cuh",
              replaces="smcnuts_tpu/ops/nuts_pallas.py:154",
              launches=arma_launches + batched["arma"] + strategies["arma"], **arma),
         # K3, inlined into the K1 instantiation this entry launches.
@@ -2145,8 +2309,12 @@ def main():
         dict(name="nuts_tree_prmwcd_staged", route="cuda", source=source,
              replaces="smcnuts_tpu/ops/nuts_pallas.py:794",
              launches=cont["prmwcd"] + strategies_cont["prmwcd"], **prmwcd_staged),
-        # The W = 1 witness of K1 + K3 (one thread a particle), a measurement
-        # entry that the main path never dispatches: 0 launches, and marked.
+        # The W = 1 witnesses of K1 + K2 and K1 + K3 (one thread a particle),
+        # measurement entries that the main path never dispatches: 0
+        # launches, and marked.
+        dict(name="nuts_tree_arma_w1", route="cuda",
+             source="smcnuts_torch/csrc/arma_variants.cu",
+             replaces="smcnuts_tpu/ops/nuts_pallas.py:1931", **arma_w1),
         dict(name="nuts_tree_prmwcd_w1", route="cuda",
              source="smcnuts_torch/csrc/prmwcd_variants.cu",
              replaces="smcnuts_tpu/ops/nuts_pallas.py:1803", **prmwcd_w1),
@@ -2164,6 +2332,9 @@ def main():
         # K5: the fused ARMA value and gradient that the eager tree calls.
         dict(name="arma_ll_vg", route="cuda", source="smcnuts_torch/csrc/arma_fused.cu",
              replaces="smcnuts_tpu/ops/arma_fused.py:115", **k5),
+        # K5's W = 1 witness (one thread a particle): a measurement entry.
+        dict(name="arma_ll_vg_w1", route="cuda", source="smcnuts_torch/csrc/arma_fused.cu",
+             replaces="smcnuts_tpu/ops/arma_fused.py:115", **k5_w1),
         # K1u: the whole-tree kernel with the momenta given (the unfused path).
         dict(name="nuts_tree_arma_r_given", route="cuda", source=source,
              replaces="smcnuts_tpu/ops/nuts_pallas.py:999", **k1u),
@@ -2182,7 +2353,8 @@ def main():
         kernel["library_ms"] = None
         if kernel["launches"] < 1 and not kernel.get("measurement_entry"):
             raise AssertionError(f"{kernel['name']}: the main path never launched it")
-        print(f"{kernel['name']}: {kernel['ms']:.4f} ms, {bound_text(kernel)}, "
+        print(f"{kernel['name']}: {kernel['ms']:.4f} ms on the device alone (a call "
+              f"timed alone {kernel['host_call_ms']:.4f} ms), {bound_text(kernel)}, "
               f"{kernel['bound_ms'] / kernel['ms']:.3f} of it at the data sheet's "
               f"{PEAK_FP32 / 1e12:.0f} TFLOP/s, "
               f"{kernel['bound_unfused_ms'] / kernel['ms']:.3f} at the measured "

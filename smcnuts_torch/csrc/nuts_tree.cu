@@ -4,7 +4,9 @@
 //
 // The hand-written models replace these tile models of
 // smcnuts_tpu/ops/nuts_pallas.py, each with its gradient written out by hand:
-// arma_tile_model(y).tile_fn as ArmaModel (arma_model.cuh),
+// arma_tile_model(y).tile_fn as ArmaModel<8> (arma_model.cuh; a group of
+// lanes a particle, the T-step recurrence split over them by segments and a
+// lane scan),
 // prmwcd_tile_model(y, X, q).tile_fn as PrmwcdModel<11, 16>
 // (prmwcd_model.cuh; a half warp a particle, the observations and the prior
 // split over its lanes),
@@ -23,6 +25,8 @@
 
 namespace smcnuts {
 
+constexpr int kArmaBlock = 64;  // threads a block of the arma entry
+using ArmaGroupModel = ArmaModel<kArmaGroup>;
 constexpr int kPrmwcdCov = 11;  // covariates of the PRMwCD instantiation (D = 13)
 constexpr int kPrmwcdGroup = 16;  // lanes a PRMwCD particle: a half warp
 constexpr int kPrmwcdBlock = 64;  // threads a block of the PRMwCD entry: 4 particles
@@ -35,6 +39,15 @@ constexpr int kLogisticDim = 8; // covariates of the logistic instantiation
 extern "C" {
 
 int smcnuts_nuts_tree_max_depth() { return smcnuts::kMaxDepth; }
+
+int smcnuts_arma_group() { return smcnuts::kArmaGroup; }
+
+int smcnuts_arma_block() { return smcnuts::kArmaBlock; }
+
+// Blocks of the arma entry an SM holds at once, with n_data floats of data.
+int smcnuts_arma_blocks_per_sm(int n_data) {
+  return smcnuts::blocks_per_sm<smcnuts::ArmaGroupModel, smcnuts::kArmaBlock>(n_data);
+}
 
 int smcnuts_prmwcd_n_cov() { return smcnuts::kPrmwcdCov; }
 
@@ -54,7 +67,7 @@ int smcnuts_logistic_dim() { return smcnuts::kLogisticDim; }
 int smcnuts_nuts_tree_bundle_rows(int dim) { return smcnuts::bundle_rows(dim); }
 
 // The entries (SMCNUTS_ENTRY of nuts_tree.cuh says what each does).
-SMCNUTS_ENTRY(smcnuts_nuts_tree_arma, smcnuts::ArmaModel)
+SMCNUTS_ENTRY(smcnuts_nuts_tree_arma, smcnuts::ArmaGroupModel, smcnuts::kArmaBlock)
 SMCNUTS_ENTRY(smcnuts_nuts_tree_prmwcd, smcnuts::PrmwcdGroupModel, smcnuts::kPrmwcdBlock)
 // The Gaussian's dimensions: the list of ops/nuts_cuda.py::GAUSSIAN_DIMS.
 SMCNUTS_ENTRY(smcnuts_nuts_tree_gaussian2, smcnuts::GaussianModel<2>)

@@ -33,9 +33,10 @@
 // model's own reduction: prmwcd_model.cuh). The draws are addressed by their
 // place in the tree, so every lane draws the same bits. Every branch is then
 // uniform inside a group, and lane 0 alone writes what leaves the kernel. A
-// block of kBlock threads holds kBlock / W particles. PRMwCD runs at W = 16,
-// a half warp a particle, in blocks of 64 threads; every other model at
-// W = 1 in blocks of 128.
+// block of kBlock threads holds kBlock / W particles. arma runs at W = 8 in
+// blocks of 64 threads (the T-step recurrence split over the lanes by
+// segments and a lane scan), PRMwCD at W = 16, a half warp a particle, in
+// blocks of 64 threads; every other model at W = 1 in blocks of 128.
 //
 // What bounds it on this card: FP32 issue and latency in the model of every
 // leaf (arma: the serial T=200 error recurrence, each step depending on the
@@ -51,7 +52,12 @@
 // card holds at once; what bounds it then is instruction issue: the tree
 // control, which every lane of a group issues alike, and the registers, which
 // cap the warps an SM holds (measured on an H100 in chip_smoke.py phase 4:
-// PERF.md keeps the widths, blocks and placements tried).
+// PERF.md keeps the widths, blocks and placements tried). At W = 8 (arma) a
+// leapfrog's chain is 2 x 25 recurrence steps and a 3-step scan and
+// butterfly instead of 199 steps, but the tree control, which does not
+// shrink, is then as long as the model's part: the kernel gains 1.2x at
+// 25 x 512 and loses 1.7x at 1,048,576 trees, where one thread a tree
+// already filled the card (chip_smoke.py phase 3; PERF.md).
 //
 // Design: each group walks its own tree with real early exit, so the TPU
 // kernel's per-lane masks become plain control flow. Run parameters (phi,
@@ -89,7 +95,7 @@
 // that end early make room for waiting ones, and because a stage costs only a
 // launch and one pass over the survivors' carriers, a split after every
 // doubling is the fastest choice (about 2x at 400 x 512 PRMwCD lanes). For
-// PRMwCD's group kernel models/base.py keeps the measurement.
+// the arma and PRMwCD group kernels models/base.py keeps the measurement.
 
 #include <cstdint>
 #include <type_traits>

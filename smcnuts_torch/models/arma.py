@@ -17,10 +17,16 @@ same recurrence inline. The eager NUTS tree then evaluates the tempered density
 as the closed-form prior value and gradient + phi * loglik_vg, which is how
 the JAX package's XLA backend composes it (`sampler.py:352-360`). The
 whole-tree CUDA kernel ignores `fused`: it inlines `csrc/arma_model.cuh`.
+
+Both kernels run the density on a group of `GROUP` lanes a particle, the
+T - 1 steps of the recurrence split over the lanes by segments and a lane
+scan (`csrc/arma_model.cuh`), and `logp_and_grad(group=W)` rounds in that
+order; `group=1` is the sequential order of the JAX package's model.
 """
 
 from __future__ import annotations
 
+import copy
 import math
 import os
 
@@ -28,9 +34,18 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..ops.arma_fused import arma_loglik_grad, make_arma_loglik_vg
+from ..ops.arma_fused import (
+    GROUP, arma_ll_vg_plain, arma_loglik_grad, check_group, make_arma_loglik_vg)
 from ..ops.generated import tile_model_from_logp_fwd
 from .base import EVERY_DEPTH, LOG_SQRT_2PI, CallableModel, cauchy_lpdf, normal_lpdf
+
+# Threads a block of the arma NUTS entry (kArmaBlock of csrc/nuts_tree.cu;
+# GROUP, imported above, is its lanes a particle), and the blocks of it an
+# H100 SM holds at once (80 registers a thread). ops/nuts_cuda.py checks all
+# three against the built kernel before it launches it, since the compaction
+# threshold below rests on them.
+BLOCK = 64
+BLOCKS_PER_SM = 12
 
 ASSET = os.path.join(
     os.path.dirname(os.path.abspath(__file__)),
@@ -60,6 +75,12 @@ class ArmaModel(nn.Module):
     param_names = ("mu", "beta", "theta", "sigma")
     compaction_hint = EVERY_DEPTH  # measured on an H100, see models/base.py
     compaction_hint_adapted = EVERY_DEPTH
+    # The hints pay past twice the trees the card holds at once in the arma
+    # kernel, counted in its blocks: 2 x the H100's 132 SMs x BLOCKS_PER_SM
+    # blocks x BLOCK / GROUP trees a block (models/base.py keeps the
+    # measurement).
+    compaction_min_lanes = 2 * 132 * BLOCKS_PER_SM * (BLOCK // GROUP)
+    group = GROUP  # the group order of logp_and_grad's default (at_group)
 
     def __init__(self, y=None, fused=None):
         super().__init__()
@@ -87,12 +108,18 @@ class ArmaModel(nn.Module):
     def _y(self, dtype):
         return self.y32 if dtype == torch.float32 else self.y.to(dtype)
 
-    def _loglik_vg(self, x):
-        """(loglik (N,), grad (N, 4)) of x: the recurrence inline, or with
-        `fused` the kernel ("cuda") or its plain version ("plain")."""
+    def _loglik_vg(self, x, group=None):
+        """(loglik (N,), grad (N, 4)) of x at group width `group` (None: the
+        kernels', GROUP): the recurrence inline, or with `fused` the kernel
+        ("cuda", at GROUP only) or its plain version ("plain")."""
         y = self._y(x.dtype)
         if self.fused is None:
-            return arma_loglik_grad(x, y)
+            return arma_loglik_grad(x, y, group)
+        if self.fused == "plain":
+            return arma_ll_vg_plain(x, y, group)
+        if check_group(group) != GROUP:
+            raise ValueError(f"the fused ARMA kernel runs {GROUP} lanes a particle, "
+                             f"not {group}")
         return make_arma_loglik_vg(y, self.fused)(x)
 
     def _data(self, x):
@@ -124,18 +151,19 @@ class ArmaModel(nn.Module):
     def logp(self, x, phi=1.0):
         return self.logprior(x) + phi * self.loglik(x)
 
-    def logp_and_grad(self, x, phi=1.0):
-        """Tempered logp and its gradient in one pass over the data.
+    def logp_and_grad(self, x, phi=1.0, group=None):
+        """Tempered logp and its gradient.
 
         The error recurrence and its three tangents (d err / d mu, beta,
         theta) run together with four running sums; the loglik, the priors
         and their gradients then follow in closed form. The arithmetic is
         written op for op as the kernel's device function
-        (`csrc/arma_model.cuh`) and the JAX package's `arma_tile_model`, so
-        the three round alike. With `fused` the likelihood part is the fused
-        value and gradient (`ops/arma_fused.py`)."""
+        (`csrc/arma_model.cuh`) at group width W = `group` (None: the
+        model's, GROUP unless `at_group` set another), so the two round
+        alike; W = 1 is the order of the JAX package's `arma_tile_model`. With `fused` the likelihood part is
+        the fused value and gradient (`ops/arma_fused.py`)."""
         mu, beta, th, ls = x.unbind(-1)
-        ll, gl = self._loglik_vg(x)
+        ll, gl = self._loglik_vg(x, self.group if group is None else group)
         gl_mu, gl_beta, gl_th, gl_ls = gl.unbind(1)
 
         z = torch.exp(ls) / 2.5
@@ -159,6 +187,16 @@ class ArmaModel(nn.Module):
             gp_ls + phi * gl_ls,
         ], dim=1)
         return logp, grad
+
+    def at_group(self, group):
+        """The same model (its buffers shared) whose `logp_and_grad` runs at
+        group width `group` by default: the plain version, for
+        `ops.nuts_cuda.nuts_tree_plain` or the eager SMC loop, of a kernel
+        entry of that width (`ops.nuts_cuda.nuts_tree_variant`). The CUDA
+        kernel runs GROUP lanes only and refuses another width."""
+        view = copy.copy(self)
+        view.group = check_group(group)
+        return view
 
     def constrain(self, x):
         return torch.cat([x[:, :3], torch.exp(x[:, 3:4])], dim=1)

@@ -48,6 +48,19 @@ against 16.4977 / 16.6990 at 204,800 (2.8% behind a split after every
 doubling); a split after every doubling took 1.6758 at 12,800, slower than
 the single kernel (the same design in blocks of 128 threads measured
 alike). Up to 2,560 trees, all resident at once, staging bought nothing.
+
+arma runs 8 lanes a tree (`models.arma.GROUP`), eight trees a block of 64
+threads, 12 blocks an SM: 12,672 trees at once. Its threshold is twice that,
+25,344 trees, counted in its own blocks. Measured on the group kernel by
+`chip_smoke.py` phase 6b (NVIDIA H100 80GB HBM3, 700 W; the device's time
+alone, 20 launches back to back, the single kernel timed first and last), on
+arma's population after 100 iterations, tiled: the split after every
+doubling took 0.2399 ms against the single kernel's 0.2126 / 0.2130 at
+12,800 trees (a split after doubling 3, the best, 0.2147), 0.3155 against
+0.3410 / 0.3448 at 25,600 (after doubling 3 alone 0.3112), 0.5070 against
+0.6023 / 0.6017 at 51,200 and 1.6243 against 2.1284 / 2.1334 at 204,800 (the
+fastest candidate at both); at 1,024 and 2,560 trees nothing staged was
+faster.
 """
 
 from __future__ import annotations

@@ -98,9 +98,11 @@ def launch_size(device) -> int:
 def peak_table(device, repeats: int = 5, reps: int = 20) -> list:
     """The peak rows on `device` (a CUDA device; the CPU has no peak to
     measure here): for each variant and chain count, the median over
-    `repeats` of CUDA-event times of `reps` back-to-back launches at STEPS
-    steps, per launch, and its TFLOP/s."""
-    from ..utils.timing import median_ms
+    `repeats` of the device's time for `reps` launches at STEPS steps queued
+    back to back (`utils.timing.device_ms`), per launch, and its TFLOP/s."""
+    import statistics
+
+    from ..utils.timing import device_ms
 
     device = torch.device(device)
     if device.type != "cuda":
@@ -112,10 +114,9 @@ def peak_table(device, repeats: int = 5, reps: int = 20) -> list:
     for variant in VARIANTS:
         for nchains in CHAINS:
             def run():
-                for _ in range(reps):
-                    fma_chains(x, nchains, STEPS, variant)
+                fma_chains(x, nchains, STEPS, variant)
 
-            ms = median_ms(run, repeats=repeats) / reps
+            ms = statistics.median(device_ms(run, repeats=reps) for _ in range(repeats))
             rows.append({"variant": variant, "nchains": nchains, "ms": ms,
                          "tflops": flops(n, nchains, STEPS) / (ms * 1e-3) / 1e12})
     return rows

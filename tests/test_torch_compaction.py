@@ -12,7 +12,11 @@ epilogue, on the CPU.
     log-densities run to hundreds and thousands of nats: r (a sum of
     gradients) and delta_h (a difference of log-densities) are held to 1e-4
     of that scale, atol 1e-4 * (1 + |logp0|), which is what rtol 1e-4 grants
-    the log-densities they are made of.
+    the log-densities they are made of. The model runs its recurrence in the
+    JAX kernel's sequential order (`ArmaModel().at_group(1)`): the dispersed
+    lanes' |theta| > 1 overflows it, an inf there and, in the kernel's group
+    order, an inf or a NaN (tests/test_torch_arma_group.py holds the group
+    order to JAX, such lanes agreeing as not finite).
 (c) The accept-reject epilogue against the JAX single kernel, and its
     meaning under Philox (rejected lanes go back to the start state).
 (d) Splits at or above max_depth are dropped.
@@ -182,8 +186,8 @@ def test_plain_staged_matches_jax_compacted_dispatch(tile_model, acc_rej):
         acc_rej=acc_rej, interpret=True, compaction=SPLITS,
     )
     torch_out = nuts_tree_plain(
-        ArmaModel(), torch.as_tensor(x)[None], 7, STEP, 1.0, None, MAX_DEPTH,
-        ZERO_BITS, acc_rej=acc_rej, compaction=SPLITS,
+        ArmaModel().at_group(1), torch.as_tensor(x)[None], 7, STEP, 1.0, None,
+        MAX_DEPTH, ZERO_BITS, acc_rej=acc_rej, compaction=SPLITS,
     )
     _assert_straddles(jax_out[2]["depth"], SPLITS)
     _assert_straddles(torch_out[2]["depth"], SPLITS)
@@ -205,7 +209,7 @@ def test_acc_rej_plain_matches_jax_single_kernel(tile_model):
         interpret=True,
     )
     torch_out = nuts_tree_plain(
-        ArmaModel(), torch.as_tensor(x)[None], 5, 0.01, 1.0, None, 4,
+        ArmaModel().at_group(1), torch.as_tensor(x)[None], 5, 0.01, 1.0, None, 4,
         ZERO_BITS, acc_rej=True,
     )
     dh = torch_out[2]["delta_h"].reshape(-1)
@@ -328,11 +332,12 @@ def test_models_carry_their_hints(name):
         assert isinstance(hint, tuple)
         assert all(isinstance(s, int) and 0 < s < 10 for s in hint)
         assert list(hint) == sorted(set(hint))
-    # arma's kernel runs a thread a tree and takes the shared threshold;
-    # PRMwCD's runs 16 lanes a tree and counts its own blocks
-    # (models/base.py), so bench.py's width stages it.
+    # arma's kernel runs 8 lanes a tree and PRMwCD's 16, and each counts its
+    # own blocks (models/base.py): arma twice the trees the card holds at
+    # once, so bench.py's width runs its single kernel; PRMwCD once, so
+    # bench.py's width stages it.
     narrow = getattr(model, "compaction_min_lanes", COMPACTION_MIN_LANES)
-    assert narrow == {"arma": COMPACTION_MIN_LANES, "prmwcd": 132 * 6 * 4}[name]
+    assert narrow == {"arma": 2 * 132 * 12 * 8, "prmwcd": 132 * 6 * 4}[name]
     assert resolve_compaction(_cfg(), model, narrow) == ()
     wide = narrow + 1
     bench = resolve_compaction(_cfg(), model, 25 * 512)  # bench.py's width

@@ -146,8 +146,8 @@ def test_eager_tree_stages_only_at_named_splits(monkeypatch):
     # XLA backend, stages nothing unless the caller names splits.
     import smcnuts_torch.sampler as sampler
 
-    monkeypatch.setattr(sampler, "COMPACTION_MIN_LANES", 0)
     model = make_arma()
+    monkeypatch.setattr(model, "compaction_min_lanes", 0)  # "auto" takes the hint
     base = SMCConfig(n_particles=48, n_iterations=1, step_size=0.01, max_tree_depth=4,
                      nuts_backend="eager")
     assert sampler.resolve_compaction(base, model, 48) == model.compaction_hint != ()

@@ -127,5 +127,5 @@ def test_kernel_sources_of_every_model_are_in_the_package():
         assert "smcnuts_fma_peak" in f.read()
     with open(os.path.join(csrc, "arma_fused.cu")) as f:
         fused = f.read()
-    assert '#include "arma_model.cuh"' in fused and "arma_loglik_grad(" in fused
+    assert '#include "arma_model.cuh"' in fused and "arma_loglik_grad<" in fused
     assert "smcnuts_arma_ll_vg" in fused
