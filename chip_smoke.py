@@ -4,8 +4,9 @@
     python3 chip_smoke.py --only autodiff,strategies,cli   # some phases, while
                                  # developing: prints no kernels line, no "ok"
     (phase keys: arma, prmwcd, main, batched, staged_times, cli, autodiff,
-    strategies, fused_kernel, eager, unfused, wide_eager, generated; device,
-    build and peak always run first)
+    logistic (phase 8 for logistic regression alone), strategies,
+    fused_kernel, eager, unfused, wide_eager, generated; device, build and
+    peak always run first)
 
 Phases, each printing its own lines; any failure raises (non-zero exit):
 
@@ -116,7 +117,13 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
    and 0.4, a non-unit inverse mass, r given at depth 0, the batched shape
    25 x 512 at depth 10 (timed), then the staged dispatch as in phase 3
    (accept-reject off and on, a lane with a -inf density, r given; every
-   split tuple equal to the single kernel to the bit). Last, each model's
+   split tuple equal to the single kernel to the bit). Logistic regression's
+   group kernel (models.logistic.GROUP lanes a tree) is held to its plain
+   version in the same group order to the bit in every case; then its W = 1
+   witness (`ops.nuts_cuda.LOGISTIC_VARIANTS`, one thread a tree, the
+   sequential order) equal to the bit to the plain version at group=1, timed
+   in turns with the main entry at 25 x 512 and at 1,048,576 trees, with
+   ptxas's lines for each. Last, each model's
    single kernel and a few split tuples timed at 100 x 512 lanes at the step
    size of its run in phase 9: what the models' compaction hints rest on.
 9. the three strategies, full width, through `run_smc_batched` with 25 runs:
@@ -164,13 +171,19 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
    (`arma_model_fwd`, forward mode, T=200, 3,837 operations) and eight
    schools as a per-particle torch density (`make_eightschools_generated`,
    reverse mode), traced, simplified and built into one library each (each
-   build's seconds and ptxas lines; fails past two minutes). Each generated
+   build's seconds, the values its program holds live at once in emission
+   order (`ops.generated.peak_live`), ptxas's registers, stack and spills and
+   its SASS instructions; fails past two minutes). K7f is emitted in
+   (primal node, pass) order; its witness, the same program in the order it
+   was built, is a library of its own. Each generated
    kernel (K7f, K7r) against its plain version (the program executed op by op
    in torch) at 25 x 512 x depth 10 under zero bits and Philox: equal to the
    bit, else phase 3's contract; staged with a split after every depth equal
    to the single kernel to the bit; against the hand kernel of the same
    density on identical inputs (logp0 at atol/rtol 1e-4, integer outputs on
-   99.9% of lanes), both timed in turns. The main path: run_smc_batched on
+   99.9% of lanes), both timed in turns. K7f's witness equal to its plain
+   program and to K7f's kernel to the bit, and timed in turns with K7f and
+   the hand kernel (median of 6). The main path: run_smc_batched on
    the generated arma at 25 x 512 x K=100 inside the PARITY bands; the
    generated eight schools at phase 9's settings inside the bands of the hand
    kernel's 25 runs; after each, init_state alone and a profile of the first
@@ -190,9 +203,10 @@ call builds a NUTS tree,
 computes the fused ARMA value and gradient or runs FMA chains, so there is no
 library time). Every "ms" is the device's time alone (utils/timing.device_ms);
 "host_call_ms" beside it is one call timed alone between two events, the
-host's launch included, as the rows were timed before. The W = 1 witnesses'
-rows (arma's NUTS kernel, PRMwCD's, K5) are measurement entries: 0 launches
-on the main path and "measurement_entry": true. The
+host's launch included, as the rows were timed before. The witnesses' rows
+(the W = 1 NUTS kernels of arma, PRMwCD and logistic regression, K5's, and
+K7f in the order it was built) are measurement entries: 0 launches on the
+main path and "measurement_entry": true. The
 last line is {"ok": true, "device": {...}}. Without a CUDA device, or without the
 repository beside it, the script fails before printing any result.
 """
@@ -813,16 +827,31 @@ def prmwcd_kernel_phase(smi):
                                       plain_out, smi, bitwise=True), witness
 
 
-# Rounds of the timing in turns of phases 3 and 4: each round times every
-# entry of a model (on the device alone, DEVICE_REPEATS launches), in the
-# opposite order to the round before.
+# Rounds of the timing in turns of phases 3, 4, 8 and 11: each round times
+# every entry of a model (on the device alone, DEVICE_REPEATS launches), in
+# the opposite order to the round before.
 VARIANT_ROUNDS = 6
+
+
+def timed_in_turns(calls):
+    """(times, medians): each of `calls` (name -> function) timed on the
+    device alone VARIANT_ROUNDS times, in turns."""
+    import statistics
+
+    from smcnuts_torch.utils.timing import device_ms
+
+    names = list(calls)
+    rounds = {k: [] for k in names}
+    for i in range(VARIANT_ROUNDS):
+        for k in (names if i % 2 == 0 else names[::-1]):
+            rounds[k].append(device_ms(calls[k], repeats=DEVICE_REPEATS))
+    return rounds, {k: statistics.median(v) for k, v in rounds.items()}
 
 
 def model_ptxas(log, model):
     """ptxas's stack and register lines for every instantiation of the NUTS
-    kernel with the model (`"arma"` or `"prmwcd"`), by a readable name
-    (group width, stage, threads a block)."""
+    kernel with the model (`"arma"`, `"prmwcd"` or `"logistic"`), by a
+    readable name (group width, stage, threads a block)."""
     import re
 
     lines, name = {}, None
@@ -832,10 +861,13 @@ def model_ptxas(log, model):
             lines[name] = []
         elif name is not None and ("stack frame" in line or "registers" in line):
             lines[name].append(line.split(":", 1)[-1].strip())
-    # nuts_tree_kernel<ArmaModel<W>, kCont, kBlock> or
-    # nuts_tree_kernel<PrmwcdModel<NCov, W>, kCont, kBlock>, mangled.
-    pattern = re.compile({"arma": r"ArmaModelILi(\d+)EEELb([01])ELi(\d+)E",
-                          "prmwcd": r"PrmwcdModelILi\d+ELi(\d+)EEELb([01])ELi(\d+)E"}[model])
+    # nuts_tree_kernel<ArmaModel<W>, kCont, kBlock>,
+    # nuts_tree_kernel<PrmwcdModel<NCov, W>, kCont, kBlock> or
+    # nuts_tree_kernel<LogisticModel<Dim, W>, kCont, kBlock>, mangled.
+    pattern = re.compile({
+        "arma": r"ArmaModelILi(\d+)EEELb([01])ELi(\d+)E",
+        "prmwcd": r"PrmwcdModelILi\d+ELi(\d+)EEELb([01])ELi(\d+)E",
+        "logistic": r"LogisticModelILi\d+ELi(\d+)EEELb([01])ELi(\d+)E"}[model])
     out = {}
     for mangled, info in lines.items():
         m = pattern.search(mangled)
@@ -851,8 +883,9 @@ def model_ptxas(log, model):
 
 
 def measurement_entries(name, model, batch_args, single_out, small, smi, wide=None):
-    """A model's measurement entries (`ops.nuts_cuda.ARMA_VARIANTS` or
-    `PRMWCD_VARIANTS`) at the batched main path's shape: each entry of another
+    """A model's measurement entries (`ops.nuts_cuda.ARMA_VARIANTS`,
+    `PRMWCD_VARIANTS` or `LOGISTIC_VARIANTS`) at the batched main path's
+    shape: each entry of another
     group width than the main path's equal to the plain version at its width
     (`model.at_group(W)`) to the bit, the W = 1 witness (one thread a particle,
     the sequential order) also on `small` (phi 1.0 and 0.4, zero bits); an
@@ -863,17 +896,15 @@ def measurement_entries(name, model, batch_args, single_out, small, smi, wide=No
     main entry and the witness once more in turns there. Returns what the
     kernels line says of the witness: a measurement entry, which the main
     path launches no time."""
-    import statistics
-
-    from smcnuts_torch.models import arma, prmwcd
+    from smcnuts_torch.models import arma, logistic, prmwcd
     from smcnuts_torch.ops.nuts_cuda import (
-        ARMA_VARIANTS, PRMWCD_VARIANTS, build_library, nuts_tree, nuts_tree_plain,
-        nuts_tree_variant)
-    from smcnuts_torch.utils.timing import CudaTimer, device_ms, median_ms
+        ARMA_VARIANTS, LOGISTIC_VARIANTS, PRMWCD_VARIANTS, build_library, nuts_tree,
+        nuts_tree_plain, nuts_tree_variant)
+    from smcnuts_torch.utils.timing import CudaTimer, median_ms
 
-    variants = ARMA_VARIANTS if name == "arma" else PRMWCD_VARIANTS
-    group, block = (arma.GROUP, arma.BLOCK) if name == "arma" else (prmwcd.GROUP,
-                                                                     prmwcd.BLOCK)
+    variants, mod = {"arma": (ARMA_VARIANTS, arma), "prmwcd": (PRMWCD_VARIANTS, prmwcd),
+                     "logistic": (LOGISTIC_VARIANTS, logistic)}[name]
+    group, block = mod.GROUP, mod.BLOCK
     witness_key = next(v for v, (_, g, _) in variants.items() if g == 1)
     for v in variants:
         nuts_tree_variant.launches[v] = 0
@@ -902,13 +933,8 @@ def measurement_entries(name, model, batch_args, single_out, small, smi, wide=No
                              repeats=5)
 
     def in_turns(calls, args_label):
-        names = list(calls)
-        rounds = {k: [] for k in names}
-        for i in range(VARIANT_ROUNDS):
-            for k in (names if i % 2 == 0 else names[::-1]):
-                rounds[k].append(device_ms(calls[k], repeats=DEVICE_REPEATS))
-        med = {k: statistics.median(v) for k, v in rounds.items()}
-        for k in names:
+        rounds, med = timed_in_turns(calls)
+        for k in calls:
             print(f"time {name} {k} ({described[k]}), {args_label} [philox]: "
                   f"{med[k]:.4f} ms, {med[witness_key] / med[k]:.3f}x faster than the "
                   f"W=1 witness (device alone, {DEVICE_REPEATS} launches back to "
@@ -1250,12 +1276,14 @@ def survivor_counts():
 
 
 def tree_slots(model):
-    """(trees a warp holds, trees a block holds) in the NUTS kernel: arma and
-    PRMwCD run a group of GROUP lanes a tree in blocks of BLOCK threads (their
-    models/ modules), every other model one lane in blocks of 128 threads."""
-    from smcnuts_torch.models import ArmaModel, PrmwcdModel, arma, prmwcd
+    """(trees a warp holds, trees a block holds) in the NUTS kernel: arma,
+    PRMwCD and logistic regression run a group of GROUP lanes a tree in blocks
+    of BLOCK threads (their models/ modules), every other model one lane in
+    blocks of 128 threads."""
+    from smcnuts_torch.models import ArmaModel, LogisticModel, PrmwcdModel, arma, prmwcd
+    from smcnuts_torch.models import logistic
 
-    for cls, mod in ((ArmaModel, arma), (PrmwcdModel, prmwcd)):
+    for cls, mod in ((ArmaModel, arma), (PrmwcdModel, prmwcd), (LogisticModel, logistic)):
         if isinstance(model, cls):
             return 32 // mod.GROUP, mod.BLOCK // mod.GROUP
     return 32, 128
@@ -1402,9 +1430,11 @@ def autodiff_cloud(name, shape, seed, device):
 
 
 def autodiff_kernel_phase(name, smi):
-    """Phase 8 for one model; returns what the kernels line says of it."""
+    """Phase 8 for one model; returns what the kernels line says of it and,
+    for logistic regression, of its W = 1 witness (else None)."""
+    from smcnuts_torch.models import logistic
     from smcnuts_torch.ops.draws import PHILOX, ZERO_BITS
-    from smcnuts_torch.ops.nuts_cuda import nuts_tree, nuts_tree_plain
+    from smcnuts_torch.ops.nuts_cuda import build_library, nuts_tree, nuts_tree_plain
 
     dev = torch.device("cuda")
     model = autodiff_model(name).to(dev)
@@ -1413,21 +1443,30 @@ def autodiff_kernel_phase(name, smi):
     ones = torch.ones(D, device=dev)
     im = torch.linspace(0.5, 2.0, D, device=dev)
     seed2 = torch.tensor([11, 12], dtype=torch.int32, device=dev)
+    # The logistic group kernel sums in the order of its plain version: held
+    # to it to the bit, lanes whose density is not finite included.
+    bitwise = name == "logistic"
+    if bitwise:
+        lib = build_library()
+        print(f"logistic entry: W={logistic.GROUP} lanes a tree, blocks of "
+              f"{logistic.BLOCK} threads, {lib.logistic_blocks_per_sm} blocks an SM "
+              f"at once")
     worst = 0.0
     for source in (ZERO_BITS, PHILOX):
         worst = max(worst, compare(
             f"{name} [{source}] phi 1.0 | 0.4, 2 runs x 1024, depth 6", model,
             (autodiff_cloud(name, (2, 1024), 1, dev), seed2, step,
-             torch.tensor([1.0, 0.4], device=dev), ones, 6, source)))
+             torch.tensor([1.0, 0.4], device=dev), ones, 6, source), bitwise=bitwise))
         worst = max(worst, compare(
             f"{name} [{source}] {D}-vector inv_mass, 2048, depth 6", model,
-            (autodiff_cloud(name, (1, 2048), 2, dev), 13, step, 1.0, im, 6, source)))
+            (autodiff_cloud(name, (1, 2048), 2, dev), 13, step, 1.0, im, 6, source),
+            bitwise=bitwise))
     r = torch.randn(1, 2048, D, generator=torch.Generator(device=dev).manual_seed(3),
                     device=dev)
     worst = max(worst, compare(
         f"{name} [zero_bits] r given, 2048, depth 0", model,
         (autodiff_cloud(name, (1, 2048), 4, dev), 0, step, 0.7, im, 0, ZERO_BITS),
-        r=r))
+        r=r, bitwise=bitwise))
     batch_args = (autodiff_cloud(name, (RUNS, N), 5, dev),
                   torch.arange(RUNS, dtype=torch.int32, device=dev), step, 1.0,
                   ones, MAX_DEPTH, PHILOX)
@@ -1435,11 +1474,27 @@ def autodiff_kernel_phase(name, smi):
     plain_out = nuts_tree_plain(model, *batch_args)
     worst = max(worst, check_outputs(
         f"{name} [philox] batched shape, {RUNS} x {N}, depth {MAX_DEPTH}",
-        single_out, plain_out))
+        single_out, plain_out, bitwise=bitwise))
+    if bitwise:
+        print(f"logistic: the group kernel (W={logistic.GROUP}) equals its plain "
+              f"version to the bit in every case")
     times = time_pair(f"{name} {RUNS} x {N} x depth {MAX_DEPTH} [philox]",
                       model, batch_args, smi)
     bound = tree_roofline(name, single_out)
-    staged = staged_kernel_phase(name, model, batch_args, single_out, plain_out, smi)
+    witness = None
+    if bitwise:
+        small = (autodiff_cloud(name, (2, 1024), 7, dev), seed2, step,
+                 torch.tensor([1.0, 0.4], device=dev), ones, 6, ZERO_BITS)
+        small[0][0, 0, NAN_LANE[name][0]] = NAN_LANE[name][1]
+        wide = (autodiff_cloud(name, (1, WIDE_TREES), 8, dev), 31, step, 1.0, ones,
+                MAX_DEPTH, PHILOX)
+        witness = measurement_entries(name, model, batch_args, single_out, small, smi,
+                                      wide=wide)
+        wide_out = nuts_tree(model, *wide)
+        print(f"logistic at {WIDE_TREES} trees, depth {MAX_DEPTH}: "
+              f"{bound_text(tree_roofline(name, wide_out))}")
+    staged = staged_kernel_phase(name, model, batch_args, single_out, plain_out, smi,
+                                 bitwise=bitwise)
     worst = max(worst, staged["max_abs_err"])
     print(f"{name}: max |kernel - plain| on agreeing lanes, all cases, staged "
           f"included: {worst:.3g}; at {RUNS} x {N}: {bound_text(bound)}; staged "
@@ -1453,12 +1508,21 @@ def autodiff_kernel_phase(name, smi):
     candidate_times(f"{name} {4 * RUNS} x {N}, step {cfg['step']}, depth "
                     f"{cfg['depth']}", model, wide, smi,
                     ((1,), (2,), (3,), (1, 2), (2, 4), tuple(range(1, cfg["depth"]))))
-    return {"max_abs_err": worst, **times, **bound}
+    return {"max_abs_err": worst, **times, **bound}, witness
 
 
 def autodiff_kernels_phase(smi):
+    """Phase 8: what the kernels line says of each model, and of the logistic
+    W = 1 witness."""
     phase("8. Gaussian, eight-schools and logistic kernels vs plain")
-    return {name: autodiff_kernel_phase(name, smi) for name in AUTODIFF_MODELS}
+    rows = {name: autodiff_kernel_phase(name, smi) for name in AUTODIFF_MODELS}
+    return ({name: row for name, (row, _) in rows.items()}, rows["logistic"][1])
+
+
+def logistic_kernel_phase(smi):
+    """Phase 8 for logistic regression alone (`--only logistic`)."""
+    phase("8. logistic kernel vs plain")
+    return autodiff_kernel_phase("logistic", smi)
 
 
 def estimates_band(label, got_mean, got_var, ref_mean, ref_var):
@@ -2073,14 +2137,49 @@ GENERATED_BUILD_CAP_S = 120.0
 EAGER_CARD_K = 5  # iterations of the eager (autograd) run on the card
 
 
+def sass_instructions(path):
+    """The SASS instructions of each kernel in the library at `path`
+    (mangled name -> count, 16 bytes each), from the toolkit's cuobjdump; {}
+    where the toolkit has none."""
+    import re
+
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    tool = os.path.join(CUDA_HOME or "", "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        return {}
+    out = subprocess.run([tool, "-sass", path], capture_output=True, text=True,
+                         timeout=300, check=True).stdout
+    counts, name = {}, None
+    for line in out.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            counts[name] = 0
+        elif name is not None and re.match(r"\s*/\*[0-9a-f]{4,}\*/", line):
+            counts[name] += 1
+    return counts
+
+
+def sass_text(counts, match):
+    """The instruction counts of the kernels whose mangled name contains
+    `match`, as one printed phrase."""
+    hits = [f"{n} ({16 * n / 1024:.1f} KB) in {name}" for name, n in sorted(counts.items())
+            if match in name]
+    return "; ".join(hits) if hits else "not measured (no cuobjdump)"
+
+
 def generated_build(label, model):
-    """Build one generated library; print its seconds and ptxas's lines."""
-    from smcnuts_torch.ops.generated import build_generated
+    """Build one generated library; print its seconds, the values its
+    program holds live at once in emission order, ptxas's lines and its
+    kernels' SASS instructions."""
+    from smcnuts_torch.ops.generated import build_generated, peak_live
 
     lib = build_generated(model.tile_model)
     tm = model.tile_model
     print(f"{label}: {tm.autodiff} mode, {tm.n_ops} operations, {tm.data.numel()} "
-          f"data floats, source hash {tm.hash}; built {os.path.relpath(lib.path)} "
+          f"data floats, at most {peak_live(tm.program)} values live at once in "
+          f"emission order, source hash {tm.hash}; built {os.path.relpath(lib.path)} "
           f"in {lib.build_seconds:.1f} s")
     if lib.build_seconds > GENERATED_BUILD_CAP_S:
         raise AssertionError(f"{label}: the build took {lib.build_seconds:.1f} s, "
@@ -2089,6 +2188,7 @@ def generated_build(label, model):
         if ("Compiling entry" in line or "registers" in line or "spill" in line
                 or "stack frame" in line):
             print("  ptxas:", line.strip())
+    print(f"  SASS instructions: {sass_text(sass_instructions(lib.path), 'nuts_tree_kernel')}")
 
 
 def generated_kernel_case(label, model, hand, x, step, smi):
@@ -2164,6 +2264,58 @@ def generated_kernel_case(label, model, hand, x, step, smi):
             **bound}
 
 
+def generated_builds(label, model, others, hand, x, step, smi):
+    """Other builds of one generated density (`others`: a readable name ->
+    a CallableModel of the same density, each its own library): each equal
+    to its plain program and to `model`'s kernel, to the bit, under zero bits
+    and Philox at 25 x 512 x depth 10; then every build, `model` and the hand
+    kernel timed in turns (the device alone, median of VARIANT_ROUNDS).
+    Returns the kernels-line row of the first of `others`, a measurement
+    entry that the main path never launches."""
+    from smcnuts_torch.ops.draws import PHILOX, ZERO_BITS
+    from smcnuts_torch.ops.nuts_cuda import nuts_tree, nuts_tree_plain
+    from smcnuts_torch.utils.timing import CudaTimer, median_ms
+
+    dev = x.device
+    seeds = torch.arange(RUNS, dtype=torch.int32, device=dev)
+    ones = torch.ones(x.shape[-1], device=dev)
+    first = next(iter(others))
+    errs, plain_ms, outs = [], None, {}
+    for source in (ZERO_BITS, PHILOX):
+        args = (x, seeds, step, 1.0, ones, MAX_DEPTH, source)
+        main = nuts_tree(model, *args)
+        for who, other in others.items():
+            out = nuts_tree(other, *args)
+            with CudaTimer() as t:
+                plain = nuts_tree_plain(other, *args)
+            err = check_outputs(f"{label} {who} [{source}] kernel vs plain", out, plain,
+                                nan_lanes=True, bitwise=True)
+            diff = bitwise_differences(out, main)
+            if diff:
+                raise AssertionError(f"{label} {who} [{source}]: differs from the main "
+                                     f"build's kernel in {diff}")
+            print(f"{label} {who} [{source}]: equal to its plain program and to the main "
+                  f"build's kernel to the bit")
+            if who == first:
+                errs.append(err)
+                if source == PHILOX:
+                    plain_ms, outs[who] = t.ms, out
+    calls = {"hand": lambda: nuts_tree(hand, *args),
+             "main": lambda: nuts_tree(model, *args)}
+    calls.update({who: (lambda m=m: nuts_tree(m, *args)) for who, m in others.items()})
+    rounds, med = timed_in_turns(calls)
+    for k in calls:
+        print(f"time {label} {k}, {RUNS} x {N} x depth {MAX_DEPTH} [philox]: "
+              f"{med[k]:.4f} ms, {med[k] / med['hand']:.3f}x the hand kernel's (device "
+              f"alone, {DEVICE_REPEATS} launches back to back; median of "
+              f"{VARIANT_ROUNDS} in turns: {', '.join(f'{v:.4f}' for v in rounds[k])}; "
+              f"{smi})")
+    host_ms = median_ms(calls[first], repeats=5)
+    bound = tree_roofline("generated", outs[first], model=others[first].tile_model)
+    return {"launches": 0, "measurement_entry": True, "max_abs_err": max(errs),
+            "ms": med[first], "host_call_ms": host_ms, "plain_ms": plain_ms, **bound}
+
+
 def generated_split(label, model, hand, cfg, smi):
     """Where a generated model's main-path call spends the time beside the
     hand model's: `init_state` of each alone (CUDA events, the second of two
@@ -2191,6 +2343,7 @@ def generated_phase(smi):
     from smcnuts_torch.models.arma import arma_model_fwd
     from smcnuts_torch.models.base import CallableModel
     from smcnuts_torch.models.eightschools import make_eightschools_generated
+    from smcnuts_torch.ops.nuts_cuda import build_library
 
     phase("11. user-written densities: generated in-kernel models (K7f, K7r)")
     dev = torch.device("cuda")
@@ -2200,11 +2353,21 @@ def generated_phase(smi):
     schools = make_eightschools_generated().to(dev)
     print(f"traced and simplified: arma (T=200, forward) in {t1 - t0:.1f} s, eight "
           f"schools (reverse) in {time.perf_counter() - t1:.1f} s")
+    # K7f's witness: the same program in the order it was built, the whole
+    # primal before the first tangent pass (the emission before the
+    # (primal node, pass) order).
+    others = {"built order": arma_model_fwd(order="built").to(dev)}
     generated_build("K7f arma", arma)
+    generated_build("K7f arma, built order (the witness)", others["built order"])
     generated_build("K7r eight schools", schools)
+    hand = sass_instructions(build_library().path)
+    print(f"hand arma entries, SASS instructions: {sass_text(hand, 'ArmaModel')}")
 
-    k7f = generated_kernel_case("K7f arma", arma, get_model("arma").to(dev),
-                                particles(RUNS * N, 6, dev).view(RUNS, N, 4), STEP, smi)
+    x_arma = particles(RUNS * N, 6, dev).view(RUNS, N, 4)
+    k7f = generated_kernel_case("K7f arma", arma, get_model("arma").to(dev), x_arma,
+                                STEP, smi)
+    k7f_built = generated_builds("K7f arma", arma, others, get_model("arma").to(dev),
+                                 x_arma, STEP, smi)
     es = AUTODIFF_MODELS["eightschools"]
     k7r = generated_kernel_case("K7r eight schools", schools,
                                 get_model("eightschools").to(dev),
@@ -2252,7 +2415,7 @@ def generated_phase(smi):
     print(f"eager eight schools (autograd, no generated model) on the card: "
           f"{EAGER_CARD_K} iterations in {wall:.1f} s (host clock), no kernel launch, "
           f"final mean {[round(v, 3) for v in res.mean_estimate[EAGER_CARD_K].tolist()[:2]]}")
-    return k7f, k7r
+    return k7f, k7r, k7f_built
 
 
 def partial_run(only, smi):
@@ -2261,7 +2424,8 @@ def partial_run(only, smi):
     phases = {"arma": arma_kernel_phase, "prmwcd": prmwcd_kernel_phase,
               "main": main_path_phase, "batched": batched_phase,
               "staged_times": staged_times_phase, "cli": lambda smi: cli_phase(),
-              "autodiff": autodiff_kernels_phase, "strategies": strategies_phase,
+              "autodiff": autodiff_kernels_phase, "logistic": logistic_kernel_phase,
+              "strategies": strategies_phase,
               "fused_kernel": arma_fused_kernel_phase, "eager": eager_arma_phase,
               "unfused": unfused_kernel_phase, "wide_eager": wide_eager_phase,
               "generated": generated_phase}
@@ -2284,11 +2448,11 @@ def main():
     batched, cont = batched_phase(smi)
     staged_times_phase(smi)
     prm_cli, schools_cli = cli_phase()
-    autodiff = autodiff_kernels_phase(smi)
+    autodiff, logistic_w1 = autodiff_kernels_phase(smi)
     strategies, strategies_cont = strategies_phase(smi)
     strategies["eightschools"] += schools_cli
     k5, k5_w1, k1u = fused_phase(smi)
-    k7f, k7r = generated_phase(smi)
+    k7f, k7r, k7f_built = generated_phase(smi)
     source = "smcnuts_torch/csrc/nuts_tree.cuh"
     # No single PyTorch call builds a NUTS tree, computes the fused ARMA
     # value and gradient or runs FMA chains, so no kernel has a library time.
@@ -2328,6 +2492,10 @@ def main():
              launches=strategies[model], **autodiff[model])
         for model in AUTODIFF_MODELS
     ]
+    # K6c's W = 1 witness (one thread a particle): a measurement entry.
+    kernels.append(dict(name="nuts_tree_logistic_w1", route="cuda",
+                        source="smcnuts_torch/csrc/logistic_variants.cu",
+                        replaces="smcnuts_tpu/ops/nuts_pallas.py:1094", **logistic_w1))
     kernels += [
         # K5: the fused ARMA value and gradient that the eager tree calls.
         dict(name="arma_ll_vg", route="cuda", source="smcnuts_torch/csrc/arma_fused.cu",
@@ -2342,6 +2510,11 @@ def main():
         dict(name="nuts_tree_generated_arma_forward", route="cuda",
              source="smcnuts_torch/ops/generated.py",
              replaces="smcnuts_tpu/ops/nuts_pallas.py:1674", **k7f),
+        # K7f's witness: the same program emitted in the order it was built,
+        # its own library; a measurement entry.
+        dict(name="nuts_tree_generated_arma_forward_built_order", route="cuda",
+             source="smcnuts_torch/ops/generated.py",
+             replaces="smcnuts_tpu/ops/nuts_pallas.py:1674", **k7f_built),
         dict(name="nuts_tree_generated_eightschools_reverse", route="cuda",
              source="smcnuts_torch/ops/generated.py",
              replaces="smcnuts_tpu/ops/nuts_pallas.py:1126", **k7r),

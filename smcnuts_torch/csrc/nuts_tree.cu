@@ -13,7 +13,8 @@
 // and elementwise_tile_model (in-kernel jax.vjp) over the gaussian,
 // eightschools and logistic densities as GaussianModel<2|3|5>
 // (gaussian_model.cuh), EightSchoolsModel<8> (eightschools_model.cuh) and
-// LogisticModel<8> (logistic_model.cuh).
+// LogisticModel<8, 16> (logistic_model.cuh; a half warp a particle, the
+// observations split over its lanes).
 // Their plain PyTorch version is smcnuts_torch/ops/nuts_cuda.py::nuts_tree_plain.
 
 #include "arma_model.cuh"
@@ -33,6 +34,9 @@ constexpr int kPrmwcdBlock = 64;  // threads a block of the PRMwCD entry: 4 part
 using PrmwcdGroupModel = PrmwcdModel<kPrmwcdCov, kPrmwcdGroup>;
 constexpr int kSchools = 8;     // schools of the eight-schools instantiation (D = 10)
 constexpr int kLogisticDim = 8; // covariates of the logistic instantiation
+constexpr int kLogisticGroup = 16;  // lanes a logistic particle: a half warp
+constexpr int kLogisticBlock = 64;  // threads a block of the logistic entry: 4 particles
+using LogisticGroupModel = LogisticModel<kLogisticDim, kLogisticGroup>;
 
 }  // namespace smcnuts
 
@@ -64,6 +68,15 @@ int smcnuts_eightschools_j() { return smcnuts::kSchools; }
 
 int smcnuts_logistic_dim() { return smcnuts::kLogisticDim; }
 
+int smcnuts_logistic_group() { return smcnuts::kLogisticGroup; }
+
+int smcnuts_logistic_block() { return smcnuts::kLogisticBlock; }
+
+// Blocks of the logistic entry an SM holds at once, with n_data floats of data.
+int smcnuts_logistic_blocks_per_sm(int n_data) {
+  return smcnuts::blocks_per_sm<smcnuts::LogisticGroupModel, smcnuts::kLogisticBlock>(n_data);
+}
+
 int smcnuts_nuts_tree_bundle_rows(int dim) { return smcnuts::bundle_rows(dim); }
 
 // The entries (SMCNUTS_ENTRY of nuts_tree.cuh says what each does).
@@ -74,6 +87,6 @@ SMCNUTS_ENTRY(smcnuts_nuts_tree_gaussian2, smcnuts::GaussianModel<2>)
 SMCNUTS_ENTRY(smcnuts_nuts_tree_gaussian3, smcnuts::GaussianModel<3>)
 SMCNUTS_ENTRY(smcnuts_nuts_tree_gaussian5, smcnuts::GaussianModel<5>)
 SMCNUTS_ENTRY(smcnuts_nuts_tree_eightschools, smcnuts::EightSchoolsModel<smcnuts::kSchools>)
-SMCNUTS_ENTRY(smcnuts_nuts_tree_logistic, smcnuts::LogisticModel<smcnuts::kLogisticDim>)
+SMCNUTS_ENTRY(smcnuts_nuts_tree_logistic, smcnuts::LogisticGroupModel, smcnuts::kLogisticBlock)
 
 }  // extern "C"

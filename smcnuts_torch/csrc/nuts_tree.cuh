@@ -2,8 +2,8 @@
 
 // Whole-tree NUTS proposal for sm_90a, one tree per particle, as one kernel
 // or as stages with lane compaction between them: the kernel template,
-// included by nuts_tree.cu and prmwcd_variants.cu (the hand-written models'
-// entries) and by every generated model's translation
+// included by nuts_tree.cu and the *_variants.cu files (the hand-written
+// models' entries) and by every generated model's translation
 // unit (smcnuts_torch/ops/generated.py).
 //
 // Replaces these TPU kernels of smcnuts_tpu/ops/nuts_pallas.py:
@@ -36,7 +36,9 @@
 // block of kBlock threads holds kBlock / W particles. arma runs at W = 8 in
 // blocks of 64 threads (the T-step recurrence split over the lanes by
 // segments and a lane scan), PRMwCD at W = 16, a half warp a particle, in
-// blocks of 64 threads; every other model at W = 1 in blocks of 128.
+// blocks of 64 threads, logistic regression at W = 16 in blocks of 64 (its
+// 64 observations split over the lanes); every other model at W = 1 in
+// blocks of 128.
 //
 // What bounds it on this card: FP32 issue and latency in the model of every
 // leaf (arma: the serial T=200 error recurrence, each step depending on the

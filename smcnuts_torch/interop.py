@@ -21,9 +21,10 @@ CARRY_FIELDS = ("x", "logw", "phi", "step_size", "inv_mass", "da")
 
 
 def carry_from_numpy(x, logw, phi, step_size, inv_mass, da=None,
-                     loglik=None, device="cpu") -> SMCCarry:
-    """The carry on `device`, in the floating dtype of `x`. `da` holds the
-    five dual-averaging fields in `DualAveragingState` order (a JAX
+                     loglik=None, device="cuda") -> SMCCarry:
+    """The carry on `device`, in the floating dtype of `x`; the card unless
+    the caller passes "cpu", as in `run_smc_batched` and `run_smc`. `da` holds
+    the five dual-averaging fields in `DualAveragingState` order (a JAX
     `DualAveragingState` will do); None starts them from the step size.
     `loglik` is the untempered log-likelihood of x that the asymptotic
     strategy carries (the JAX carry holds it with save_history=False; this

@@ -238,10 +238,11 @@ def arma_loglik_seq(y):
     return loglik
 
 
-def arma_model_fwd(y=None) -> CallableModel:
+def arma_model_fwd(y=None, order="primal") -> CallableModel:
     """arma as a user's torch density: a `CallableModel` whose logprior and
     loglik take one particle, with the generated forward-mode in-kernel model
-    of the scalar density lprior + phi * loglik. The observations enter as
+    of the scalar density lprior + phi * loglik, emitted in `order`
+    (`ops.generated.tile_model_from_logp_fwd`). The observations enter as
     Python floats (rounded to float32 in the kernel, as `arma_tile_model_fwd`
     rounds them)."""
     if y is None:
@@ -256,7 +257,7 @@ def arma_model_fwd(y=None) -> CallableModel:
         lambda t: loglik(t.unbind(0)),
         constrain=lambda t: torch.cat([t[:3], torch.exp(t[3:4])]),
         param_names=ArmaModel.param_names,
-        tile_model=tile_model_from_logp_fwd(logp_seq, 4, name="arma"),
+        tile_model=tile_model_from_logp_fwd(logp_seq, 4, name="arma", order=order),
     )
 
 

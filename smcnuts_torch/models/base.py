@@ -61,6 +61,12 @@ doubling took 0.2399 ms against the single kernel's 0.2126 / 0.2130 at
 0.6023 / 0.6017 at 51,200 and 1.6243 against 2.1284 / 2.1334 at 204,800 (the
 fastest candidate at both); at 1,024 and 2,560 trees nothing staged was
 faster.
+
+Logistic regression runs 16 lanes a tree (`models.logistic.GROUP`), four
+trees a block of 64 threads, 8 blocks an SM: 4,224 trees at once, its
+threshold. Its hint, a split after doubling 2, is the fastest of the split
+tuples `chip_smoke.py` phase 8 timed at 51,200 trees (`models/logistic.py`
+keeps the numbers).
 """
 
 from __future__ import annotations
@@ -164,6 +170,16 @@ class CallableModel(nn.Module):
 
     def constrain(self, x):
         return torch.func.vmap(self._constrain)(x)
+
+
+def check_group(group) -> int:
+    """A group width W (the lanes a hand-written group model runs a particle
+    on, and the order its plain version sums in) as an int: a power of two in
+    1..32, a group of a warp."""
+    W = int(group)
+    if W < 1 or W & (W - 1) or W > 32:
+        raise ValueError(f"group must be a power of two in 1..32, got {group}")
+    return W
 
 
 def _log(v):

@@ -10,13 +10,26 @@ data.
 
 from __future__ import annotations
 
+import copy
 import math
 
 import numpy as np
 import torch
 from torch import nn
 
-from .base import LOG_SQRT_2PI
+from .base import LOG_SQRT_2PI, check_group
+
+# Lanes that evaluate one particle in the CUDA kernel (kLogisticGroup of
+# csrc/nuts_tree.cu, a half warp; ops/nuts_cuda.py checks the two agree): the
+# order in which logp_and_grad sums the observations by default. Threads a
+# block of the logistic kernel (kLogisticBlock), and the blocks of it an H100
+# SM holds at once (128 registers a thread cap an SM at 16 warps; the data
+# and the trees' shared memory do not bind); ops/nuts_cuda.py checks both
+# against the built kernel before it launches it, since the compaction
+# threshold below rests on them.
+GROUP = 16
+BLOCK = 64
+BLOCKS_PER_SM = 8
 
 
 def _synthetic(n_obs=64, dim=8, seed=0):
@@ -34,11 +47,21 @@ class LogisticModel(nn.Module):
     `.to(device)`."""
 
     name = "logistic"
-    # `chip_smoke.py` timed the single kernel and six split tuples at 51,200
-    # lanes (step 0.1, depth 6) on an NVIDIA H100, 700 W: none was faster than
-    # the single kernel (1.40 ms; the tuples 1.47-1.54 ms). No hint.
-    compaction_hint = ()
+    # `chip_smoke.py` phase 8 timed the group kernel's single dispatch and six
+    # split tuples at 51,200 lanes (100 x 512, step 0.1, depth 6: the settings
+    # of phase 9's logistic run) on an NVIDIA H100 80GB HBM3, 700 W, the device
+    # alone: a split after doubling 2 took 0.5875 ms against the single
+    # kernel's 0.6491 / 0.6486, the fastest; after doublings 1 and 2 0.6054,
+    # 2 and 4 0.6037, every doubling 0.6228. (The one-thread-a-tree kernel
+    # before it gained from no split: 1.40 ms single, the tuples 1.47-1.54.)
+    # No adapted run was measured: no adapted hint.
+    compaction_hint = (2,)
     compaction_hint_adapted = ()
+    # The hint pays only past the trees the card holds at once in the logistic
+    # kernel, counted in its blocks: the H100's 132 SMs x BLOCKS_PER_SM blocks
+    # x BLOCK / GROUP trees a block, 4,224.
+    compaction_min_lanes = 132 * BLOCKS_PER_SM * (BLOCK // GROUP)
+    group = GROUP  # the group order of logp_and_grad's default (at_group)
 
     def __init__(self, X=None, y=None, prior_scale=2.5):
         super().__init__()
@@ -71,16 +94,27 @@ class LogisticModel(nn.Module):
     def logp(self, x, phi=1.0):
         return self.logprior(x) + phi * self.loglik(x)
 
-    def logp_and_grad(self, x, phi=1.0):
+    def logp_and_grad(self, x, phi=1.0, group=None):
         """Tempered logp and its gradient in closed form, written op for op
-        as the kernel's device function (`csrc/logistic_model.cuh`) and in
-        the order of the JAX tile density: eta_i by ordered multiply-adds over
-        the covariates; per observation, in sequence,
-        ll = (ll + y_i eta_i) - (max(eta_i, 0) + log1p(exp(-|eta_i|))) and
-        s_d += (y_i - sigmoid(eta_i)) X_id, on one stacked (P, 1 + D)
-        accumulator as PRMwCD's plain version does. The sigmoid is
-        1 / (1 + e) for eta >= 0 and e / (1 + e) below, e = exp(-|eta|) <= 1,
-        which cannot overflow. No matmul or reduction op."""
+        as the kernel's device function (`csrc/logistic_model.cuh`) at group
+        width W = `group` (None: the model's, `GROUP` unless `at_group` set
+        another), so the two round alike. Per observation i, as the JAX tile
+        density: eta_i by ordered multiply-adds over the covariates, the
+        terms y_i eta_i - (max(eta_i, 0) + log1p(exp(-|eta_i|))) and
+        (y_i - sigmoid(eta_i)) X_id. Lane l of W sums observations l, l + W,
+        l + 2W, ... in that order on a stacked accumulator [ll, s_1..s_D]
+        (every lane from zero): each step adds up_i = [y_i eta_i,
+        resid_i X_i] and subtracts down_i = [softplus_i, 0, ..], and
+        x - 0 = x, so every column rounds as the kernel's scalar sums do.
+        Then the W partials are reduced by the kernel's xor butterfly,
+        v = v + v[lane ^ o] for o = W/2, ..., 1, and lane 0's sums are
+        taken. W = 1 is the sequential order of the JAX tile density. The
+        prior's terms are summed over d in order and added after the
+        butterfly, by every lane alike. The sigmoid is 1 / (1 + e) for
+        eta >= 0 and e / (1 + e) below, e = exp(-|eta|) <= 1, which cannot
+        overflow. No matmul or reduction op: their summation order differs
+        from the kernel's."""
+        W = check_group(self.group if group is None else group)
         X, y = self.X.to(x.dtype), self.y.to(x.dtype)
         n_obs, D = X.shape
         zero = x[:, 0] * 0.0
@@ -101,19 +135,39 @@ class LogisticModel(nn.Module):
         down = torch.cat(
             [softplus[..., None],
              torch.zeros_like(softplus)[..., None].expand(-1, -1, D)], dim=2)
-        acc = torch.stack([zero] * (1 + D), dim=1)  # [ll, s_1..s_D]
-        for i in range(n_obs):
-            acc = (acc + up[:, i]) - down[:, i]
-        ll, s = acc[:, 0], acc[:, 1:]
+        # acc[:, l] holds lane l's [ll, s_1..s_D].
+        acc = torch.stack([zero] * (1 + D), dim=1)[:, None].expand(-1, W, -1)
+        for lo in range(0, n_obs, W):
+            n = min(W, n_obs - lo)  # lanes that have observation lo + l
+            stepped = (acc[:, :n] + up[:, lo:lo + n]) - down[:, lo:lo + n]
+            acc = torch.cat([stepped, acc[:, n:]], dim=1)
+        lanes = torch.arange(W, device=x.device)
+        o = W // 2
+        while o:
+            acc = acc + acc[:, lanes ^ o]
+            o //= 2
+        ll, s = acc[:, 0, 0], acc[:, 0, 1:]
         phi_col = phi[:, None] if isinstance(phi, torch.Tensor) else phi
         return lp + phi * ll, -x * self.inv_ps2 + phi_col * s
+
+    def at_group(self, group):
+        """The same model (its buffers shared) whose `logp_and_grad` sums at
+        group width `group` by default: the plain version, for
+        `ops.nuts_cuda.nuts_tree_plain` or the eager SMC loop, of a kernel
+        entry of that width (`ops.nuts_cuda.nuts_tree_variant`). The main
+        kernel runs GROUP lanes only and refuses another width."""
+        view = copy.copy(self)
+        view.group = check_group(group)
+        return view
 
     def constrain(self, x):
         return x
 
     def kernel_data(self):
-        """The block of floats the CUDA kernel stages: y, then X row-major."""
-        return torch.cat([self.y, self.X.reshape(-1)]).to(torch.float32)
+        """The block of floats the CUDA kernel stages: the rows [X_i, y_i],
+        row-major at a stride of D + 1 (odd for the instantiated D = 8, so
+        the lanes of a group read distinct shared-memory banks)."""
+        return torch.cat([self.X, self.y[:, None]], dim=1).reshape(-1).to(torch.float32)
 
     def kernel_scalars(self) -> tuple:
         """1 / prior_scale^2 and the prior's normalising constant."""

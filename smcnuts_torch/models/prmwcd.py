@@ -23,7 +23,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from .base import EVERY_DEPTH, inv_gamma_lpdf, poisson_lpmf
+from .base import EVERY_DEPTH, check_group, inv_gamma_lpdf, poisson_lpmf
 
 # Lanes that evaluate one particle in the CUDA kernel (kPrmwcdGroup of
 # csrc/nuts_tree.cu, a half warp; ops/nuts_cuda.py checks the two agree): the
@@ -120,9 +120,7 @@ class PrmwcdModel(nn.Module):
         n_obs, n_cov = X.shape
         M = n_cov + 1
         q = self.q
-        W = GROUP if group is None else int(group)
-        if W < 1 or W & (W - 1) or W > 32:
-            raise ValueError(f"group must be a power of two in 1..32, got {group}")
+        W = check_group(GROUP if group is None else group)
         b, g = x[:, :M], x[:, M]
         zero = b[:, 0] * 0.0
 

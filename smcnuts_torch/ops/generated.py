@@ -13,7 +13,10 @@ both cleaned up by `_cse_jaxpr` / `_simplify_call` (`:1193`, `:1422`). Here:
   applies this module's own forward rules, one pass a coordinate. A tangent
   that is symbolically zero stays absent, so each pass walks only its
   coordinate's dependency cone, and the primal exists once (tracing
-  `torch.func.jvp` instead gives 31k nodes for arma at T=200).
+  `torch.func.jvp` instead gives 31k nodes for arma at T=200). Its program
+  is emitted in (primal node, pass) order (`_primal_order`), which keeps few
+  values live at once (`peak_live`); reverse-mode programs keep the order
+  they were built in.
 
 Both lower the traced graph to a program of scalar operations (`_Scalars`):
 every element of a per-particle tensor becomes its own value, so a small
@@ -64,6 +67,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import hashlib
+import heapq
 import math
 import operator
 import os
@@ -154,11 +158,20 @@ class _Scalars:
         self.memo = {}
         self.known = {}  # data node id -> its value
         self.data = []  # the data block
+        # The creation context of the nodes built while `ctx` is set: the
+        # forward passes set it to (primal node, pass) (`tile_model_from_logp_fwd`).
+        self.ctx = None
+        self.keys = {}  # node id -> the ctx it was first created in
 
     # -- leaves and nodes ---------------------------------------------------
-    def leaf(self, op, *attrs):
-        self.ops.append((op,) + attrs)
+    def _append(self, op):
+        self.ops.append(op)
+        if self.ctx is not None:
+            self.keys[len(self.ops) - 1] = self.ctx
         return len(self.ops) - 1
+
+    def leaf(self, op, *attrs):
+        return self._append((op,) + attrs)
 
     def datum(self, v) -> int:
         v = _f32(v)
@@ -182,8 +195,7 @@ class _Scalars:
         key = (op,) + tuple(_skey(a) for a in args)
         hit = self.memo.get(key)
         if hit is None:
-            self.ops.append((op,) + args)
-            hit = self.memo[key] = len(self.ops) - 1
+            hit = self.memo[key] = self._append((op,) + args)
         return hit
 
     def mat(self, v):
@@ -653,7 +665,10 @@ class Program:
     dim: int
 
 
-def _finish(b: _Scalars, logp, grads, dim) -> Program:
+def _finish(b: _Scalars, logp, grads, dim, order="built") -> Program:
+    """The program of the outputs: their live nodes, renumbered in emission
+    order, "built" (the order the nodes were made in) or "primal" (a forward
+    program's (primal node, pass) order, `_primal_order`)."""
     outs = [b.mat(logp)] + [b.mat(g) for g in grads]
     live = set()
     stack = [o for o in outs if type(o) is int]
@@ -665,7 +680,7 @@ def _finish(b: _Scalars, logp, grads, dim) -> Program:
         op, *args = b.ops[i]
         if op not in ("x", "phi", "data"):
             stack += [a for a in args if type(a) is int]
-    order = _order(b.ops, live)
+    order = _order(b.ops, live) if order == "built" else _primal_order(b.ops, live, b.keys)
     new = {old: k for k, old in enumerate(order)}
     data_ids = sorted(i for i in order if b.ops[i][0] == "data")
     data_new = {b.ops[i][1]: k for k, i in enumerate(data_ids)}
@@ -692,6 +707,63 @@ def _order(ops, live) -> list:
     (0.479 against 0.484 ms at 25 x 512 x depth 10, PERF.md), so it is not
     ported."""
     return sorted(live)
+
+
+def _primal_order(ops, live, keys) -> list:
+    """The emission order of a forward program's live nodes: a topological
+    order (Kahn's algorithm) that takes the smallest key first, ties by
+    creation. A primal node i has the key (i, -1); a node that tangent pass d
+    created while it differentiated primal node i, (i, d) (`_Scalars.keys`).
+    So step t of a recurrence is followed by its tangents and their sum terms,
+    and a primal value dies with its last pass instead of living until the
+    last pass reaches it: the arma density at T=200 holds 22 values at once
+    instead of 214 in the built order (`peak_live`). On an H100 that took the
+    kernel from 255 registers and 356 bytes spilled to 122 and none, and
+    moved its time by under 1% (chip_smoke.py phase 11; PERF.md)."""
+    users = {i: [] for i in live}
+    waiting = {}
+    for i in live:
+        op, *args = ops[i]
+        deps = () if op in ("x", "phi", "data") else {a for a in args if type(a) is int}
+        waiting[i] = len(deps)
+        for a in deps:
+            users[a].append(i)
+    ready = [(keys.get(i, (i, -1)), i) for i in live if waiting[i] == 0]
+    heapq.heapify(ready)
+    out = []
+    while ready:
+        _, i = heapq.heappop(ready)
+        out.append(i)
+        for u in users[i]:
+            waiting[u] -= 1
+            if waiting[u] == 0:
+                heapq.heappush(ready, (keys.get(u, (u, -1)), u))
+    return out
+
+
+def peak_live(prog: Program) -> int:
+    """The most values live at once in the program's emission order: after
+    op t, the values defined up to t that an op after t reads or that are
+    outputs (logp and the gradient, read at the end). What the kernel's
+    registers must hold, before ptxas reorders anything."""
+    n = len(prog.ops)
+    last = list(range(n))
+    for t, (op, *args) in enumerate(prog.ops):
+        if op not in ("x", "phi", "data"):
+            for a in args:
+                if type(a) is int:
+                    last[a] = t
+    for o in (prog.logp, *prog.grad):
+        if type(o) is int:
+            last[o] = n
+    ends = [0] * (n + 1)  # ends[t]: values whose last read is op t
+    for i in range(n):
+        ends[last[i]] += 1
+    peak = live = 0
+    for t in range(n):
+        live += 1 - ends[t]
+        peak = max(peak, live)
+    return peak
 
 
 _INFIX = {"add": "+", "sub": "-", "mul": "*", "div": "/", **{
@@ -913,14 +985,23 @@ def tile_model_from_logp(logp_fn, dim, name="generated") -> GeneratedModel:
     return GeneratedModel(_finish(b, _arr(value)[()], list(grad), dim), "reverse", name)
 
 
-def tile_model_from_logp_fwd(logp_seq_fn, dim, name="generated") -> GeneratedModel:
+def tile_model_from_logp_fwd(logp_seq_fn, dim, name="generated",
+                             order="primal") -> GeneratedModel:
     """A generated model of `logp_seq_fn(coords, phi) -> scalar`, whose
     coordinates arrive as a sequence of D scalars, with its gradient by
     forward mode: the primal traced once (make_fx over D + 1 scalars), then
     one tangent pass a coordinate by this module's rules, in which a
-    symbolically zero tangent stays absent. D <= MAX_FORWARD_DIM."""
+    symbolically zero tangent stays absent. D <= MAX_FORWARD_DIM.
+
+    The program is emitted in (primal node, pass) order (`_primal_order`);
+    `order="built"` emits it in the order it was built, the whole primal
+    before the first pass: the same operations on the same operands, so the
+    same bits, with more values live at once (the measurement witness of
+    `chip_smoke.py` phase 11)."""
     from torch.fx.experimental.proxy_tensor import make_fx
 
+    if order not in ("primal", "built"):
+        raise ValueError(f"order must be 'primal' or 'built', got {order!r}")
     if not 1 <= dim <= MAX_FORWARD_DIM:
         raise ValueError(f"the forward adapter takes 1 <= dim <= {MAX_FORWARD_DIM}, got {dim}")
 
@@ -948,11 +1029,13 @@ def tile_model_from_logp_fwd(logp_seq_fn, dim, name="generated") -> GeneratedMod
             op, *args = b.ops[i]
             if op == "x":
                 continue
+            b.ctx = (i, d)
             t = _tangent(b, i, op, tuple(args), tan)
             if t is not None:
                 tan[i] = t
         grads.append(tan.get(logp, 0.0) if type(logp) is int else 0.0)
-    return GeneratedModel(_finish(b, logp, grads, dim), "forward", name)
+    b.ctx = (n_primal, 0)  # the outputs' last multiplies, at the end
+    return GeneratedModel(_finish(b, logp, grads, dim, order), "forward", name)
 
 
 # ---------------------------------------------------------------------------

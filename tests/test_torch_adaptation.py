@@ -134,7 +134,7 @@ def test_adapted_steps_match_jax_step(jax_adapted_trajectory):
                     max_tree_depth=MAX_DEPTH, adapt_step_size=True,
                     adapt_mass_matrix=True, target_accept=TARGET)
     model = get_model("arma")
-    carry = carry_from_numpy(**start)
+    carry = carry_from_numpy(**start, device="cpu")
     steps = []
     for k in range(ITERS):
         carry, diag = smc_step(model, cfg, carry,

@@ -189,8 +189,8 @@ def test_interop_run_axis_round_trip():
         inv_mass=rng.random((B, 4)).astype(np.float32),
         da=tuple(rng.random(B).astype(np.float32) for _ in range(5)),
     )
-    back = carry_to_numpy(carry_from_numpy(**fields))
+    back = carry_to_numpy(carry_from_numpy(**fields, device="cpu"))
     for f, v in fields.items():
         np.testing.assert_array_equal(np.asarray(back[f]), np.asarray(v), err_msg=f)
     with pytest.raises(ValueError, match="one run"):
-        carry_to_numpy(carry_from_numpy(**fields), run_axis=False)
+        carry_to_numpy(carry_from_numpy(**fields, device="cpu"), run_axis=False)

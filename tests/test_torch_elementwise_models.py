@@ -197,6 +197,10 @@ def test_kernel_data_blocks():
                                np.log(e.sigma.numpy()), rtol=1e-6)
     lg = get_model("logistic")
     assert lg.kernel_data().shape == (64 * 9,) and lg.kernel_data().dtype == torch.float32
+    # The rows [X_i, y_i] at a stride of D + 1 = 9 (odd: a group's lanes read
+    # distinct shared-memory banks).
+    rows = lg.kernel_data().view(64, 9)
+    assert torch.equal(rows[:, :8], lg.X.float()) and torch.equal(rows[:, 8], lg.y.float())
     np.testing.assert_allclose(lg.kernel_scalars(), (1 / 6.25, lg.prior_const))
 
 

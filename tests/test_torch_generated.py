@@ -334,7 +334,7 @@ def _port_steps(model, step_size, start, uniforms):
     under zero bits: each iteration's (carry as numpy, diagnostics)."""
     cfg = SMCConfig(n_particles=N, n_iterations=ITERS, step_size=step_size,
                     max_tree_depth=MAX_DEPTH)
-    carry, out = carry_from_numpy(**start), []
+    carry, out = carry_from_numpy(**start, device="cpu"), []
     for k in range(ITERS):
         carry, diag = smc_step(model, cfg, carry, torch.as_tensor(uniforms[k])[None],
                                torch.zeros(1, dtype=torch.int32), "eager", ZERO_BITS)

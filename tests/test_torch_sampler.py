@@ -72,7 +72,7 @@ def test_step_matches_jax_step(jax_trajectory):
     cfg = SMCConfig(n_particles=N, n_iterations=ITERS, step_size=0.01,
                     max_tree_depth=MAX_DEPTH)
     model = get_model("arma")
-    carry = carry_from_numpy(**start)
+    carry = carry_from_numpy(**start, device="cpu")
     resampled = []
     for k in range(ITERS):
         carry, diag = smc_step(model, cfg, carry,
@@ -94,7 +94,7 @@ def test_step_matches_jax_step(jax_trajectory):
 
 def test_interop_round_trip(jax_trajectory):
     start = jax_trajectory[0]
-    back = carry_to_numpy(carry_from_numpy(**start), run_axis=False)
+    back = carry_to_numpy(carry_from_numpy(**start, device="cpu"), run_axis=False)
     for f in CARRY_FIELDS:
         np.testing.assert_array_equal(back[f], start[f])
 

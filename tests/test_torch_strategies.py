@@ -144,7 +144,7 @@ def trajectory(request):
 def test_three_steps_match_jax_step(trajectory):
     case, model, cfg, fields, start, uniforms, recycle, carries, diags = trajectory
     planted = CASES[case][4]
-    carry = carry_from_numpy(**start)
+    carry = carry_from_numpy(**start, device="cpu")
     assert (carry.loglik is not None) == cfg.is_asymptotic
     phis = [float(carry.phi)]
     planted_in = planted is not None

@@ -166,7 +166,7 @@ def trajectory(request):
 def test_three_unfused_steps_match_jax_step(trajectory):
     case, model, mp, cfg, fields, start, draws, carries, diags = trajectory
     assert not uses_fused_path(cfg, mp)
-    carry = carry_from_numpy(**start)
+    carry = carry_from_numpy(**start, device="cpu")
     acceptance = []
     for k in range(ITERS):
         d = {name: torch.as_tensor(v)[None] for name, v in draws[k].items()}
