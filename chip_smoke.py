@@ -4,7 +4,7 @@
     python3 chip_smoke.py --only autodiff,strategies,cli   # some phases, while
                                  # developing: prints no kernels line, no "ok"
     (phase keys: arma, prmwcd, main, batched, staged_times, cli, autodiff,
-    logistic (phase 8 for logistic regression alone), strategies,
+    logistic, eightschools (phase 8 for one model alone), strategies,
     fused_kernel, eager, unfused, wide_eager, generated; device, build and
     peak always run first)
 
@@ -117,13 +117,14 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
    and 0.4, a non-unit inverse mass, r given at depth 0, the batched shape
    25 x 512 at depth 10 (timed), then the staged dispatch as in phase 3
    (accept-reject off and on, a lane with a -inf density, r given; every
-   split tuple equal to the single kernel to the bit). Logistic regression's
-   group kernel (models.logistic.GROUP lanes a tree) is held to its plain
-   version in the same group order to the bit in every case; then its W = 1
-   witness (`ops.nuts_cuda.LOGISTIC_VARIANTS`, one thread a tree, the
-   sequential order) equal to the bit to the plain version at group=1, timed
-   in turns with the main entry at 25 x 512 and at 1,048,576 trees, with
-   ptxas's lines for each. Last, each model's
+   split tuple equal to the single kernel to the bit). The group kernels of
+   logistic regression (models.logistic.GROUP lanes a tree) and eight
+   schools (models.eightschools.GROUP) are held to their plain versions in
+   the same group order to the bit in every case; then each one's W = 1
+   witness (`ops.nuts_cuda.LOGISTIC_VARIANTS`, `EIGHTSCHOOLS_VARIANTS`, one
+   thread a tree, the sequential order) equal to the bit to the plain
+   version at group=1, timed in turns with the main entry at 25 x 512 and at
+   1,048,576 trees, with ptxas's lines for each. Last, each model's
    single kernel and a few split tuples timed at 100 x 512 lanes at the step
    size of its run in phase 9: what the models' compaction hints rest on.
 9. the three strategies, full width, through `run_smc_batched` with 25 runs:
@@ -170,21 +171,28 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
 11. user-written densities: arma written as a scalar torch density
    (`arma_model_fwd`, forward mode, T=200, 3,837 operations) and eight
    schools as a per-particle torch density (`make_eightschools_generated`,
-   reverse mode), traced, simplified and built into one library each (each
+   reverse mode, straight-line, one thread a particle), traced, simplified
+   and built into one library each (each
    build's seconds, the values its program holds live at once in emission
    order (`ops.generated.peak_live`), ptxas's registers, stack and spills and
    its SASS instructions; fails past two minutes). K7f is emitted in
    (primal node, pass) order; its witness, the same program in the order it
-   was built, is a library of its own. Each generated
+   was built, is a library of its own; so is K7r split over 2 lanes a
+   particle (group=2, its sums over the schools a loop). Each generated
    kernel (K7f, K7r) against its plain version (the program executed op by op
    in torch) at 25 x 512 x depth 10 under zero bits and Philox: equal to the
-   bit, else phase 3's contract; staged with a split after every depth equal
+   bit, and phase 3's contract; staged with a split after every depth equal
    to the single kernel to the bit; against the hand kernel of the same
    density on identical inputs (logp0 at atol/rtol 1e-4, integer outputs on
    99.9% of lanes), both timed in turns. K7f's witness equal to its plain
    program and to K7f's kernel to the bit, and timed in turns with K7f and
-   the hand kernel (median of 6). The main path: run_smc_batched on
-   the generated arma at 25 x 512 x K=100 inside the PARITY bands; the
+   the hand kernel (median of 6); K7r at 2 lanes equal to its plain program
+   to the bit, and timed in turns with K7r and the hand K6b at 25 x 512 x
+   depth 10, at the tempered run's 25 x 1024 x depth 6, phi 1 and 0.1, and
+   at 1,048,576 trees.
+   The main path:
+   run_smc_batched on the generated arma at 25 x 512 x K=100 inside the
+   PARITY bands; the
    generated eight schools at phase 9's settings inside the bands of the hand
    kernel's 25 runs; after each, init_state alone and a profile of the first
    iterations (as phase 9's), generated and hand; the same eight-schools
@@ -204,9 +212,10 @@ computes the fused ARMA value and gradient or runs FMA chains, so there is no
 library time). Every "ms" is the device's time alone (utils/timing.device_ms);
 "host_call_ms" beside it is one call timed alone between two events, the
 host's launch included, as the rows were timed before. The witnesses' rows
-(the W = 1 NUTS kernels of arma, PRMwCD and logistic regression, K5's, and
-K7f in the order it was built) are measurement entries: 0 launches on the
-main path and "measurement_entry": true. The
+(the W = 1 NUTS kernels of arma, PRMwCD, logistic regression and eight
+schools, K5's, K7f in the order it was built and K7r split over 2 lanes) are
+measurement entries: 0 launches on the main path and "measurement_entry":
+true. The
 last line is {"ok": true, "device": {...}}. Without a CUDA device, or without the
 repository beside it, the script fails before printing any result.
 """
@@ -766,7 +775,7 @@ def arma_kernel_phase(smi):
              ZERO_BITS)
     wide = (particles(WIDE_TREES, 8, dev)[None], 31, STEP, 1.0, ones, MAX_DEPTH, PHILOX)
     witness = measurement_entries("arma", model, batch_args, single_out, small, smi,
-                                  wide=wide)
+                                  wide=(wide,))
     wide_out = nuts_tree(model, *wide)
     print(f"arma at {WIDE_TREES} trees, depth {MAX_DEPTH}: "
           f"{bound_text(tree_roofline('arma', wide_out))}")
@@ -850,8 +859,9 @@ def timed_in_turns(calls):
 
 def model_ptxas(log, model):
     """ptxas's stack and register lines for every instantiation of the NUTS
-    kernel with the model (`"arma"`, `"prmwcd"` or `"logistic"`), by a
-    readable name (group width, stage, threads a block)."""
+    kernel with the model (`"arma"`, `"prmwcd"`, `"logistic"` or
+    `"eightschools"`), by a readable name (group width, stage, threads a
+    block)."""
     import re
 
     lines, name = {}, None
@@ -862,19 +872,21 @@ def model_ptxas(log, model):
         elif name is not None and ("stack frame" in line or "registers" in line):
             lines[name].append(line.split(":", 1)[-1].strip())
     # nuts_tree_kernel<ArmaModel<W>, kCont, kBlock>,
-    # nuts_tree_kernel<PrmwcdModel<NCov, W>, kCont, kBlock> or
-    # nuts_tree_kernel<LogisticModel<Dim, W>, kCont, kBlock>, mangled.
+    # nuts_tree_kernel<PrmwcdModel<NCov, W>, kCont, kBlock>,
+    # nuts_tree_kernel<LogisticModel<Dim, W>, kCont, kBlock> or
+    # nuts_tree_kernel<EightSchoolsModel<J, W>, kCont, kBlock>, mangled.
     pattern = re.compile({
         "arma": r"ArmaModelILi(\d+)EEELb([01])ELi(\d+)E",
         "prmwcd": r"PrmwcdModelILi\d+ELi(\d+)EEELb([01])ELi(\d+)E",
-        "logistic": r"LogisticModelILi\d+ELi(\d+)EEELb([01])ELi(\d+)E"}[model])
+        "logistic": r"LogisticModelILi\d+ELi(\d+)EEELb([01])ELi(\d+)E",
+        "eightschools": r"EightSchools(?:ModelILi\d+ELi(\d+)EE|Uncapped)ELb([01])ELi(\d+)E"}[model])
     out = {}
     for mangled, info in lines.items():
         m = pattern.search(mangled)
         if m is None:
             continue
         w, cont, block = m.groups()
-        label = (f"W={w}, {'continuation' if cont == '1' else 'first stage'}, "
+        label = (f"W={w or '2 uncapped'}, {'continuation' if cont == '1' else 'first stage'}, "
                  f"{block} threads")
         out[label] = "; ".join(info)
     if not out:
@@ -882,28 +894,31 @@ def model_ptxas(log, model):
     return out
 
 
-def measurement_entries(name, model, batch_args, single_out, small, smi, wide=None):
+def measurement_entries(name, model, batch_args, single_out, small, smi, wide=()):
     """A model's measurement entries (`ops.nuts_cuda.ARMA_VARIANTS`,
-    `PRMWCD_VARIANTS` or `LOGISTIC_VARIANTS`) at the batched main path's
+    `PRMWCD_VARIANTS`, `LOGISTIC_VARIANTS` or `EIGHTSCHOOLS_VARIANTS`) at the
+    batched main path's
     shape: each entry of another
     group width than the main path's equal to the plain version at its width
     (`model.at_group(W)`) to the bit, the W = 1 witness (one thread a particle,
     the sequential order) also on `small` (phi 1.0 and 0.4, zero bits); an
     entry of the main path's width equal to the main path's entry to the
     bit. Then every entry timed in turns (on the device alone, median of
-    VARIANT_ROUNDS), with ptxas's lines; with `wide` (other arguments, not
-    checked against the plain version, which would take too long there) the
-    main entry and the witness once more in turns there. Returns what the
+    VARIANT_ROUNDS), with ptxas's lines; for each argument tuple of `wide`
+    (other shapes, not checked against the plain version, which would take
+    too long there) the main entry and the witness once more in turns there.
+    Returns what the
     kernels line says of the witness: a measurement entry, which the main
     path launches no time."""
-    from smcnuts_torch.models import arma, logistic, prmwcd
+    from smcnuts_torch.models import arma, eightschools, logistic, prmwcd
     from smcnuts_torch.ops.nuts_cuda import (
-        ARMA_VARIANTS, LOGISTIC_VARIANTS, PRMWCD_VARIANTS, build_library, nuts_tree,
-        nuts_tree_plain, nuts_tree_variant)
+        ARMA_VARIANTS, EIGHTSCHOOLS_VARIANTS, LOGISTIC_VARIANTS, PRMWCD_VARIANTS,
+        build_library, nuts_tree, nuts_tree_plain, nuts_tree_variant)
     from smcnuts_torch.utils.timing import CudaTimer, median_ms
 
     variants, mod = {"arma": (ARMA_VARIANTS, arma), "prmwcd": (PRMWCD_VARIANTS, prmwcd),
-                     "logistic": (LOGISTIC_VARIANTS, logistic)}[name]
+                     "logistic": (LOGISTIC_VARIANTS, logistic),
+                     "eightschools": (EIGHTSCHOOLS_VARIANTS, eightschools)}[name]
     group, block = mod.GROUP, mod.BLOCK
     witness_key = next(v for v, (_, g, _) in variants.items() if g == 1)
     for v in variants:
@@ -948,11 +963,11 @@ def measurement_entries(name, model, batch_args, single_out, small, smi, wide=No
     calls.update({v: (lambda v=v: nuts_tree_variant(v, model, *batch_args))
                   for v in variants})
     med = in_turns(calls, f"{RUNS} x {N} x depth {MAX_DEPTH}")
-    if wide is not None:
-        x = wide[0]
-        in_turns({"main": lambda: nuts_tree(model, *wide),
-                  witness_key: lambda: nuts_tree_variant(witness_key, model, *wide)},
-                 f"{x.shape[0]} x {x.shape[1]} x depth {wide[5]}")
+    for args in wide:
+        x = args[0]
+        in_turns({"main": lambda: nuts_tree(model, *args),
+                  witness_key: lambda: nuts_tree_variant(witness_key, model, *args)},
+                 f"{x.shape[0]} x {x.shape[1]} x depth {args[5]}, step {args[2]}")
     lib = build_library()
     for label, info in model_ptxas(lib.log, name).items():
         print(f"  ptxas {name} {label}: {info}")
@@ -1277,13 +1292,15 @@ def survivor_counts():
 
 def tree_slots(model):
     """(trees a warp holds, trees a block holds) in the NUTS kernel: arma,
-    PRMwCD and logistic regression run a group of GROUP lanes a tree in blocks
-    of BLOCK threads (their models/ modules), every other model one lane in
-    blocks of 128 threads."""
+    PRMwCD, eight schools and logistic regression run a group of GROUP lanes
+    a tree in blocks of BLOCK threads (their models/ modules), every other
+    model one lane in blocks of 128 threads."""
     from smcnuts_torch.models import ArmaModel, LogisticModel, PrmwcdModel, arma, prmwcd
-    from smcnuts_torch.models import logistic
+    from smcnuts_torch.models import eightschools, logistic
+    from smcnuts_torch.models.eightschools import EightSchoolsModel
 
-    for cls, mod in ((ArmaModel, arma), (PrmwcdModel, prmwcd), (LogisticModel, logistic)):
+    for cls, mod in ((ArmaModel, arma), (PrmwcdModel, prmwcd), (LogisticModel, logistic),
+                     (EightSchoolsModel, eightschools)):
         if isinstance(model, cls):
             return 32 // mod.GROUP, mod.BLOCK // mod.GROUP
     return 32, 128
@@ -1431,8 +1448,9 @@ def autodiff_cloud(name, shape, seed, device):
 
 def autodiff_kernel_phase(name, smi):
     """Phase 8 for one model; returns what the kernels line says of it and,
-    for logistic regression, of its W = 1 witness (else None)."""
-    from smcnuts_torch.models import logistic
+    for logistic regression and eight schools, of its W = 1 witness (else
+    None)."""
+    from smcnuts_torch.models import eightschools, logistic
     from smcnuts_torch.ops.draws import PHILOX, ZERO_BITS
     from smcnuts_torch.ops.nuts_cuda import build_library, nuts_tree, nuts_tree_plain
 
@@ -1443,14 +1461,16 @@ def autodiff_kernel_phase(name, smi):
     ones = torch.ones(D, device=dev)
     im = torch.linspace(0.5, 2.0, D, device=dev)
     seed2 = torch.tensor([11, 12], dtype=torch.int32, device=dev)
-    # The logistic group kernel sums in the order of its plain version: held
-    # to it to the bit, lanes whose density is not finite included.
-    bitwise = name == "logistic"
+    # The logistic and eight-schools group kernels sum in the order of their
+    # plain versions: held to them to the bit, lanes whose density is not
+    # finite included.
+    group_mod = {"logistic": logistic, "eightschools": eightschools}.get(name)
+    bitwise = group_mod is not None
     if bitwise:
         lib = build_library()
-        print(f"logistic entry: W={logistic.GROUP} lanes a tree, blocks of "
-              f"{logistic.BLOCK} threads, {lib.logistic_blocks_per_sm} blocks an SM "
-              f"at once")
+        print(f"{name} entry: W={group_mod.GROUP} lanes a tree, blocks of "
+              f"{group_mod.BLOCK} threads, {getattr(lib, f'{name}_blocks_per_sm')} "
+              f"blocks an SM at once")
     worst = 0.0
     for source in (ZERO_BITS, PHILOX):
         worst = max(worst, compare(
@@ -1476,7 +1496,7 @@ def autodiff_kernel_phase(name, smi):
         f"{name} [philox] batched shape, {RUNS} x {N}, depth {MAX_DEPTH}",
         single_out, plain_out, bitwise=bitwise))
     if bitwise:
-        print(f"logistic: the group kernel (W={logistic.GROUP}) equals its plain "
+        print(f"{name}: the group kernel (W={group_mod.GROUP}) equals its plain "
               f"version to the bit in every case")
     times = time_pair(f"{name} {RUNS} x {N} x depth {MAX_DEPTH} [philox]",
                       model, batch_args, smi)
@@ -1488,10 +1508,18 @@ def autodiff_kernel_phase(name, smi):
         small[0][0, 0, NAN_LANE[name][0]] = NAN_LANE[name][1]
         wide = (autodiff_cloud(name, (1, WIDE_TREES), 8, dev), 31, step, 1.0, ones,
                 MAX_DEPTH, PHILOX)
+        # Beside the 1,048,576 trees: the shapes of the model's own runs, at
+        # their step and depth, 100 x 512 (the compaction hint's) and
+        # RUNS x n (the full-width run of phase 9).
+        cfg = AUTODIFF_MODELS[name]
+        own = tuple((autodiff_cloud(name, (runs, n), 6, dev),
+                     torch.arange(runs, dtype=torch.int32, device=dev), cfg["step"],
+                     1.0, ones, cfg["depth"], PHILOX)
+                    for runs, n in ((4 * RUNS, N), (RUNS, cfg["n"])))
         witness = measurement_entries(name, model, batch_args, single_out, small, smi,
-                                      wide=wide)
+                                      wide=own + (wide,))
         wide_out = nuts_tree(model, *wide)
-        print(f"logistic at {WIDE_TREES} trees, depth {MAX_DEPTH}: "
+        print(f"{name} at {WIDE_TREES} trees, depth {MAX_DEPTH}: "
               f"{bound_text(tree_roofline(name, wide_out))}")
     staged = staged_kernel_phase(name, model, batch_args, single_out, plain_out, smi,
                                  bitwise=bitwise)
@@ -1512,17 +1540,21 @@ def autodiff_kernel_phase(name, smi):
 
 
 def autodiff_kernels_phase(smi):
-    """Phase 8: what the kernels line says of each model, and of the logistic
-    W = 1 witness."""
+    """Phase 8: what the kernels line says of each model, and of the W = 1
+    witnesses of logistic regression and eight schools."""
     phase("8. Gaussian, eight-schools and logistic kernels vs plain")
     rows = {name: autodiff_kernel_phase(name, smi) for name in AUTODIFF_MODELS}
-    return ({name: row for name, (row, _) in rows.items()}, rows["logistic"][1])
+    return ({name: row for name, (row, _) in rows.items()},
+            {name: w for name, (_, w) in rows.items() if w is not None})
 
 
-def logistic_kernel_phase(smi):
-    """Phase 8 for logistic regression alone (`--only logistic`)."""
-    phase("8. logistic kernel vs plain")
-    return autodiff_kernel_phase("logistic", smi)
+def one_model_phase(name):
+    """Phase 8 for one model alone (`--only logistic` or `--only
+    eightschools`)."""
+    def run(smi):
+        phase(f"8. {name} kernel vs plain")
+        return autodiff_kernel_phase(name, smi)
+    return run
 
 
 def estimates_band(label, got_mean, got_var, ref_mean, ref_var):
@@ -2193,7 +2225,7 @@ def generated_build(label, model):
 
 def generated_kernel_case(label, model, hand, x, step, smi):
     """K7 against its plain version at 25 x 512 x depth 10 under zero bits
-    and Philox (to the bit, else phase 3's contract), the staged dispatch
+    and Philox (to the bit, and phase 3's contract), the staged dispatch
     with a split after every depth against the single kernel (to the bit),
     and against the hand-written kernel of the same density on identical
     inputs (logp0 at atol/rtol 1e-4 on every lane, integer outputs on
@@ -2214,11 +2246,9 @@ def generated_kernel_case(label, model, hand, x, step, smi):
         out_p = nuts_tree_plain(model, *args)
         torch.cuda.synchronize()
         plain_s = time.perf_counter() - t0
-        diff = bitwise_differences(out_k, out_p)
         worst = max(worst, check_outputs(f"{label} [{source}] kernel vs plain", out_k,
-                                         out_p, nan_lanes=True))
-        print(f"{label} [{source}]: kernel and plain version "
-              f"{'equal to the bit' if not diff else f'differ in {diff}'}; plain "
+                                         out_p, nan_lanes=True, bitwise=True))
+        print(f"{label} [{source}]: kernel and plain version equal to the bit; plain "
               f"{plain_s:.1f} s")
         staged = nuts_tree(model, *args, compaction=tuple(range(1, MAX_DEPTH)))
         if bitwise_differences(staged, out_k):
@@ -2264,12 +2294,13 @@ def generated_kernel_case(label, model, hand, x, step, smi):
             **bound}
 
 
-def generated_builds(label, model, others, hand, x, step, smi):
+def generated_builds(label, model, others, hand, x, step, smi, same_program=True):
     """Other builds of one generated density (`others`: a readable name ->
     a CallableModel of the same density, each its own library): each equal
-    to its plain program and to `model`'s kernel, to the bit, under zero bits
-    and Philox at 25 x 512 x depth 10; then every build, `model` and the hand
-    kernel timed in turns (the device alone, median of VARIANT_ROUNDS).
+    to its plain program to the bit, and with `same_program` (the same
+    program in another emission order) to `model`'s kernel too, under zero
+    bits and Philox at 25 x 512 x depth 10; then every build, `model` and the
+    hand kernel timed in turns (the device alone, median of VARIANT_ROUNDS).
     Returns the kernels-line row of the first of `others`, a measurement
     entry that the main path never launches."""
     from smcnuts_torch.ops.draws import PHILOX, ZERO_BITS
@@ -2283,19 +2314,21 @@ def generated_builds(label, model, others, hand, x, step, smi):
     errs, plain_ms, outs = [], None, {}
     for source in (ZERO_BITS, PHILOX):
         args = (x, seeds, step, 1.0, ones, MAX_DEPTH, source)
-        main = nuts_tree(model, *args)
+        main = nuts_tree(model, *args) if same_program else None
         for who, other in others.items():
             out = nuts_tree(other, *args)
             with CudaTimer() as t:
                 plain = nuts_tree_plain(other, *args)
             err = check_outputs(f"{label} {who} [{source}] kernel vs plain", out, plain,
                                 nan_lanes=True, bitwise=True)
-            diff = bitwise_differences(out, main)
-            if diff:
-                raise AssertionError(f"{label} {who} [{source}]: differs from the main "
-                                     f"build's kernel in {diff}")
-            print(f"{label} {who} [{source}]: equal to its plain program and to the main "
-                  f"build's kernel to the bit")
+            if same_program:
+                diff = bitwise_differences(out, main)
+                if diff:
+                    raise AssertionError(f"{label} {who} [{source}]: differs from the "
+                                         f"main build's kernel in {diff}")
+            print(f"{label} {who} [{source}]: equal to its plain program"
+                  + (" and to the main build's kernel" if same_program else "")
+                  + " to the bit")
             if who == first:
                 errs.append(err)
                 if source == PHILOX:
@@ -2343,7 +2376,8 @@ def generated_phase(smi):
     from smcnuts_torch.models.arma import arma_model_fwd
     from smcnuts_torch.models.base import CallableModel
     from smcnuts_torch.models.eightschools import make_eightschools_generated
-    from smcnuts_torch.ops.nuts_cuda import build_library
+    from smcnuts_torch.ops.draws import PHILOX
+    from smcnuts_torch.ops.nuts_cuda import build_library, nuts_tree
 
     phase("11. user-written densities: generated in-kernel models (K7f, K7r)")
     dev = torch.device("cuda")
@@ -2352,7 +2386,11 @@ def generated_phase(smi):
     t1 = time.perf_counter()
     schools = make_eightschools_generated().to(dev)
     print(f"traced and simplified: arma (T=200, forward) in {t1 - t0:.1f} s, eight "
-          f"schools (reverse) in {time.perf_counter() - t1:.1f} s")
+          f"schools (reverse) in {time.perf_counter() - t1:.1f} s; K7r "
+          f"{schools.tile_model.group} lane(s) a particle")
+    # K7r split over 2 lanes a particle, its sums over the schools a loop: a
+    # measurement entry, a library of its own.
+    schools_w2 = make_eightschools_generated(group=2).to(dev)
     # K7f's witness: the same program in the order it was built, the whole
     # primal before the first tangent pass (the emission before the
     # (primal node, pass) order).
@@ -2360,8 +2398,11 @@ def generated_phase(smi):
     generated_build("K7f arma", arma)
     generated_build("K7f arma, built order (the witness)", others["built order"])
     generated_build("K7r eight schools", schools)
+    generated_build("K7r eight schools, 2 lanes a particle", schools_w2)
     hand = sass_instructions(build_library().path)
     print(f"hand arma entries, SASS instructions: {sass_text(hand, 'ArmaModel')}")
+    print(f"hand eight-schools entries, SASS instructions: "
+          f"{sass_text(hand, 'EightSchoolsModel')}")
 
     x_arma = particles(RUNS * N, 6, dev).view(RUNS, N, 4)
     k7f = generated_kernel_case("K7f arma", arma, get_model("arma").to(dev), x_arma,
@@ -2369,10 +2410,39 @@ def generated_phase(smi):
     k7f_built = generated_builds("K7f arma", arma, others, get_model("arma").to(dev),
                                  x_arma, STEP, smi)
     es = AUTODIFF_MODELS["eightschools"]
+    x_schools = autodiff_cloud("eightschools", (RUNS, N), 5, dev)
     k7r = generated_kernel_case("K7r eight schools", schools,
-                                get_model("eightschools").to(dev),
-                                autodiff_cloud("eightschools", (RUNS, N), 5, dev),
+                                get_model("eightschools").to(dev), x_schools,
                                 es["cloud_step"], smi)
+    k7r_w2 = generated_builds("K7r eight schools", schools,
+                              {"2 lanes a particle": schools_w2},
+                              get_model("eightschools").to(dev), x_schools,
+                              es["cloud_step"], smi, same_program=False)
+
+    # K7r at the shape of its main path's run below (RUNS x n trees at the
+    # run's step and depth), phi 1.0 and 0.1, and at WIDE_TREES trees (where
+    # one thread a particle fills the card), in turns with its split over 2
+    # lanes and the hand kernel.
+    ones = torch.ones(schools.dim, device=dev)
+    shapes = [(f"{RUNS} x {es['n']} x depth {es['depth']}, step {es['step']}, phi {phi}",
+               (autodiff_cloud("eightschools", (RUNS, es["n"]), 6, dev),
+                torch.arange(RUNS, dtype=torch.int32, device=dev), es["step"], phi, ones,
+                es["depth"], PHILOX)) for phi in (1.0, 0.1)]
+    shapes.append((f"1 x {WIDE_TREES} x depth {MAX_DEPTH}, step {es['cloud_step']}, phi 1.0",
+                   (autodiff_cloud("eightschools", (1, WIDE_TREES), 8, dev), 31,
+                    es["cloud_step"], 1.0, ones, MAX_DEPTH, PHILOX)))
+    hand_schools = get_model("eightschools").to(dev)
+    for shape, args in shapes:
+        calls = {"hand": lambda: nuts_tree(hand_schools, *args),
+                 "main": lambda: nuts_tree(schools, *args),
+                 "2 lanes a particle": lambda: nuts_tree(schools_w2, *args)}
+        rounds, med = timed_in_turns(calls)
+        for k in calls:
+            print(f"time K7r eight schools {k}, {shape} [philox]: {med[k]:.4f} ms, "
+                  f"{med['main'] / med[k]:.3f}x faster than the main entry "
+                  f"(device alone, {DEVICE_REPEATS} launches back to back; median of "
+                  f"{VARIANT_ROUNDS} in turns: {', '.join(f'{v:.4f}' for v in rounds[k])}; "
+                  f"{smi})")
 
     # The main path: the generated arma at bench.py's configuration, inside
     # the PARITY bands.
@@ -2415,7 +2485,7 @@ def generated_phase(smi):
     print(f"eager eight schools (autograd, no generated model) on the card: "
           f"{EAGER_CARD_K} iterations in {wall:.1f} s (host clock), no kernel launch, "
           f"final mean {[round(v, 3) for v in res.mean_estimate[EAGER_CARD_K].tolist()[:2]]}")
-    return k7f, k7r, k7f_built
+    return k7f, k7r, k7f_built, k7r_w2
 
 
 def partial_run(only, smi):
@@ -2424,7 +2494,8 @@ def partial_run(only, smi):
     phases = {"arma": arma_kernel_phase, "prmwcd": prmwcd_kernel_phase,
               "main": main_path_phase, "batched": batched_phase,
               "staged_times": staged_times_phase, "cli": lambda smi: cli_phase(),
-              "autodiff": autodiff_kernels_phase, "logistic": logistic_kernel_phase,
+              "autodiff": autodiff_kernels_phase, "logistic": one_model_phase("logistic"),
+              "eightschools": one_model_phase("eightschools"),
               "strategies": strategies_phase,
               "fused_kernel": arma_fused_kernel_phase, "eager": eager_arma_phase,
               "unfused": unfused_kernel_phase, "wide_eager": wide_eager_phase,
@@ -2448,11 +2519,11 @@ def main():
     batched, cont = batched_phase(smi)
     staged_times_phase(smi)
     prm_cli, schools_cli = cli_phase()
-    autodiff, logistic_w1 = autodiff_kernels_phase(smi)
+    autodiff, witnesses = autodiff_kernels_phase(smi)
     strategies, strategies_cont = strategies_phase(smi)
     strategies["eightschools"] += schools_cli
     k5, k5_w1, k1u = fused_phase(smi)
-    k7f, k7r, k7f_built = generated_phase(smi)
+    k7f, k7r, k7f_built, k7r_w2 = generated_phase(smi)
     source = "smcnuts_torch/csrc/nuts_tree.cuh"
     # No single PyTorch call builds a NUTS tree, computes the fused ARMA
     # value and gradient or runs FMA chains, so no kernel has a library time.
@@ -2492,10 +2563,14 @@ def main():
              launches=strategies[model], **autodiff[model])
         for model in AUTODIFF_MODELS
     ]
-    # K6c's W = 1 witness (one thread a particle): a measurement entry.
-    kernels.append(dict(name="nuts_tree_logistic_w1", route="cuda",
-                        source="smcnuts_torch/csrc/logistic_variants.cu",
-                        replaces="smcnuts_tpu/ops/nuts_pallas.py:1094", **logistic_w1))
+    # The W = 1 witnesses of K6c and K6b (one thread a particle):
+    # measurement entries.
+    kernels += [
+        dict(name=f"nuts_tree_{model}_w1", route="cuda",
+             source=f"smcnuts_torch/csrc/{model}_variants.cu",
+             replaces="smcnuts_tpu/ops/nuts_pallas.py:1094", **witnesses[model])
+        for model in ("logistic", "eightschools")
+    ]
     kernels += [
         # K5: the fused ARMA value and gradient that the eager tree calls.
         dict(name="arma_ll_vg", route="cuda", source="smcnuts_torch/csrc/arma_fused.cu",
@@ -2518,6 +2593,11 @@ def main():
         dict(name="nuts_tree_generated_eightschools_reverse", route="cuda",
              source="smcnuts_torch/ops/generated.py",
              replaces="smcnuts_tpu/ops/nuts_pallas.py:1126", **k7r),
+        # K7r split over 2 lanes a particle, its own library; a measurement
+        # entry.
+        dict(name="nuts_tree_generated_eightschools_reverse_w2", route="cuda",
+             source="smcnuts_torch/ops/generated.py",
+             replaces="smcnuts_tpu/ops/nuts_pallas.py:1126", **k7r_w2),
         # K8: the FP32 peak, through its own entry point (ops/peak.peak_table).
         dict(name="fma_peak", route="cuda", source="smcnuts_torch/csrc/fma_peak.cu",
              replaces="experiments/bench_vpu_peak.py:38", **k8),

@@ -11,7 +11,9 @@
 //   static constexpr int kGroup;  // W: lanes that evaluate one particle
 // in which case the kernel calls logp_grad from the W lanes of a group
 // together, each holding the same x, and every lane must return the same
-// bits (group_lane, group_mask below).
+// bits (group_lane, group_mask below), and
+//   static constexpr int kMaxRegisters;  // a register cap for ptxas, or 0
+// (nuts_tree.cuh: MinBlocks).
 #pragma once
 
 namespace smcnuts {

@@ -33,6 +33,9 @@ constexpr int kPrmwcdGroup = 16;  // lanes a PRMwCD particle: a half warp
 constexpr int kPrmwcdBlock = 64;  // threads a block of the PRMwCD entry: 4 particles
 using PrmwcdGroupModel = PrmwcdModel<kPrmwcdCov, kPrmwcdGroup>;
 constexpr int kSchools = 8;     // schools of the eight-schools instantiation (D = 10)
+constexpr int kSchoolsGroup = 2;  // lanes an eight-schools particle: four schools a lane
+constexpr int kSchoolsBlock = 64;  // threads a block of the eight-schools entry
+using EightSchoolsGroupModel = EightSchoolsModel<kSchools, kSchoolsGroup>;
 constexpr int kLogisticDim = 8; // covariates of the logistic instantiation
 constexpr int kLogisticGroup = 16;  // lanes a logistic particle: a half warp
 constexpr int kLogisticBlock = 64;  // threads a block of the logistic entry: 4 particles
@@ -66,6 +69,15 @@ int smcnuts_prmwcd_blocks_per_sm(int n_data) {
 
 int smcnuts_eightschools_j() { return smcnuts::kSchools; }
 
+int smcnuts_eightschools_group() { return smcnuts::kSchoolsGroup; }
+
+int smcnuts_eightschools_block() { return smcnuts::kSchoolsBlock; }
+
+// Blocks of the eight-schools entry an SM holds at once, with n_data floats of data.
+int smcnuts_eightschools_blocks_per_sm(int n_data) {
+  return smcnuts::blocks_per_sm<smcnuts::EightSchoolsGroupModel, smcnuts::kSchoolsBlock>(n_data);
+}
+
 int smcnuts_logistic_dim() { return smcnuts::kLogisticDim; }
 
 int smcnuts_logistic_group() { return smcnuts::kLogisticGroup; }
@@ -86,7 +98,8 @@ SMCNUTS_ENTRY(smcnuts_nuts_tree_prmwcd, smcnuts::PrmwcdGroupModel, smcnuts::kPrm
 SMCNUTS_ENTRY(smcnuts_nuts_tree_gaussian2, smcnuts::GaussianModel<2>)
 SMCNUTS_ENTRY(smcnuts_nuts_tree_gaussian3, smcnuts::GaussianModel<3>)
 SMCNUTS_ENTRY(smcnuts_nuts_tree_gaussian5, smcnuts::GaussianModel<5>)
-SMCNUTS_ENTRY(smcnuts_nuts_tree_eightschools, smcnuts::EightSchoolsModel<smcnuts::kSchools>)
+SMCNUTS_ENTRY(smcnuts_nuts_tree_eightschools, smcnuts::EightSchoolsGroupModel,
+              smcnuts::kSchoolsBlock)
 SMCNUTS_ENTRY(smcnuts_nuts_tree_logistic, smcnuts::LogisticGroupModel, smcnuts::kLogisticBlock)
 
 }  // extern "C"

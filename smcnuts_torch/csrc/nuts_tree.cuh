@@ -37,8 +37,14 @@
 // blocks of 64 threads (the T-step recurrence split over the lanes by
 // segments and a lane scan), PRMwCD at W = 16, a half warp a particle, in
 // blocks of 64 threads, logistic regression at W = 16 in blocks of 64 (its
-// 64 observations split over the lanes); every other model at W = 1 in
-// blocks of 128.
+// 64 observations split over the lanes), eight schools at W = 2 in blocks of
+// 64 (four schools a lane), a generated reverse-mode model whose sums split
+// over lanes at its own W (ops/generated.py); every other model at W = 1 in
+// blocks of 128. A model may also name a register cap (Model::kMaxRegisters:
+// the eight-schools and generated group models, 128); its kernel is then
+// nuts_tree_kernel_capped, the same body under a bound that makes ptxas keep
+// to it (MinBlocks), while every other model keeps nuts_tree_kernel's
+// bound, which names no blocks and leaves ptxas its own choice.
 //
 // What bounds it on this card: FP32 issue and latency in the model of every
 // leaf (arma: the serial T=200 error recurrence, each step depending on the
@@ -185,6 +191,28 @@ struct GroupWidth<Model, std::void_t<decltype(Model::kGroup)>> {
   static constexpr int value = Model::kGroup;
 };
 
+// The blocks of kBlock threads that __launch_bounds__ asks an SM to hold at
+// once where the model names a register cap above 0 (Model::kMaxRegisters):
+// 65536 registers / (the cap x kBlock). 0 where it names none, and then the
+// kernel is nuts_tree_kernel, whose bound names no blocks (ptxas's choice).
+// Why a cap, where occupancy does not call for one: shared memory holds the
+// eight-schools entry at W = 2 in blocks of 64 to 5 blocks an SM, and so
+// would 168 registers a thread, ptxas's own choice for its continuation
+// stage. Held to 128 it ran 0.9% faster on an H100 all the same, timed in
+// turns with the uncapped build (eightschools_variants.cu; PERF.md), a gap
+// twenty times the spread between rounds. A bound on the shared kernel
+// instead of a second one would not do: a minimum of 1 block recompiles
+// every other model (arma's W = 8 entry went from 80 to 96 registers).
+template <class Model, int kBlock, class = void>
+struct MinBlocks {
+  static constexpr int value = 0;
+};
+template <class Model, int kBlock>
+struct MinBlocks<Model, kBlock, std::void_t<decltype(Model::kMaxRegisters)>> {
+  static constexpr int value =
+      Model::kMaxRegisters > 0 ? 65536 / (Model::kMaxRegisters * kBlock) : 0;
+};
+
 // A slot of the next stage's bundle for every calling thread: the threads of
 // the warp that are here together take consecutive slots from one atomicAdd.
 __device__ __forceinline__ int reserve_slot(int* counter) {
@@ -231,7 +259,7 @@ __host__ __device__ constexpr int group_floats() {
 // kCont = true: a continuation stage, group t takes slot t of cont_in.
 // A group is one thread at W = 1, and then t is the thread's index.
 template <class Model, bool kCont, int kBlock>
-__global__ void __launch_bounds__(kBlock) nuts_tree_kernel(const TreeArgs a) {
+__device__ __forceinline__ void nuts_tree_body(const TreeArgs a) {
   constexpr int D = Model::D;
   constexpr int W = GroupWidth<Model>::value;
   static_assert(W >= 1 && W <= 32 && 32 % W == 0 && kBlock % 32 == 0, "group width");
@@ -459,6 +487,29 @@ __global__ void __launch_bounds__(kBlock) nuts_tree_kernel(const TreeArgs a) {
   a.stats[7 * P + p] = moved;
 }
 
+template <class Model, bool kCont, int kBlock>
+__global__ void __launch_bounds__(kBlock) nuts_tree_kernel(const TreeArgs a) {
+  nuts_tree_body<Model, kCont, kBlock>(a);
+}
+
+// The same kernel for a model that names a register cap: ptxas is held to
+// it by the blocks an SM must hold at once.
+template <class Model, bool kCont, int kBlock>
+__global__ void __launch_bounds__(kBlock, (MinBlocks<Model, kBlock>::value))
+    nuts_tree_kernel_capped(const TreeArgs a) {
+  nuts_tree_body<Model, kCont, kBlock>(a);
+}
+
+// The kernel of a model and stage.
+template <class Model, bool kCont, int kBlock>
+constexpr auto tree_kernel() {
+  if constexpr (MinBlocks<Model, kBlock>::value > 0) {
+    return nuts_tree_kernel_capped<Model, kCont, kBlock>;
+  } else {
+    return nuts_tree_kernel<Model, kCont, kBlock>;
+  }
+}
+
 // Dynamic shared memory of a block: the model's data, then each group's.
 template <class Model, int kBlock>
 size_t block_smem(int n_data) {
@@ -472,7 +523,7 @@ template <class Model, int kBlock = kThreads>
 int blocks_per_sm(int n_data) {
   int n = 0;
   const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &n, nuts_tree_kernel<Model, false, kBlock>, kBlock, block_smem<Model, kBlock>(n_data));
+      &n, tree_kernel<Model, false, kBlock>(), kBlock, block_smem<Model, kBlock>(n_data));
   return err == cudaSuccess ? n : -1;
 }
 
@@ -504,9 +555,11 @@ int launch(const float* x, const float* r, const float* data, int n_data, const 
   const size_t smem = block_smem<Model, kBlock>(n_data);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (cont) {
-    nuts_tree_kernel<Model, true, kBlock><<<blocks, kBlock, smem, st>>>(args);
+    const auto kernel = tree_kernel<Model, true, kBlock>();
+    kernel<<<blocks, kBlock, smem, st>>>(args);
   } else {
-    nuts_tree_kernel<Model, false, kBlock><<<blocks, kBlock, smem, st>>>(args);
+    const auto kernel = tree_kernel<Model, false, kBlock>();
+    kernel<<<blocks, kBlock, smem, st>>>(args);
   }
   return static_cast<int>(cudaGetLastError());
 }

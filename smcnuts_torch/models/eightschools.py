@@ -14,6 +14,7 @@ reverse-mode model of `ops/generated.tile_model_from_logp`.
 
 from __future__ import annotations
 
+import copy
 import math
 
 import numpy as np
@@ -21,7 +22,7 @@ import torch
 from torch import nn
 
 from ..ops.generated import tile_model_from_logp
-from .base import LOG_SQRT_2PI, CallableModel, cauchy_lpdf, normal_lpdf
+from .base import LOG_SQRT_2PI, CallableModel, cauchy_lpdf, check_group, normal_lpdf
 
 Y = np.array([28.0, 8.0, -3.0, 7.0, -1.0, 1.0, 18.0, 12.0])
 SIGMA = np.array([15.0, 10.0, 16.0, 11.0, 9.0, 11.0, 10.0, 18.0])
@@ -33,6 +34,17 @@ TAU_CONST = -math.log(math.pi) - LOG_5  # of Cauchy(0, 5) on tau
 LOG_2 = math.log(2.0)
 INV_5 = 0.2
 
+# Lanes that evaluate one particle in the CUDA kernel (kSchoolsGroup of
+# csrc/nuts_tree.cu, four schools a lane; ops/nuts_cuda.py checks the two
+# agree): the order in which logp_and_grad sums the schools by default.
+# Threads a block of the eight-schools kernel (kSchoolsBlock), and the blocks
+# of it an H100 SM holds at once; ops/nuts_cuda.py checks both against the
+# built kernel before it launches it, since the compaction threshold below
+# rests on them.
+GROUP = 2
+BLOCK = 64
+BLOCKS_PER_SM = 5
+
 
 class EightSchoolsModel(nn.Module):
     """`y` and `sigma` (J,) are float64 buffers that follow `.to(device)`;
@@ -40,11 +52,21 @@ class EightSchoolsModel(nn.Module):
     the rounded sigma, as the JAX tile model does."""
 
     name = "eightschools"
-    # `chip_smoke.py` timed the single kernel and six split tuples at 51,200
-    # lanes (step 0.2, depth 6) on an NVIDIA H100, 700 W: none was faster than
-    # the single kernel (0.355 ms; the tuples 0.387-0.525 ms). No hint.
-    compaction_hint = ()
+    # `chip_smoke.py` phase 8 timed the group kernel's single dispatch and six
+    # split tuples at 51,200 lanes (100 x 512, step 0.2, depth 6: the settings
+    # of phase 9's eight-schools run) on an NVIDIA H100 80GB HBM3, 700 W, the
+    # device alone: a split after doubling 3 took 0.2515 / 0.2518 ms against
+    # the single kernel's 0.2577-0.2587, the fastest in two runs; the other
+    # tuples 0.2912-0.3204. (The one-thread-a-tree kernel before it gained
+    # from no split: 0.355 ms single, the tuples 0.387-0.525.) No adapted run
+    # was measured: no adapted hint.
+    compaction_hint = (3,)
     compaction_hint_adapted = ()
+    # A hint pays only past the trees the card holds at once in the
+    # eight-schools kernel, counted in its blocks: the H100's 132 SMs x
+    # BLOCKS_PER_SM blocks x BLOCK / GROUP trees a block.
+    compaction_min_lanes = 132 * BLOCKS_PER_SM * (BLOCK // GROUP)
+    group = GROUP  # the group order of logp_and_grad's default (at_group)
 
     def __init__(self, y=None, sigma=None):
         super().__init__()
@@ -81,15 +103,26 @@ class EightSchoolsModel(nn.Module):
     def logp(self, x, phi=1.0):
         return self.logprior(x) + phi * self.loglik(x)
 
-    def logp_and_grad(self, x, phi=1.0):
+    def logp_and_grad(self, x, phi=1.0, group=None):
         """Tempered logp and its gradient in closed form, written op for op
-        as the kernel's device function (`csrc/eightschools_model.cuh`) and
-        in the order of the JAX tile density: the priors on mu and tau, then
-        per school j in sequence lp -= (0.5 tt_j) tt_j + c and
-        ll -= (0.5 z_j) z_j + log sigma_j + c with
-        z_j = ((y_j - mu) - tau tt_j) / sigma_j. A division by 5 is a
-        multiplication by 0.2 on both sides. A large log_tau overflows tau and
-        gives lp = -inf, which the tree's divergence guard handles."""
+        as the kernel's device function (`csrc/eightschools_model.cuh`) at
+        group width W = `group` (None: the model's, `GROUP` unless `at_group`
+        set another), so the two round alike. The priors on mu and tau give
+        lp0; per school j, the terms of the JAX tile density:
+        (0.5 tt_j) tt_j + c of the prior, (0.5 z_j) z_j + log sigma_j + c of
+        the likelihood with z_j = ((y_j - mu) - tau tt_j) / sigma_j, and
+        zs_j = z_j / sigma_j for the gradient. Lane l of W takes schools
+        l, l + W, ... in that order on four partials (the tt prior, ll,
+        sum zs_j, sum zs_j (tau tt_j)), every one from zero (mu * 0) except
+        the tt prior's at W = 1, which starts from lp0: W = 1 is the
+        sequential order of the JAX tile density. At W > 1 the partials are
+        reduced by the kernel's xor butterfly, v = v + v[lane ^ o] for
+        o = W/2, ..., 1, lane 0's sums are taken and lp = lp0 + the tt
+        prior's. A division by 5 is a multiplication by 0.2 on both sides. A
+        large log_tau overflows tau and gives lp = -inf, which the tree's
+        divergence guard handles. No reduction op: its summation order
+        differs from the kernel's."""
+        W = check_group(self.group if group is None else group)
         y, sigma, log_sigma = self._data(x.dtype)
         J = self.n_schools
         mu, log_tau, tt = x[:, 0], x[:, 1], x[:, 2:]
@@ -107,14 +140,28 @@ class EightSchoolsModel(nn.Module):
         q_tt = (0.5 * tt) * tt
         q_z = (0.5 * z) * z
         lt_term = zs * (tau[:, None] * tt)
-        ll = mu * 0.0
-        g_mu_ll = mu * 0.0
-        g_lt_ll = mu * 0.0
-        for j in range(J):
-            lp = (lp - q_tt[:, j]) - LOG_SQRT_2PI
-            ll = ((ll - q_z[:, j]) - log_sigma[j]) - LOG_SQRT_2PI
-            g_mu_ll = g_mu_ll + zs[:, j]
-            g_lt_ll = g_lt_ll + lt_term[:, j]
+        # Lane l's partials in column l: the tt prior, ll, sum zs, sum lt_term.
+        zero = (mu * 0.0)[:, None].expand(-1, W)
+        pt = lp[:, None].expand(-1, W) if W == 1 else zero
+        ll, g_mu_ll, g_lt_ll = zero, zero, zero
+        for lo in range(0, J, W):
+            n = min(W, J - lo)  # lanes that have school lo + l
+
+            def step(acc, new):
+                return torch.cat([new, acc[:, n:]], dim=1)
+
+            cols = slice(lo, lo + n)
+            pt = step(pt, (pt[:, :n] - q_tt[:, cols]) - LOG_SQRT_2PI)
+            ll = step(ll, ((ll[:, :n] - q_z[:, cols]) - log_sigma[cols]) - LOG_SQRT_2PI)
+            g_mu_ll = step(g_mu_ll, g_mu_ll[:, :n] + zs[:, cols])
+            g_lt_ll = step(g_lt_ll, g_lt_ll[:, :n] + lt_term[:, cols])
+        lanes = torch.arange(W, device=x.device)
+        o = W // 2
+        while o:
+            pt, ll, g_mu_ll, g_lt_ll = (v + v[:, lanes ^ o] for v in (pt, ll, g_mu_ll, g_lt_ll))
+            o //= 2
+        pt, ll, g_mu_ll, g_lt_ll = pt[:, 0], ll[:, 0], g_mu_ll[:, 0], g_lt_ll[:, 0]
+        lp = pt if W == 1 else lp + pt
         phi_col = phi[:, None] if isinstance(phi, torch.Tensor) else phi
         grad = torch.cat([
             (g_mu_lp + phi * g_mu_ll)[:, None],
@@ -122,6 +169,16 @@ class EightSchoolsModel(nn.Module):
             -tt + phi_col * (zs * tau[:, None]),
         ], dim=1)
         return lp + phi * ll, grad
+
+    def at_group(self, group):
+        """The same model (its buffers shared) whose `logp_and_grad` sums at
+        group width `group` by default: the plain version, for
+        `ops.nuts_cuda.nuts_tree_plain` or the eager SMC loop, of a kernel
+        entry of that width (`ops.nuts_cuda.nuts_tree_variant`). The main
+        kernel runs GROUP lanes only and refuses another width."""
+        view = copy.copy(self)
+        view.group = check_group(group)
+        return view
 
     def constrain(self, x):
         mu, tau = x[:, 0:1], torch.exp(x[:, 1:2])
@@ -165,9 +222,11 @@ def eightschools_loglik(y=None, sigma=None):
     return loglik
 
 
-def make_eightschools_generated(y=None, sigma=None) -> CallableModel:
+def make_eightschools_generated(y=None, sigma=None, group=None) -> CallableModel:
     """Eight schools as a per-particle torch density with its generated
-    reverse-mode in-kernel model."""
+    reverse-mode in-kernel model (`tile_model_from_logp`'s `group`: None or
+    1 the straight-line program, one thread a particle; 2 its sums over the
+    schools split over 2 lanes a particle)."""
     loglik = eightschools_loglik(y, sigma)
     dim = 2 + len(Y if y is None else y)
 
@@ -181,5 +240,5 @@ def make_eightschools_generated(y=None, sigma=None) -> CallableModel:
     return CallableModel(
         "eightschools", dim, eightschools_logprior, loglik, constrain=constrain,
         param_names=("mu", "tau") + tuple(f"theta.{j + 1}" for j in range(dim - 2)),
-        tile_model=tile_model_from_logp(logp, dim, name="eightschools"),
+        tile_model=tile_model_from_logp(logp, dim, name="eightschools", group=group),
     )

@@ -16,7 +16,18 @@ both cleaned up by `_cse_jaxpr` / `_simplify_call` (`:1193`, `:1422`). Here:
   `torch.func.jvp` instead gives 31k nodes for arma at T=200). Its program
   is emitted in (primal node, pass) order (`_primal_order`), which keeps few
   values live at once (`peak_live`); reverse-mode programs keep the order
-  they were built in.
+  they were built in;
+- a reverse-mode program whose sums over an axis have summand cones that
+  are one body (the same ops in the same shape, reading x[a + i], data and
+  literals of their own, and values every summand shares: `_Body`) is split
+  over a group of W lanes a particle where the caller asks for W
+  (`_choose_group`, `_group_program`):
+  the sums are built as W lanes run them (lane l folds summands l, l + W,
+  ... in index order, an xor butterfly adds the lane partials), the body is
+  emitted once inside a loop over a lane's summands with the data re-laid
+  out as a table (entry i summand i's), the values read after the loop
+  (such as grad[2 + j]) broadcast by shuffles, and every other node stays
+  straight-line in every lane (`Loop`, `_c_loop`).
 
 Both lower the traced graph to a program of scalar operations (`_Scalars`):
 every element of a per-particle tensor becomes its own value, so a small
@@ -47,10 +58,15 @@ version compute, so they round alike, op for op:
   `SMCNUTS_ENTRY` of `csrc/nuts_tree.cuh` (a first-stage and a continuation
   instantiation) with the flags of `ops/nuts_cuda.NVCC_FLAGS`.
 
+The program of a split model holds the lanes' partials and lane 0's
+butterfly adds as ordinary adds, so the plain version, `count_ops` and
+`peak_live` compute what the lanes compute.
+
 What bounds the kernel on an H100: the FP32 instruction rate and latency of
 its straight-line program (`GeneratedModel.n_ops` operations a leapfrog),
 which `chip_smoke.py` divides by the card's FP32 rate (and by the FMUL+FADD
-peak of `ops/peak.py`, what the -fmad=false build can reach).
+peak of `ops/peak.py`, what the -fmad=false build can reach); in a split
+model also the tree control, which every lane of a group repeats.
 
 Supported ATen ops: add, sub, rsub, mul, div, neg, exp, expm1, log, log1p,
 sqrt, rsqrt, reciprocal, pow by a constant, tanh, sigmoid, abs, sign,
@@ -64,6 +80,7 @@ NotImplementedError naming the ATen op and the model.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import hashlib
@@ -73,6 +90,7 @@ import operator
 import os
 import struct
 import subprocess
+import sys
 import time
 
 import numpy as np
@@ -82,6 +100,16 @@ from torch import nn
 # The forward adapter's cap on the dimension, as the JAX frontend's
 # (`smcnuts_tpu/stan/compiler.py:2856`): D passes of tracing.
 MAX_FORWARD_DIM = 128
+# The group width of a reverse-mode program where the caller names none, and
+# the threads a block of a grouped program's entry. On an H100 (chip_smoke.py
+# phase 11; PERF.md) the generated eight schools split over 2 lanes in blocks
+# of 64 threads was its fastest split (W = 4 and 8 slower, the tree control
+# that every lane repeats outgrowing the split density) and 1.07x the
+# straight-line program at 25 x 512 trees x depth 10, but not faster at the
+# shape of its own tempered run (25 x 1024 trees, depth 6: even at phi 1,
+# 0.87x at phi 0.1): one thread a particle stays the default.
+DEFAULT_GROUP = 1
+GROUP_BLOCK = 64
 
 _aten = torch.ops.aten
 
@@ -106,6 +134,18 @@ class _Scaled:
 
     def __init__(self, c: float, base: int):
         self.c, self.base = c, base
+
+
+@dataclasses.dataclass(frozen=True)
+class _Grouped:
+    """A sum built at group width W (`_Scalars.reduce`): its summand nodes in
+    index order, the lane partials and butterfly adds inside it, and the sum
+    itself, lane 0's value after the butterfly."""
+
+    W: int
+    items: tuple
+    inner: frozenset
+    root: int
 
 
 _BINARY = {"add": np.add, "sub": np.subtract, "mul": np.multiply, "div": np.divide}
@@ -153,7 +193,7 @@ class _Scalars:
     node id, a float a float32 literal; "x" (coordinate d), "phi" and "data"
     (index into the data block) are the leaves."""
 
-    def __init__(self):
+    def __init__(self, plan=None):
         self.ops = []
         self.memo = {}
         self.known = {}  # data node id -> its value
@@ -162,6 +202,12 @@ class _Scalars:
         # forward passes set it to (primal node, pass) (`tile_model_from_logp_fwd`).
         self.ctx = None
         self.keys = {}  # node id -> the ctx it was first created in
+        # Every sum over an axis (`reduce`): (summands in index order, the
+        # sum). `plan` maps a sum's place in that list to the group width W
+        # it is built at; the sums it does not name are folded in sequence.
+        self.reductions = []
+        self.plan = plan or {}
+        self.grouped = []  # the sums built at a width: `_Grouped`
 
     # -- leaves and nodes ---------------------------------------------------
     def _append(self, op):
@@ -340,6 +386,45 @@ class _Scalars:
             return a
         return self.node("where", c, a, b)
 
+    def reduce(self, items):
+        """The sum of `items` in index order. Folded in sequence, the adds
+        the kernel and its plain version both run; at a group width W that
+        the plan names, as W lanes run it: lane l folds items l, l + W, ...
+        in that order, then an xor butterfly adds the lane partials, and the
+        sum is lane 0's. Those adds are built as they are, unsimplified, so
+        the program holds exactly the lanes' operations."""
+        k = len(self.reductions)
+        W = self.plan.get(k, 1)
+        if W == 1:
+            acc = items[0] if items else 0.0
+            for v in items[1:]:
+                acc = self.add(acc, v)
+            self.reductions.append((list(items), acc))
+            return acc
+        items = [self.mat(v) for v in items]
+        inner = set()
+
+        def add(a, c):
+            v = self.node("add", a, c, commutative=True)
+            inner.add(v)
+            return v
+
+        lanes = []
+        for lane in range(W):
+            acc = items[lane]
+            for v in items[lane + W::W]:
+                acc = add(acc, v)
+            lanes.append(acc)
+        o = W // 2
+        while o:
+            lanes = [add(lanes[lane], lanes[lane ^ o]) for lane in range(W)]
+            o //= 2
+        root = lanes[0]
+        inner.discard(root)
+        self.reductions.append((items, root))
+        self.grouped.append(_Grouped(W, tuple(items), frozenset(inner), root))
+        return root
+
 
 # ---------------------------------------------------------------------------
 # Forward mode: the port's own tangent rules over the primal program.
@@ -435,12 +520,8 @@ def _ew(fn, *vals) -> np.ndarray:
 
 
 def _seq_sum(b: _Scalars, items):
-    """Left fold in index order: the sequential adds the kernel and its
-    plain version both run."""
-    acc = items[0] if items else 0.0
-    for v in items[1:]:
-        acc = b.add(acc, v)
-    return acc
+    """The sum of items in index order (`_Scalars.reduce`)."""
+    return b.reduce(list(items))
 
 
 def _reduce(b, a, dims, keepdim):
@@ -663,13 +744,34 @@ class Program:
     grad: tuple
     data: tuple
     dim: int
+    # A program split over a group of W lanes (`_group_program`): its loops
+    # (`Loop`) and the order in which its straight-line nodes ("v", i) and
+    # loops ("loop", k) are emitted. W = 1: none, every node in order.
+    group: int = 1
+    loops: tuple = ()
+    schedule: tuple = ()
 
 
-def _finish(b: _Scalars, logp, grads, dim, order="built") -> Program:
-    """The program of the outputs: their live nodes, renumbered in emission
-    order, "built" (the order the nodes were made in) or "primal" (a forward
-    program's (primal node, pass) order, `_primal_order`)."""
-    outs = [b.mat(logp)] + [b.mat(g) for g in grads]
+@dataclasses.dataclass(frozen=True)
+class Loop:
+    """The sums of n summands whose summand cones are one body, emitted once
+    inside a loop over a lane's summands i = lane + k W. `ops[t]` is
+    (op, refs), a template op evaluated at index i; a ref is ("u", v) a node
+    computed before the loop or a literal, ("x", a) the coordinate x[a + i],
+    ("col", o) entry o + i of the data block (a column of the data table)
+    or ("t", t) template op t. `sums[r]` is (the summand's ref, the node of
+    the sum); `exports[e]` is (template op t, ((i, node), ...)): the program
+    nodes of op t that are read after the loop, broadcast from the lane that
+    owns index i."""
+
+    n: int
+    ops: tuple
+    sums: tuple
+    exports: tuple
+
+
+def _live(b: _Scalars, outs) -> set:
+    """The nodes the outputs read, transitively."""
     live = set()
     stack = [o for o in outs if type(o) is int]
     while stack:
@@ -680,6 +782,20 @@ def _finish(b: _Scalars, logp, grads, dim, order="built") -> Program:
         op, *args = b.ops[i]
         if op not in ("x", "phi", "data"):
             stack += [a for a in args if type(a) is int]
+    return live
+
+
+def _finish(b: _Scalars, logp, grads, dim, order="built") -> Program:
+    """The program of the outputs: their live nodes, renumbered in emission
+    order, "built" (the order the nodes were made in) or "primal" (a forward
+    program's (primal node, pass) order, `_primal_order`)."""
+    return _finish_map(b, logp, grads, dim, order)[0]
+
+
+def _finish_map(b: _Scalars, logp, grads, dim, order="built"):
+    """`_finish`, and the map from the builder's node ids to the program's."""
+    outs = [b.mat(logp)] + [b.mat(g) for g in grads]
+    live = _live(b, outs)
     order = _order(b.ops, live) if order == "built" else _primal_order(b.ops, live, b.keys)
     new = {old: k for k, old in enumerate(order)}
     data_ids = sorted(i for i in order if b.ops[i][0] == "data")
@@ -695,7 +811,7 @@ def _finish(b: _Scalars, logp, grads, dim, order="built") -> Program:
             ops.append((op, *(new[a] if type(a) is int else a for a in args)))
     ren = [new[o] if type(o) is int else o for o in outs]
     data = tuple(b.data[b.ops[i][1]] for i in data_ids)
-    return Program(tuple(ops), ren[0], tuple(ren[1:]), data, dim)
+    return Program(tuple(ops), ren[0], tuple(ren[1:]), data, dim), new
 
 
 def _order(ops, live) -> list:
@@ -766,6 +882,374 @@ def peak_live(prog: Program) -> int:
     return peak
 
 
+# ---------------------------------------------------------------------------
+# Sums split over a group of lanes: the re-roll pass.
+# ---------------------------------------------------------------------------
+
+
+class _NoMatch(Exception):
+    """The summand cones are not one body."""
+
+
+class _NoSplit(Exception):
+    """Why a program cannot be split over a group of lanes."""
+
+
+class _Body:
+    """The template of the summand cones of sums of n summands, built by
+    matching a tuple of n program values (one a summand index) at a time:
+    `match` returns a ref (`Loop`): ("u", v) where every index has the same
+    value, ("x", a) where index i reads x[a + i], ("col", c) where each reads
+    a datum (column c of the data table; two indices may read one datum) or
+    a literal of its own, ("t", t) where every index runs the same op on
+    operands that match in turn. Anything else raises `_NoMatch`. Matching is
+    memoised by the tuple, so the template is a DAG and the cones of several
+    sums that share nodes at the same index share template ops."""
+
+    def __init__(self, b: _Scalars, n: int):
+        self.b, self.n = b, n
+        self.memo = {}
+        self.ops = []  # (op, refs)
+        self.members = []  # the n program nodes of each template op
+        self.columns = []  # n float32 values each
+        self._columns = {}
+        self._shapes = []
+
+    def _view(self, v):
+        """(op, *args) of a node, or of a lazy coefficient as `mat` makes it real."""
+        if isinstance(v, _Scaled):
+            return ("neg", v.base) if v.c == -1.0 else ("mul", v.c, v.base)
+        return self.b.ops[v]
+
+    def _shape(self, v):
+        """A hash of the op tree below v with leaves by kind: what decides
+        which operand of an add or multiply is which, index by index."""
+        if type(v) is not int:
+            return hash(("c",)) if type(v) is float else hash(("b", v))
+        for i in range(len(self._shapes), v + 1):
+            op, *args = self.b.ops[i]
+            if op in ("x", "phi", "data"):
+                self._shapes.append(hash((op,)))
+                continue
+            subs = [self._shape(a) for a in args]
+            if op in ("add", "mul"):
+                subs.sort()
+            self._shapes.append(hash((op, *subs)))
+        return self._shapes[v]
+
+    def _column(self, values):
+        key = tuple(_bits(v) for v in values)
+        if key not in self._columns:
+            self._columns[key] = len(self.columns)
+            self.columns.append(tuple(values))
+        return ("col", self._columns[key])
+
+    def absorb(self, vals: tuple, avoid: set) -> bool:
+        """Match `vals` into the body as a template op whose shared operands
+        read none of `avoid` (what the loop itself provides), or leave the
+        body as it was and return False."""
+        state = (dict(self.memo), dict(self._columns), len(self.ops), len(self.columns))
+        try:
+            ok = self.match(vals)[0] == "t"
+        except _NoMatch:
+            ok = False
+        shared = [r[1] for _, refs in self.ops[state[2]:] for r in refs
+                  if r[0] == "u" and type(r[1]) is int]
+        seen = set()
+        while ok and shared:
+            v = shared.pop()
+            if v in seen:
+                continue
+            seen.add(v)
+            ok = v not in avoid
+            op, *args = self.b.ops[v]
+            if op not in ("x", "phi", "data"):
+                shared += [a for a in args if type(a) is int]
+        if not ok:
+            self.memo, self._columns = state[0], state[1]
+            del self.ops[state[2]:], self.members[state[2]:], self.columns[state[3]:]
+        return ok
+
+    def match(self, vals: tuple):
+        key = tuple(_skey(v) for v in vals)
+        hit = self.memo.get(key)
+        if hit is None:
+            hit = self.memo[key] = self._match(vals, key)
+        return hit
+
+    def _match(self, vals, key):
+        if all(k == key[0] for k in key):
+            return ("u", vals[0])
+        kinds = {type(v) for v in vals}
+        if kinds == {float}:
+            return self._column(vals)
+        if float in kinds or bool in kinds:
+            raise _NoMatch
+        views = [self._view(v) for v in vals]
+        op = views[0][0]
+        if any(w[0] != op or len(w) != len(views[0]) for w in views) or op == "phi":
+            raise _NoMatch
+        if op == "x":
+            if any(w[1] != views[0][1] + i for i, w in enumerate(views)):
+                raise _NoMatch
+            return ("x", views[0][1])
+        if op == "data":
+            return self._column([self.b.data[w[1]] for w in views])
+        args = [w[1:] for w in views]
+        if op in ("add", "mul"):
+            # Commutative: each index's operands in the order of index 0's.
+            first = (self._shape(args[0][0]), self._shape(args[0][1]))
+            for i, (a, c) in enumerate(args):
+                shapes = (self._shape(a), self._shape(c))
+                if shapes != first:
+                    if shapes[::-1] != first:
+                        raise _NoMatch
+                    args[i] = (c, a)
+        refs = tuple(self.match(tuple(a[p] for a in args)) for p in range(len(args[0])))
+        self.ops.append((op, refs))
+        self.members.append(tuple(vals))
+        return ("t", len(self.ops) - 1)
+
+
+@contextlib.contextmanager
+def _deep_matching():
+    """Room for `_Body.match`, which recurses once an op down a cone (a long
+    recurrence's cones are as deep as the recurrence is long)."""
+    limit = sys.getrecursionlimit()
+    sys.setrecursionlimit(max(limit, 20000))
+    try:
+        yield
+    finally:
+        sys.setrecursionlimit(limit)
+
+
+def _rerollable(b: _Scalars, items) -> bool:
+    """Whether the summands' cones are one body: the same ops in the same
+    shape, reading x[a + i], data and literals of their own and values that
+    every summand shares."""
+    if len(items) < 2:
+        return False
+    try:
+        with _deep_matching():
+            return _Body(b, len(items)).match(tuple(items))[0] in ("t", "x")
+    except (_NoMatch, RecursionError):
+        return False
+
+
+def _is_live(v, live) -> bool:
+    base = v.base if isinstance(v, _Scaled) else v
+    return type(base) is int and base in live
+
+
+def _choose_group(b: _Scalars, outs, W):
+    """The plan of a program built as `b` (the sums folded in sequence) at
+    group width W > 1: every live sum of W summands or more, each to be
+    built at W. Raises `_NoSplit` where no sum is that long or the summand
+    cones of one that long are not one body."""
+    live = _live(b, outs)
+    long_sums = [k for k, (items, total) in enumerate(b.reductions)
+                 if _is_live(total, live) and len(items) >= W]
+    if not long_sums:
+        raise _NoSplit(f"no sum of {W} summands or more")
+    for k in long_sums:
+        items, total = b.reductions[k]
+        if not _rerollable(b, items):
+            raise _NoSplit(f"the summands of sum {k} ({len(items)} summands, node "
+                           f"{total}) are not one body")
+    return dict.fromkeys(long_sums, W)
+
+
+def _group_program(b: _Scalars, logp, grads, dim, W):
+    """The program of a builder whose planned sums were built at group width
+    W, with its loops and emission order; raises `_NoSplit` where the split
+    does not hold (a sum's cones are not one body here, a value inside a
+    sum's adds is read elsewhere, a loop would need its own results first).
+
+    Sums of equal length whose summands read no other such sum's result form
+    one loop; a sum that reads another's result runs in a later loop. A
+    program node of a loop body that anything after the loop reads (an
+    output such as grad[2 + j], or a straight-line node) is exported: the
+    lane that owns its index keeps it, and a shuffle broadcasts it."""
+    outs = [b.mat(logp)] + [b.mat(g) for g in grads]
+    live = _live(b, outs)
+    sums = list({g.root: g for g in b.grouped if g.root in live}.values())
+    if not sums:
+        raise _NoSplit("no split sum is live")
+    root_of = {g.root: g for g in sums}
+    inner = set().union(*(g.inner for g in sums))
+
+    def reads(g):
+        """The other sums whose results g's summands read."""
+        seen, stack, out = set(), list(g.items), set()
+        while stack:
+            v = stack.pop()
+            if v in seen:
+                continue
+            seen.add(v)
+            if v in root_of and v != g.root:
+                out.add(v)
+            op, *args = b.ops[v]
+            if op not in ("x", "phi", "data"):
+                stack += [a for a in args if type(a) is int]
+        return out
+
+    deps = {g.root: reads(g) for g in sums}
+    layer = {}
+
+    def layer_of(r):
+        if r not in layer:
+            layer[r] = 1 + max((layer_of(d) for d in deps[r]), default=-1)
+        return layer[r]
+
+    groups = {}
+    for g in sums:
+        groups.setdefault((layer_of(g.root), len(g.items)), []).append(g)
+    bodies = []
+    try:
+        with _deep_matching():
+            for key in sorted(groups):
+                n, body = key[1], _Body(b, key[1])
+                refs = [body.match(g.items) for g in groups[key]]
+                if any(r[0] not in ("t", "x") for r in refs):
+                    raise _NoMatch
+                # The gradient of a vector the body reads as x[a + i] (such as
+                # grad[2 + j] of eight schools) joins the body where its cones
+                # are one body too and read nothing the loop provides.
+                avoid = {g.root for g in groups[key]}.union(*body.members)
+                bases = {r[1] for _, rs in body.ops for r in rs if r[0] == "x"}
+                for a in sorted(bases | {r[1] for r in refs if r[0] == "x"}):
+                    if a + n <= dim:
+                        body.absorb(tuple(outs[1 + a + i] for i in range(n)), avoid)
+                bodies.append((body, groups[key], refs))
+    except (_NoMatch, RecursionError):
+        raise _NoSplit(f"the sums of {n} summands are not one body together") from None
+
+    loop_of = {g.root: li for li, (_, gs, _) in enumerate(bodies) for g in gs}
+    body_of = {}
+    for li, (body, _, _) in enumerate(bodies):
+        for t, nodes in enumerate(body.members):
+            for i, v in enumerate(nodes):
+                body_of.setdefault(v, (li, t, i))
+
+    # What runs outside the loops: every node the outputs and the loops'
+    # shared operands read, but what a loop provides (its sums and exports).
+    # A loop keeps the sums and template ops that something after it reads.
+    sum_ref = {g.root: r for _, gs, refs in bodies for g, r in zip(gs, refs)}
+    straight, exports, seen, kept = set(), {}, set(), set()
+    reached = [set() for _ in bodies]
+    stack = [o for o in outs if type(o) is int]
+
+    def reach(li, ref):
+        todo = [ref[1]] if ref[0] == "t" else []
+        while todo:
+            t = todo.pop()
+            if t not in reached[li]:
+                reached[li].add(t)
+                for r in bodies[li][0].ops[t][1]:
+                    if r[0] == "t":
+                        todo.append(r[1])
+                    elif r[0] == "u" and type(r[1]) is int:
+                        stack.append(r[1])
+
+    while stack:
+        v = stack.pop()
+        if v in seen:
+            continue
+        seen.add(v)
+        op, *args = b.ops[v]
+        if v in root_of:
+            kept.add(v)
+            reach(loop_of[v], sum_ref[v])
+        elif v in inner:
+            raise _NoSplit(f"node {v}, a partial sum of a split sum, is read elsewhere")
+        elif v in body_of:
+            li, t, i = body_of[v]
+            if bodies[li][0].ops[t][0] in _CMP:
+                raise _NoSplit(f"node {v}, a comparison in a loop body, is read after "
+                               f"the loop")
+            exports.setdefault(li, {}).setdefault(t, {})[i] = v
+            reach(li, ("t", t))
+        else:
+            straight.add(v)
+            if op not in ("x", "phi", "data"):
+                stack += [a for a in args if type(a) is int]
+    needed = {loop_of[v] for v in kept} | set(exports)
+
+    # Emission order: Kahn's algorithm over straight-line nodes and loops,
+    # the smallest builder id first (a loop by its first summand).
+    def provider(v):
+        if v in straight:
+            return ("v", v)
+        return ("loop", loop_of[v] if v in root_of else body_of[v][0])
+
+    units = [("v", v) for v in straight] + [("loop", li) for li in needed]
+    waits = {}
+    for u in units:
+        if u[0] == "v":
+            op, *args = b.ops[u[1]]
+            reads_ = [a for a in args if type(a) is int] if op not in ("x", "phi", "data") else []
+        else:
+            ops = bodies[u[1]][0].ops
+            reads_ = [r[1] for t in reached[u[1]] for r in ops[t][1]
+                      if r[0] == "u" and type(r[1]) is int]
+        providers = {provider(a) for a in reads_}
+        if u in providers:
+            raise _NoSplit(f"loop {u[1]} reads its own results")
+        waits[u] = providers
+    users = {u: [] for u in units}
+    for u, ws in waits.items():
+        for w in ws:
+            users[w].append(u)
+
+    def key(u):
+        return u[1] if u[0] == "v" else min(g.items[0] for g in bodies[u[1]][1])
+
+    count = {u: len(ws) for u, ws in waits.items()}
+    ready = [(key(u), u) for u in units if count[u] == 0]
+    heapq.heapify(ready)
+    schedule = []
+    while ready:
+        _, u = heapq.heappop(ready)
+        schedule.append(u)
+        for w in users[u]:
+            count[w] -= 1
+            if count[w] == 0:
+                heapq.heappush(ready, (key(w), w))
+    if len(schedule) != len(units):
+        raise _NoSplit("the loops and the straight-line nodes read each other in a cycle")
+
+    prog, new = _finish_map(b, logp, grads, dim)
+    data, loops, index = list(prog.data), [], {}
+    for kind, li in schedule:
+        if kind != "loop":
+            continue
+        index[li] = len(loops)
+        body, gs, refs = bodies[li]
+        order = sorted(reached[li])  # the kept template ops, in template order
+        renum = {t: k for k, t in enumerate(order)}
+        offsets = {}
+
+        def ren(r):
+            if r[0] == "u" and type(r[1]) is int:
+                return ("u", new[r[1]])
+            if r[0] == "col":
+                if r[1] not in offsets:
+                    offsets[r[1]] = len(data)
+                    data.extend(body.columns[r[1]])
+                return ("col", offsets[r[1]])
+            return ("t", renum[r[1]]) if r[0] == "t" else r
+
+        ops = tuple((body.ops[t][0], tuple(ren(r) for r in body.ops[t][1])) for t in order)
+        loops.append(Loop(
+            n=body.n, ops=ops,
+            sums=tuple((ren(r), new[g.root]) for g, r in zip(gs, refs) if g.root in kept),
+            exports=tuple((renum[t], tuple((i, new[v]) for i, v in sorted(ex.items())))
+                          for t, ex in sorted(exports.get(li, {}).items()))))
+    sched = tuple(("v", new[u[1]]) if u[0] == "v" else ("loop", index[u[1]]) for u in schedule)
+    return dataclasses.replace(prog, data=tuple(data), group=W, loops=tuple(loops),
+                               schedule=sched)
+
+
 _INFIX = {"add": "+", "sub": "-", "mul": "*", "div": "/", **{
     k: v for k, v in zip(_CMP, ("<", "<=", ">", ">=", "==", "!="))}}
 _CALL = {"exp": "expf", "log": "logf", "log1p": "log1pf", "expm1": "expm1f",
@@ -782,37 +1266,110 @@ def _c_literal(v: float) -> str:
     return f"({v.hex()}f)"
 
 
-def _c_body(prog: Program) -> list:
-    def ref(a):
-        return f"v{a}" if type(a) is int else _c_literal(a)
+def _c_rhs(op, a, ref) -> str:
+    """The C expression of op on operands a, each written by `ref`."""
+    if op in _INFIX:
+        return f"{ref(a[0])} {_INFIX[op]} {ref(a[1])}"
+    if op == "neg":
+        return f"-{ref(a[0])}"
+    if op == "recip":
+        return f"1.0f / {ref(a[0])}"
+    if op == "pow":
+        return f"powf({ref(a[0])}, {ref(a[1])})"
+    if op == "sign":
+        return f"static_cast<float>((0.0f < {ref(a[0])}) - ({ref(a[0])} < 0.0f))"
+    if op == "where":
+        return f"{ref(a[0])} ? {ref(a[1])} : {ref(a[2])}"
+    return f"{_CALL[op]}({ref(a[0])})"
 
-    lines = []
-    for i, (op, *a) in enumerate(prog.ops):
+
+def _ref(a) -> str:
+    return f"v{a}" if type(a) is int else _c_literal(a)
+
+
+def _c_line(prog: Program, i: int) -> str:
+    op, *a = prog.ops[i]
+    kind = "bool" if op in _CMP else "float"
+    if op == "x":
+        rhs = f"x[{a[0]}]"
+    elif op == "phi":
+        rhs = "phi"
+    elif op == "data":
+        rhs = f"d[{a[0]}]"
+    else:
+        rhs = _c_rhs(op, a, _ref)
+    return f"    const {kind} v{i} = {rhs};"
+
+
+def _c_loop(prog: Program, k: int) -> list:
+    """Loop k of a grouped program: lane `lane` evaluates the template at its
+    indices i = lane + s W (the coordinates x[a + i] chosen by selects over
+    static indices, the data table's entries at d[o + i]), folds each sum's
+    summands in index order, and keeps what it exports; then the xor
+    butterfly of the sums and the broadcasts of the exports."""
+    loop, W = prog.loops[k], prog.group
+    n = loop.n
+    steps = -(-n // W)
+    p = f"l{k}"
+
+    def ref(r):
+        kind, v = r
+        if kind == "u":
+            return _ref(v) if type(v) is not bool else ("true" if v else "false")
+        if kind == "x":
+            return f"{p}x{v}"
+        if kind == "col":
+            return f"d[{v} + i]"
+        return f"{p}t{v}"
+
+    coords = sorted({r[1] for _, refs in loop.ops for r in refs if r[0] == "x"}
+                    | {r[1] for r, _ in loop.sums if r[0] == "x"})
+    lines = [f"    // {len(loop.sums)} sums of {n} summands: lane l takes summands "
+             f"l, l + {W}, ..."]
+    lines += [f"    float {p}s{r} = 0.0f;" for r in range(len(loop.sums))]
+    lines += [f"    float {p}e{e}[{steps}];" for e in range(len(loop.exports))]
+    lines += ["#pragma unroll", f"    for (int step = 0; step < {steps}; ++step) {{",
+              f"      const int i = step * {W} + lane;"]
+    pad = "      "
+    if n % W:
+        lines.append(f"      if (i < {n}) {{")
+        pad = "        "
+    for a in coords:
+        lines.append(f"{pad}float {p}x{a} = x[{a} + step * {W}];")
+        for q in range(1, W):
+            lines.append(f"{pad}if (step * {W} + {q} < {n} && lane == {q}) "
+                         f"{p}x{a} = x[{a} + step * {W} + {q}];")
+    for t, (op, refs) in enumerate(loop.ops):
         kind = "bool" if op in _CMP else "float"
-        if op == "x":
-            rhs = f"x[{a[0]}]"
-        elif op == "phi":
-            rhs = "phi"
-        elif op == "data":
-            rhs = f"d[{a[0]}]"
-        elif op in _INFIX:
-            rhs = f"{ref(a[0])} {_INFIX[op]} {ref(a[1])}"
-        elif op == "neg":
-            rhs = f"-{ref(a[0])}"
-        elif op == "recip":
-            rhs = f"1.0f / {ref(a[0])}"
-        elif op == "pow":
-            rhs = f"powf({ref(a[0])}, {ref(a[1])})"
-        elif op == "sign":
-            rhs = f"static_cast<float>((0.0f < {ref(a[0])}) - ({ref(a[0])} < 0.0f))"
-        elif op == "where":
-            rhs = f"{ref(a[0])} ? {ref(a[1])} : {ref(a[2])}"
-        else:
-            rhs = f"{_CALL[op]}({ref(a[0])})"
-        lines.append(f"    const {kind} v{i} = {rhs};")
+        lines.append(f"{pad}const {kind} {p}t{t} = {_c_rhs(op, refs, ref)};")
+    for r, (summand, _) in enumerate(loop.sums):
+        lines.append(f"{pad}{p}s{r} = step == 0 ? {ref(summand)} : {p}s{r} + {ref(summand)};")
+    for e, (t, _) in enumerate(loop.exports):
+        lines.append(f"{pad}{p}e{e}[step] = {p}t{t};")
+    if n % W:
+        lines.append("      }")
+    lines += ["    }", "#pragma unroll", f"    for (int o = {W // 2}; o > 0; o /= 2) {{"]
+    lines += [f"      {p}s{r} = {p}s{r} + __shfl_xor_sync(mask, {p}s{r}, o);"
+              for r in range(len(loop.sums))]
+    lines.append("    }")
+    lines += [f"    const float v{root} = {p}s{r};" for r, (_, root) in enumerate(loop.sums)]
+    for e, (_, nodes) in enumerate(loop.exports):
+        lines += [f"    const float v{v} = __shfl_sync(mask, {p}e{e}[{i // W}], {i % W}, {W});"
+                  for i, v in nodes]
+    return lines
+
+
+def _c_body(prog: Program) -> list:
+    if prog.group == 1:
+        lines = [_c_line(prog, i) for i in range(len(prog.ops))]
+    else:
+        lines = [f"    const int lane = group_lane<{prog.group}>();",
+                 f"    const unsigned mask = group_mask<{prog.group}>();"]
+        for kind, v in prog.schedule:
+            lines += [_c_line(prog, v)] if kind == "v" else _c_loop(prog, v)
     for d, g in enumerate(prog.grad):
-        lines.append(f"    grad[{d}] = {ref(g)};")
-    lines.append(f"    return {ref(prog.logp)};")
+        lines.append(f"    grad[{d}] = {_ref(g)};")
+    lines.append(f"    return {_ref(prog.logp)};")
     return lines
 
 
@@ -823,8 +1380,17 @@ def _cuda_source(prog: Program, name: str, autodiff: str) -> tuple:
         f"{prog.dim} {len(prog.data)}\n{body}".encode()).hexdigest()[:16]
     struct_name = f"GeneratedModel_{tag}"
     n_ops = count_ops(prog)
+    group, entry = "", f"smcnuts::{struct_name}"
+    if prog.group > 1:
+        group = (f"  static constexpr int kGroup = {prog.group};\n"
+                 "  static constexpr int kMaxRegisters = 128;  // nuts_tree.cuh: MinBlocks\n")
+        entry += f", {GROUP_BLOCK}"
+        n_ops = (f"{n_ops} operations, its {len(prog.loops)} loop(s) split over "
+                 f"{prog.group} lanes a particle, blocks of {GROUP_BLOCK} threads")
+    else:
+        n_ops = f"{n_ops} operations"
     src = f"""// Generated by smcnuts_torch/ops/generated.py from the density '{name}'
-// ({autodiff} mode, {n_ops} operations, {len(prog.data)} data floats): the
+// ({autodiff} mode, {n_ops}, {len(prog.data)} data floats): the
 // NUTS kernel of nuts_tree.cuh with this model inlined, one entry.
 #include "nuts_tree.cuh"
 
@@ -834,7 +1400,7 @@ struct {struct_name} {{
   static constexpr int D = {prog.dim};
   static constexpr int kScalars = 0;
   static constexpr int kData = {len(prog.data)};
-
+{group}
   const float* d;  // the data block, in shared memory
 
   static bool accepts(int n_data, int n_scalars) {{
@@ -851,7 +1417,7 @@ struct {struct_name} {{
 }}  // namespace smcnuts
 
 extern "C" {{
-SMCNUTS_ENTRY(smcnuts_nuts_tree_generated, smcnuts::{struct_name})
+SMCNUTS_ENTRY(smcnuts_nuts_tree_generated, {entry})
 }}
 """
     return src, struct_name
@@ -932,8 +1498,9 @@ class GeneratedModel(nn.Module):
     generated model: `dim`, `autodiff` ("forward" or "reverse"), the
     simplified value-and-gradient `graph` (its plain version), the `data`
     block (a float32 buffer that follows `.to(device)`), the CUDA `source`
-    and its `hash`, and `n_ops`, the operations of one evaluation. The
-    compaction hints are the JAX TileModel's default, ()."""
+    and its `hash`, `n_ops`, the operations of one evaluation, and `group`,
+    the lanes its kernel runs a particle on. The compaction hints are the
+    JAX TileModel's default, ()."""
 
     compaction_hint = ()
     compaction_hint_adapted = ()
@@ -944,6 +1511,7 @@ class GeneratedModel(nn.Module):
         self.dim = prog.dim
         self.autodiff = autodiff
         self.program = prog
+        self.group = prog.group
         self.n_ops = count_ops(prog)
         self.graph = _fx_graph(prog)
         self.register_buffer("data", torch.tensor(prog.data, dtype=torch.float32))
@@ -961,28 +1529,56 @@ class GeneratedModel(nn.Module):
         return self.graph(x, phi.to(x.dtype))
 
 
-def tile_model_from_logp(logp_fn, dim, name="generated") -> GeneratedModel:
+def tile_model_from_logp(logp_fn, dim, name="generated", group=None) -> GeneratedModel:
     """A generated model of `logp_fn(theta (D,), phi) -> scalar` with its
     gradient by reverse mode: `torch.func.grad_and_value` traced by make_fx
     into ATen ops, lowered to scalars and simplified. Data that the density
-    closes over as tensors go to the data block."""
+    closes over as tensors go to the data block.
+
+    group=1 emits every node straight-line in the order it was built, one
+    thread a particle; group=None is DEFAULT_GROUP, 1. Another power of two
+    W splits the sums of W summands or more, whose summand cones must be one
+    body (`_Body`), over a group of W lanes a particle (`_choose_group`):
+    the body is emitted once inside a loop over a lane's summands, each
+    sum's lane partial folded in index order and butterflied, the program's
+    other nodes straight-line in every lane. It raises ValueError where the
+    program cannot be split over W."""
     from torch.fx.experimental.proxy_tensor import make_fx
+
+    if group is None:
+        group = DEFAULT_GROUP
+    if group not in (1, 2, 4, 8, 16, 32):
+        raise ValueError(f"group must be None or a power of two in 1..32, got {group}")
 
     def vg(theta, phi):
         return torch.func.grad_and_value(logp_fn)(theta, phi)
 
     gm = make_fx(vg)(torch.zeros(dim), torch.zeros(()))
-    b = _Scalars()
-    x = np.empty((dim,), dtype=object)
-    for d in range(dim):
-        x[d] = b.leaf("x", d)
-    phi = _const_array((), 0.0)
-    phi[()] = b.leaf("phi")
-    grad, value = _lower(gm, [x, phi], b, name)
-    grad = _arr(grad)
-    if grad.shape != (dim,) or _arr(value).shape != ():
-        raise ValueError(f"model '{name}': logp_fn must map ({dim},) to a scalar")
-    return GeneratedModel(_finish(b, _arr(value)[()], list(grad), dim), "reverse", name)
+
+    def lower(plan):
+        b = _Scalars(plan)
+        x = np.empty((dim,), dtype=object)
+        for d in range(dim):
+            x[d] = b.leaf("x", d)
+        phi = _const_array((), 0.0)
+        phi[()] = b.leaf("phi")
+        grad, value = _lower(gm, [x, phi], b, name)
+        grad = _arr(grad)
+        if grad.shape != (dim,) or _arr(value).shape != ():
+            raise ValueError(f"model '{name}': logp_fn must map ({dim},) to a scalar")
+        return b, _arr(value)[()], list(grad)
+
+    b, value, grad = lower({})
+    if group == 1:
+        prog = _finish(b, value, grad, dim)
+    else:
+        try:
+            plan = _choose_group(b, [b.mat(value)] + [b.mat(g) for g in grad], group)
+            prog = _group_program(*lower(plan), dim, group)
+        except _NoSplit as e:
+            raise ValueError(f"model '{name}': cannot split over {group} lanes: "
+                             f"{e}") from None
+    return GeneratedModel(prog, "reverse", name)
 
 
 def tile_model_from_logp_fwd(logp_seq_fn, dim, name="generated",
