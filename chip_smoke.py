@@ -4,9 +4,9 @@
     python3 chip_smoke.py --only autodiff,strategies,cli   # some phases, while
                                  # developing: prints no kernels line, no "ok"
     (phase keys: arma, prmwcd, main, batched, staged_times, cli, autodiff,
-    logistic, eightschools (phase 8 for one model alone), strategies,
-    fused_kernel, eager, unfused, wide_eager, generated; device, build and
-    peak always run first)
+    gaussian, logistic, eightschools (phase 8 for one model alone),
+    strategies, fused_kernel, eager, unfused, wide_eager, generated, runner;
+    device, build and peak always run first)
 
 Phases, each printing its own lines; any failure raises (non-zero exit):
 
@@ -52,7 +52,8 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
    and with all nine must equal the single kernel to the bit on every lane
    and output, and is held to the plain version to the bit. The staged
    dispatch (as above) and its plain version (one call) are timed.
-   The contract of the models not held to the bit (phases 8, 11): fails when
+   The contract of the kernels not held to the bit (phase 11's generated
+   model against the hand kernel of the same density): fails when
    fewer than 99.9% of lanes agree on depth, leapfrogs and moved; when x, r,
    logp0, logp_prop or delta_h differ on agreeing lanes by more than
    atol 1e-4 + rtol 1e-4; or when an output is not finite.
@@ -117,10 +118,12 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
    and 0.4, a non-unit inverse mass, r given at depth 0, the batched shape
    25 x 512 at depth 10 (timed), then the staged dispatch as in phase 3
    (accept-reject off and on, a lane with a -inf density, r given; every
-   split tuple equal to the single kernel to the bit). The group kernels of
-   logistic regression (models.logistic.GROUP lanes a tree) and eight
-   schools (models.eightschools.GROUP) are held to their plain versions in
-   the same group order to the bit in every case; then each one's W = 1
+   split tuple equal to the single kernel to the bit). Each kernel is held
+   to its plain version to the bit in every case: the Gaussian's (one thread
+   a tree), and the group kernels of logistic regression
+   (models.logistic.GROUP lanes a tree) and eight schools
+   (models.eightschools.GROUP) in their plain versions' group order; then
+   the latter two's W = 1
    witness (`ops.nuts_cuda.LOGISTIC_VARIANTS`, `EIGHTSCHOOLS_VARIANTS`, one
    thread a tree, the sequential order) equal to the bit to the plain
    version at group=1, timed in turns with the main entry at 25 x 512 and at
@@ -198,6 +201,26 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
    iterations (as phase 9's), generated and hand; the same eight-schools
    density without a generated model, eager by autograd, on the card (5
    iterations).
+
+12. the runner, checkpoints, the CLI's output and phase profiling, on the
+   card. (a) arma forwards at 25 x 512 x K=100 through `run_smc_batched`
+   and `runner.ChunkedRunner` in chunks of 10, with a checkpoint after each
+   and without, in turns (each order forwards, then backwards): every
+   SMCResult field equal to the bit, K dispatches a call, no plain call,
+   the walls (CUDA events) and what a checkpoint adds. (b) A K=30 run with a checkpoint, then the
+   K=100 run from the file: 70 dispatches, equal to (a) to the bit; the
+   file's version and k_done. (c) PRMwCD adapted (bench.py:176-178) at
+   25 x 512 x K=100, stopped after iteration 40 (its progress callback
+   raises) and resumed: equal to the bit, the kernel launches of both sides.
+   (d) Eight schools, asymptotic with tempering, N=1024, K=30, step 0.2,
+   depth 6, save_history on and off, stopped after iteration 10 and resumed:
+   equal to the bit. (e) `python -m smcnuts_torch --model prmwcd -N 512 -K 100
+   --checkpoint --chunk-size 10 --output` through its main(): the npz equal
+   to the in-process run_smc result in every field, to the bit; run again,
+   it resumes at k_done == K, launches no kernel and returns the same
+   summary. (f) `utils.profiling.phase_timings` on arma, one run at N=512:
+   milliseconds an iteration of each phase. The launches of (a)-(e) count on
+   their rows of the kernels line.
 
 The line before the last two repeats the card's name and power limit, the
 second-to-last line is a JSON object describing the kernels (for each: the
@@ -1461,12 +1484,11 @@ def autodiff_kernel_phase(name, smi):
     ones = torch.ones(D, device=dev)
     im = torch.linspace(0.5, 2.0, D, device=dev)
     seed2 = torch.tensor([11, 12], dtype=torch.int32, device=dev)
-    # The logistic and eight-schools group kernels sum in the order of their
-    # plain versions: held to them to the bit, lanes whose density is not
-    # finite included.
+    # Each kernel computes in the order of its plain version (the logistic
+    # and eight-schools group kernels in their lanes' order): held to it to
+    # the bit, lanes whose density is not finite included.
     group_mod = {"logistic": logistic, "eightschools": eightschools}.get(name)
-    bitwise = group_mod is not None
-    if bitwise:
+    if group_mod is not None:
         lib = build_library()
         print(f"{name} entry: W={group_mod.GROUP} lanes a tree, blocks of "
               f"{group_mod.BLOCK} threads, {getattr(lib, f'{name}_blocks_per_sm')} "
@@ -1476,17 +1498,17 @@ def autodiff_kernel_phase(name, smi):
         worst = max(worst, compare(
             f"{name} [{source}] phi 1.0 | 0.4, 2 runs x 1024, depth 6", model,
             (autodiff_cloud(name, (2, 1024), 1, dev), seed2, step,
-             torch.tensor([1.0, 0.4], device=dev), ones, 6, source), bitwise=bitwise))
+             torch.tensor([1.0, 0.4], device=dev), ones, 6, source), bitwise=True))
         worst = max(worst, compare(
             f"{name} [{source}] {D}-vector inv_mass, 2048, depth 6", model,
             (autodiff_cloud(name, (1, 2048), 2, dev), 13, step, 1.0, im, 6, source),
-            bitwise=bitwise))
+            bitwise=True))
     r = torch.randn(1, 2048, D, generator=torch.Generator(device=dev).manual_seed(3),
                     device=dev)
     worst = max(worst, compare(
         f"{name} [zero_bits] r given, 2048, depth 0", model,
         (autodiff_cloud(name, (1, 2048), 4, dev), 0, step, 0.7, im, 0, ZERO_BITS),
-        r=r, bitwise=bitwise))
+        r=r, bitwise=True))
     batch_args = (autodiff_cloud(name, (RUNS, N), 5, dev),
                   torch.arange(RUNS, dtype=torch.int32, device=dev), step, 1.0,
                   ones, MAX_DEPTH, PHILOX)
@@ -1494,15 +1516,14 @@ def autodiff_kernel_phase(name, smi):
     plain_out = nuts_tree_plain(model, *batch_args)
     worst = max(worst, check_outputs(
         f"{name} [philox] batched shape, {RUNS} x {N}, depth {MAX_DEPTH}",
-        single_out, plain_out, bitwise=bitwise))
-    if bitwise:
-        print(f"{name}: the group kernel (W={group_mod.GROUP}) equals its plain "
-              f"version to the bit in every case")
+        single_out, plain_out, bitwise=True))
+    kernel = "the kernel" if group_mod is None else f"the group kernel (W={group_mod.GROUP})"
+    print(f"{name}: {kernel} equals its plain version to the bit in every case")
     times = time_pair(f"{name} {RUNS} x {N} x depth {MAX_DEPTH} [philox]",
                       model, batch_args, smi)
     bound = tree_roofline(name, single_out)
     witness = None
-    if bitwise:
+    if group_mod is not None:
         small = (autodiff_cloud(name, (2, 1024), 7, dev), seed2, step,
                  torch.tensor([1.0, 0.4], device=dev), ones, 6, ZERO_BITS)
         small[0][0, 0, NAN_LANE[name][0]] = NAN_LANE[name][1]
@@ -1522,7 +1543,7 @@ def autodiff_kernel_phase(name, smi):
         print(f"{name} at {WIDE_TREES} trees, depth {MAX_DEPTH}: "
               f"{bound_text(tree_roofline(name, wide_out))}")
     staged = staged_kernel_phase(name, model, batch_args, single_out, plain_out, smi,
-                                 bitwise=bitwise)
+                                 bitwise=True)
     worst = max(worst, staged["max_abs_err"])
     print(f"{name}: max |kernel - plain| on agreeing lanes, all cases, staged "
           f"included: {worst:.3g}; at {RUNS} x {N}: {bound_text(bound)}; staged "
@@ -1581,63 +1602,26 @@ PROFILE_ITERATIONS = 20
 
 def profile_call(label, model, cfg, smi, momentum_proposal=None,
                  iterations=PROFILE_ITERATIONS):
-    """Where an iteration's time goes: the first `iterations` iterations of
-    the SMC loop with RUNS runs (`smc_step` on the state of `init_state`, with
-    the draws of `iteration_draws`, as `run_smc_batched` drives it), once
-    timed with CUDA events, then again under torch.profiler (device activity
-    only; the profiler slows the host, so the wall time is the first pass's).
-    Prints the device kernels per iteration, the device's busy time, its idle
-    share of the wall time, and the time of the port's own kernels. A
-    measurement, not a check: without device events it says so and goes
-    on."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    """Where an iteration's time goes, for RUNS runs
+    (`utils.profiling.profile_iterations`): prints the device kernels per
+    iteration, the device's busy time, its idle share of the wall time, and
+    the time of the port's own kernels. A measurement, not a check: without
+    device events it says so and goes on."""
+    from smcnuts_torch.utils.profiling import profile_iterations
 
-    from smcnuts_torch.ops.draws import PHILOX
-    from smcnuts_torch.sampler import (
-        init_state, iteration_draws, resolve_backend, smc_step, uses_fused_path)
-    from smcnuts_torch.utils.timing import CudaTimer
-
-    k = min(iterations, cfg.n_iterations)
-    model = model.to("cuda")
-    start = init_state(model, cfg, SEEDS, "cuda")
-    seeds = torch.tensor(SEEDS, dtype=torch.int64, device="cuda")
-    backend = resolve_backend(cfg, torch.device("cuda"), model)
-    step_draws = iteration_draws(cfg, seeds, range(k), cfg.n_particles, model.dim,
-                                 start.x.dtype, uses_fused_path(cfg, momentum_proposal))
-
-    def loop():
-        carry = start
-        for i in range(k):
-            carry, _ = smc_step(model, cfg, carry, backend=backend, draws=PHILOX,
-                                momentum_proposal=momentum_proposal,
-                                **{name: v[i] for name, v in step_draws.items()})
-        torch.cuda.synchronize()
-
-    loop()
-    with CudaTimer() as t:
-        loop()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        loop()
-    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    kernels = [e for e in events if not e.name.startswith(("Memcpy", "Memset"))]
-    if not kernels:
+    p = profile_iterations(model, cfg, SEEDS, iterations, momentum_proposal, "cuda")
+    if p is None:
         print(f"{label}: torch.profiler recorded no device event; launches per "
               f"iteration and idle share not measured")
         return
-    busy_ms = sum(e.time_range.elapsed_us() for e in events) / 1e3
-    own = []
-    for name in ("nuts_tree_kernel", "arma_ll_vg_kernel"):
-        mine = [e for e in kernels if name in e.name]
-        if mine:
-            ms = sum(e.time_range.elapsed_us() for e in mine) / 1e3
-            own.append(f"{name} {len(mine) / k:.1f} launches and {ms / k:.3f} ms an "
-                       f"iteration, {ms / busy_ms:.3f} of the device time")
-    print(f"{label}: iterations 0..{k - 1} of the loop, {RUNS} runs: "
-          f"{t.ms / k:.3f} ms an iteration (CUDA events, unprofiled); under "
-          f"torch.profiler {len(kernels) / k:.1f} device kernels an iteration, "
-          f"device busy {busy_ms / k:.3f} ms an iteration, idle share "
-          f"{1.0 - busy_ms / t.ms:.3f}; {'; '.join(own) or 'no kernel of the port'} "
+    own = [f"{name} {launches:.1f} launches and {ms:.3f} ms an iteration, "
+           f"{share:.3f} of the device time"
+           for name, (launches, ms, share) in p["own"].items()]
+    print(f"{label}: iterations 0..{p['iterations'] - 1} of the loop, {RUNS} runs: "
+          f"{p['ms']:.3f} ms an iteration (CUDA events, unprofiled); under "
+          f"torch.profiler {p['kernels']:.1f} device kernels an iteration, "
+          f"device busy {p['busy_ms']:.3f} ms an iteration, idle share "
+          f"{p['idle_share']:.3f}; {'; '.join(own) or 'no kernel of the port'} "
           f"({smi})")
 
 
@@ -2488,18 +2472,242 @@ def generated_phase(smi):
     return k7f, k7r, k7f_built, k7r_w2
 
 
+# ---- phase 12: chunked runs that resume, checkpoints, the CLI's output,
+# phase profiling.
+
+class Crash(Exception):
+    """Raised from a runner's progress callback: a run that stops after a
+    chunk, its checkpoint written."""
+
+
+def crash_after(k_stop):
+    def progress(k_done, total):
+        if k_done == k_stop:
+            raise Crash
+    return progress
+
+
+class PhaseCounts:
+    """The main-path launches of a phase: `run(fn)` resets the counters,
+    calls fn and adds what it launched (dispatches and continuation-stage
+    launches, per model) to the phase's totals."""
+
+    def __init__(self):
+        self.launches, self.cont = {}, {}
+
+    def run(self, fn):
+        reset_counts()
+        try:
+            out = fn()
+        finally:
+            counts, plain_calls = read_counts()
+            stage_launches, cont = read_stage_counts()
+            for name, n in counts.items():
+                self.launches[name] = self.launches.get(name, 0) + n
+                self.cont[name] = self.cont.get(name, 0) + cont.get(name, 0)
+        return out, counts, plain_calls, stage_launches
+
+
+def same_result(label, got, want):
+    diff = equal_fields(got, want)
+    if diff:
+        raise AssertionError(f"{label}: differs from the uninterrupted run in {diff}")
+
+
+def runner_phase(smi):
+    """Phase 12: ChunkedRunner, checkpoints of the SMC state, the CLI's
+    --checkpoint / --chunk-size / --output, and utils.profiling.phase_timings,
+    on the card. Returns the main-path launches (PhaseCounts)."""
+    import tempfile
+
+    import numpy as np
+
+    from smcnuts_torch import SMCConfig, run_smc, run_smc_batched
+    from smcnuts_torch.models import default_step_size, get_model
+    from smcnuts_torch.runner import ChunkedRunner
+    from smcnuts_torch.utils.checkpoint import CHECKPOINT_VERSION
+    from smcnuts_torch.utils.profiling import phase_timings
+    from smcnuts_torch.utils.timing import CudaTimer
+
+    phase("12. runner, checkpoint, CLI output, profiling")
+    started = time.perf_counter()
+    tally = PhaseCounts()
+    tmp = tempfile.TemporaryDirectory()
+    ck = os.path.join(tmp.name, "smc.npz")
+
+    def fresh():
+        if os.path.exists(ck):
+            os.remove(ck)
+
+    def timed(fn):
+        with CudaTimer() as t:
+            res = fn()
+            res.mean_estimate[:, -1].cpu()
+        return res, t.ms
+
+    # (a) arma forwards, bench.py's config: run_smc_batched, and
+    # ChunkedRunner in chunks of 10 with a checkpoint after each and without
+    # one, in turns (each order forwards, then backwards).
+    arma, cfg = get_model("arma"), workload_config(False)
+    calls = {
+        "run_smc_batched": lambda: run_smc_batched(arma, cfg, SEEDS, "cuda"),
+        "ChunkedRunner with checkpoints": lambda: ChunkedRunner(
+            arma, cfg, checkpoint_path=ck, chunk_size=10, device="cuda").run(SEEDS),
+        "ChunkedRunner without": lambda: ChunkedRunner(
+            arma, cfg, chunk_size=10, device="cuda").run(SEEDS),
+    }
+    walls, ref = [], None
+    for turn in list(calls) + list(calls)[::-1]:
+        fresh()
+        (res, ms), counts, plain_calls, _ = tally.run(lambda: timed(calls[turn]))
+        if counts["arma"] != K or sum(counts.values()) != K or plain_calls != 0:
+            raise AssertionError(f"(a) {turn}: {counts} dispatches, {plain_calls} "
+                                 f"plain calls; expected {K} and 0")
+        walls.append((turn, ms))
+        if os.path.exists(ck):
+            size = os.path.getsize(ck)
+        if ref is None:
+            ref = res
+        same_result(f"(a) arma forwards, {turn}", res, ref)
+    print(f"(a) arma forwards {RUNS} x {N} x K={K}: ChunkedRunner (chunks of 10, with "
+          f"a checkpoint after each and without) equals run_smc_batched in every "
+          f"field, bit for bit; {K} kernel launches, no plain call, each call")
+    mean = {turn: sum(ms for t, ms in walls if t == turn) / 2 for turn in calls}
+    print(f"(a) walls in turns (CUDA events, results on the host): "
+          + ", ".join(f"{turn} {ms:.1f}" for turn, ms in walls) + f" ms ({smi}); a "
+          f"checkpoint ({size} bytes) adds "
+          f"{(mean['ChunkedRunner with checkpoints'] - mean['ChunkedRunner without']) / 10:.1f} "
+          f"ms, the mean difference over its 10 writes")
+
+    # (b) A crash after 30 iterations: a K=30 run with the checkpoint, then
+    # the K=100 run from the same file.
+    import dataclasses
+
+    fresh()
+    k_crash = 30
+    tally.run(lambda: ChunkedRunner(arma, dataclasses.replace(cfg, n_iterations=k_crash),
+                                    checkpoint_path=ck, chunk_size=10,
+                                    device="cuda").run(SEEDS))
+    with np.load(ck) as data:
+        version, k_done = int(data["version"]), int(data["k_done"])
+    if (version, k_done) != (CHECKPOINT_VERSION, k_crash):
+        raise AssertionError(f"(b) checkpoint version {version}, k_done {k_done}")
+    res, counts, plain_calls, _ = tally.run(
+        lambda: ChunkedRunner(arma, cfg, checkpoint_path=ck, chunk_size=10,
+                              device="cuda").run(SEEDS))
+    if counts["arma"] != K - k_crash or sum(counts.values()) != K - k_crash or plain_calls:
+        raise AssertionError(f"(b) the resumed run: {counts} dispatches, {plain_calls} "
+                             f"plain calls; expected {K - k_crash} and 0")
+    same_result("(b) arma resumed after 30", res, ref)
+    print(f"(b) checkpoint version {version}, k_done {k_done}; the K={K} run resumed "
+          f"from it launched the kernel {counts['arma']} times and equals the "
+          f"uninterrupted run in every field, bit for bit")
+
+    # (c) PRMwCD adapted (bench.py:176-178), stopped after iteration 40.
+    prmwcd, cfg_a = get_model("prmwcd"), workload_config(True)
+    ref_a, counts, _, stages_ref = tally.run(
+        lambda: run_smc_batched(prmwcd, cfg_a, SEEDS, "cuda"))
+    fresh()
+    runner = ChunkedRunner(prmwcd, cfg_a, checkpoint_path=ck, chunk_size=10, device="cuda")
+
+    def stopped():
+        try:
+            runner.run(SEEDS, progress=crash_after(40))
+        except Crash:
+            return
+        raise AssertionError("(c) the run did not stop after iteration 40")
+
+    _, counts_1, _, stages_1 = tally.run(stopped)
+    res, counts_2, plain_calls, stages_2 = tally.run(lambda: runner.run(SEEDS))
+    if (counts_1["prmwcd"], counts_2["prmwcd"], plain_calls) != (40, K - 40, 0):
+        raise AssertionError(f"(c) dispatches {counts_1}, {counts_2}, plain {plain_calls}")
+    same_result("(c) PRMwCD adapted resumed after 40", res, ref_a)
+    print(f"(c) PRMwCD adapted {RUNS} x {N} x K={K}, stopped after iteration 40 and "
+          f"resumed: every field equal to the uninterrupted run, bit for bit; kernel "
+          f"launches (stages) uninterrupted {stages_ref}, stopped + resumed "
+          f"{stages_1} + {stages_2}")
+
+    # (d) Eight schools, asymptotic with tempering (K6b), history on and off,
+    # stopped after iteration 10.
+    c = AUTODIFF_MODELS["eightschools"]
+    schools = autodiff_model("eightschools")
+    for history in (True, False):
+        cfg_s = SMCConfig(n_particles=c["n"], n_iterations=c["k"], step_size=c["step"],
+                          lkernel="asymptoticLKernel", tempering=True,
+                          save_history=history, max_tree_depth=c["depth"])
+        ref_s, counts, _, _ = tally.run(lambda: run_smc_batched(schools, cfg_s, SEEDS, "cuda"))
+        fresh()
+        runner = ChunkedRunner(schools, cfg_s, checkpoint_path=ck, chunk_size=10,
+                               device="cuda")
+        try:
+            tally.run(lambda: runner.run(SEEDS, progress=crash_after(10)))
+            raise AssertionError("(d) the run did not stop after iteration 10")
+        except Crash:
+            pass
+        res, counts_2, plain_calls, _ = tally.run(lambda: runner.run(SEEDS))
+        if counts_2["eightschools"] != c["k"] - 10 or plain_calls:
+            raise AssertionError(f"(d) the resumed run: {counts_2}, plain {plain_calls}")
+        same_result(f"(d) eight schools save_history={history}", res, ref_s)
+        print(f"(d) eight schools asymptotic tempered {RUNS} x {c['n']} x K={c['k']}, "
+              f"save_history={history}: resumed after iteration 10 ({counts_2['eightschools']} "
+              f"dispatches), every field equal to the uninterrupted run, bit for bit")
+
+    # (e) The CLI with a checkpoint, chunks and an output file, then again.
+    fresh()
+    npz = ck + ".out.npz"
+    argv = ["--model", "prmwcd", "-N", str(N), "-K", str(K), "--max-tree-depth",
+            str(MAX_DEPTH), "--checkpoint", ck, "--chunk-size", "10", "--output", npz,
+            "--device", "cuda"]
+    summary, counts, plain_calls, _ = tally.run(lambda: quiet_cli(argv))
+    if counts["prmwcd"] != K or plain_calls:
+        raise AssertionError(f"(e) the CLI run: {counts}, plain {plain_calls}")
+    # The configuration the CLI builds for these flags.
+    cfg_cli = SMCConfig(n_particles=N, n_iterations=K,
+                        step_size=default_step_size("prmwcd"), max_tree_depth=MAX_DEPTH,
+                        save_history=False)
+    want, _, _, _ = tally.run(lambda: run_smc(prmwcd, cfg_cli, 0, "cuda"))
+    with np.load(npz) as data:
+        fields = {f for f, v in want._asdict().items() if v is not None}
+        if set(data.files) != fields:
+            raise AssertionError(f"(e) the npz holds {sorted(data.files)}, not "
+                                 f"{sorted(fields)}")
+        diff = [f for f in fields
+                if not torch.equal(torch.from_numpy(data[f]), getattr(want, f).cpu())]
+    if diff:
+        raise AssertionError(f"(e) the npz differs from the in-process run in {diff}")
+    again, counts, plain_calls, _ = tally.run(lambda: quiet_cli(argv))
+    if sum(counts.values()) or plain_calls or again != summary:
+        raise AssertionError(f"(e) the rerun at k_done == K: {counts}, plain "
+                             f"{plain_calls}, the same summary: {again == summary}")
+    print(f"(e) CLI {' '.join(argv[:8])} --checkpoint --chunk-size 10 --output: the "
+          f"npz's {len(fields)} fields equal the in-process run_smc result, bit for "
+          f"bit; run again, it resumed at k_done == K, launched no kernel and "
+          f"printed the same summary")
+    tmp.cleanup()
+
+    # (f) Seconds an iteration of each SMC phase, arma, one run at N=512.
+    t = phase_timings(arma, cfg, seed=SEED, device="cuda")
+    print(f"(f) phase_timings arma, one run, N={N}, depth {MAX_DEPTH}, ms an "
+          f"iteration (CUDA events, 20 calls back to back, best of 3): "
+          + ", ".join(f"{k} {1e3 * v:.4f}" for k, v in t.items()) + f" ({smi})")
+    print(f"phase 12 took {time.perf_counter() - started:.1f} s (host clock; its "
+          f"budget is 90 s)")
+    return tally
+
+
 def partial_run(only, smi):
     """The phases named in `only` (after device and build), for development:
     no kernels line and no "ok" line, so it cannot pass for the whole run."""
     phases = {"arma": arma_kernel_phase, "prmwcd": prmwcd_kernel_phase,
               "main": main_path_phase, "batched": batched_phase,
               "staged_times": staged_times_phase, "cli": lambda smi: cli_phase(),
-              "autodiff": autodiff_kernels_phase, "logistic": one_model_phase("logistic"),
+              "autodiff": autodiff_kernels_phase, "gaussian": one_model_phase("gaussian"),
+              "logistic": one_model_phase("logistic"),
               "eightschools": one_model_phase("eightschools"),
               "strategies": strategies_phase,
               "fused_kernel": arma_fused_kernel_phase, "eager": eager_arma_phase,
               "unfused": unfused_kernel_phase, "wide_eager": wide_eager_phase,
-              "generated": generated_phase}
+              "generated": generated_phase, "runner": runner_phase}
     for key in only:
         phases[key](smi)
     print(f"\nchip_smoke: partial run of {only} passed; no result line")
@@ -2524,6 +2732,7 @@ def main():
     strategies["eightschools"] += schools_cli
     k5, k5_w1, k1u = fused_phase(smi)
     k7f, k7r, k7f_built, k7r_w2 = generated_phase(smi)
+    tally = runner_phase(smi)
     source = "smcnuts_torch/csrc/nuts_tree.cuh"
     # No single PyTorch call builds a NUTS tree, computes the fused ARMA
     # value and gradient or runs FMA chains, so no kernel has a library time.
@@ -2531,19 +2740,23 @@ def main():
         # K2, inlined into the K1 instantiation this entry launches.
         dict(name="nuts_tree_arma", route="cuda", source="smcnuts_torch/csrc/arma_model.cuh",
              replaces="smcnuts_tpu/ops/nuts_pallas.py:154",
-             launches=arma_launches + batched["arma"] + strategies["arma"], **arma),
+             launches=arma_launches + batched["arma"] + strategies["arma"]
+             + tally.launches["arma"], **arma),
         # K3, inlined into the K1 instantiation this entry launches.
         dict(name="nuts_tree_prmwcd", route="cuda",
              source="smcnuts_torch/csrc/prmwcd_model.cuh",
              replaces="smcnuts_tpu/ops/nuts_pallas.py:1803",
-             launches=batched["prmwcd"] + prm_cli + strategies["prmwcd"], **prmwcd),
+             launches=batched["prmwcd"] + prm_cli + strategies["prmwcd"]
+             + tally.launches["prmwcd"], **prmwcd),
         # K4: the continuation-stage instantiations of the staged dispatch.
         dict(name="nuts_tree_arma_staged", route="cuda", source=source,
              replaces="smcnuts_tpu/ops/nuts_pallas.py:794",
-             launches=cont["arma"] + strategies_cont["arma"], **arma_staged),
+             launches=cont["arma"] + strategies_cont["arma"] + tally.cont["arma"],
+             **arma_staged),
         dict(name="nuts_tree_prmwcd_staged", route="cuda", source=source,
              replaces="smcnuts_tpu/ops/nuts_pallas.py:794",
-             launches=cont["prmwcd"] + strategies_cont["prmwcd"], **prmwcd_staged),
+             launches=cont["prmwcd"] + strategies_cont["prmwcd"] + tally.cont["prmwcd"],
+             **prmwcd_staged),
         # The W = 1 witnesses of K1 + K2 and K1 + K3 (one thread a particle),
         # measurement entries that the main path never dispatches: 0
         # launches, and marked.
@@ -2560,7 +2773,7 @@ def main():
         dict(name=f"nuts_tree_{model}", route="cuda",
              source=f"smcnuts_torch/csrc/{model}_model.cuh",
              replaces="smcnuts_tpu/ops/nuts_pallas.py:1094",
-             launches=strategies[model], **autodiff[model])
+             launches=strategies[model] + tally.launches.get(model, 0), **autodiff[model])
         for model in AUTODIFF_MODELS
     ]
     # The W = 1 witnesses of K6c and K6b (one thread a particle):

@@ -16,8 +16,10 @@ arma that backend can take the likelihood's value and gradient from a fused
 CUDA kernel (`make_arma(fused="cuda")`, `ops/arma_fused.py`); user-written
 per-particle densities (`models.base.CallableModel`), eager by autograd or on
 the kernel through a generated in-kernel model (`ops/generated.py`); and the
-card's FP32 peak (`ops/peak.py`). The entry points run on the card unless the
-caller asks for "cpu".
+card's FP32 peak (`ops/peak.py`); chunked runs that checkpoint and resume
+(`runner.ChunkedRunner`, `utils/checkpoint.py`), the reference's CSVs
+(`utils/io.py`) and phase profiling (`utils/profiling.py`). The entry points
+run on the card unless the caller asks for "cpu".
 """
 
 __version__ = "0.1.0"

@@ -3,9 +3,13 @@
 Prints the JSON summary of the JAX package's CLI (same keys) for the models
 arma, prmwcd, eightschools and logistic, with any of the three L-kernel
 strategies, `--tempering` (always on with the asymptotic strategy, as in that
-CLI) and either resampling scheme. The flags of that CLI that this port does
-not run yet (the Stan frontend, the mesh, checkpoints and their chunk size,
-the output file) raise NotImplementedError naming their ROADMAP item.
+CLI) and either resampling scheme. `--checkpoint PATH` runs through
+`runner.ChunkedRunner` in chunks of `--chunk-size` iterations (default 10;
+without a checkpoint it changes nothing, as in that CLI), resuming from PATH
+when it exists; `--output PATH` saves every result field that is not None
+to an .npz, as host numpy arrays. The flags of that CLI that this port does
+not run yet (the Stan frontend, the mesh) raise NotImplementedError naming
+their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -13,14 +17,13 @@ from __future__ import annotations
 import argparse
 import json
 
+import numpy as np
+
 _NOT_PORTED = {  # flag attribute -> ROADMAP item
     "stan": "Queue 1 item 11",
     "data": "Queue 1 item 11",
     "stan_tile": "Queue 1 item 11",
     "mesh": "Queue 1 item 10",
-    "checkpoint": "Queue 1 item 9",
-    "chunk_size": "Queue 1 item 9",
-    "output": "Queue 1 item 9",
 }
 
 
@@ -53,9 +56,10 @@ def main(argv=None) -> dict:
     p.add_argument("--data", default=None)
     p.add_argument("--stan-tile", action="store_true")
     p.add_argument("--mesh", action="store_true")
-    p.add_argument("--checkpoint", default=None)
-    p.add_argument("--chunk-size", type=int, default=None)
-    p.add_argument("--output", default=None)
+    p.add_argument("--checkpoint", default=None,
+                   help="checkpoint path (a chunked run that resumes from it)")
+    p.add_argument("--chunk-size", type=int, default=10)
+    p.add_argument("--output", default=None, help="save the results' .npz here")
     args = p.parse_args(argv)
 
     for flag, item in _NOT_PORTED.items():
@@ -85,7 +89,14 @@ def main(argv=None) -> dict:
         adapt_step_size=args.adapt_step_size,
         adapt_mass_matrix=args.adapt_mass_matrix,
     )
-    result = run_smc(model, cfg, args.seed, args.device)
+    if args.checkpoint:
+        from .runner import ChunkedRunner
+
+        result = ChunkedRunner(model, cfg, checkpoint_path=args.checkpoint,
+                               chunk_size=args.chunk_size,
+                               device=args.device).run(args.seed)
+    else:
+        result = run_smc(model, cfg, args.seed, args.device)
 
     summary = {
         "model": args.model,
@@ -99,6 +110,10 @@ def main(argv=None) -> dict:
         "phi_schedule": [round(v, 4) for v in result.phi.tolist()],
     }
     print(json.dumps(summary, indent=1))
+    if args.output:
+        np.savez(args.output, **{f: v.cpu().numpy() for f, v in result._asdict().items()
+                                 if v is not None})
+        print(f"saved diagnostics to {args.output}")
     return summary
 
 

@@ -62,6 +62,7 @@ L-kernel's three small factorisations are library calls, made per run;
 
 from __future__ import annotations
 
+import sys
 import time
 from typing import NamedTuple
 
@@ -552,58 +553,108 @@ def finalize(model, cfg: SMCConfig, carry: SMCCarry, diags: list,
     )
 
 
+class RunState:
+    """Where B runs stand between iterations: the carry after `k_done`
+    iterations, the diagnostics of each of those iterations (one dict of
+    (B, ...) tensors an iteration, keyed as `_SERIES`), and with
+    cfg.save_history the history lists "x", "logw" (and "loglik" with the
+    asymptotic strategy) of the k_done + 1 states so far. What a checkpoint
+    holds (`utils.checkpoint`)."""
+
+    def __init__(self, carry: SMCCarry, k_done: int = 0, diags=None, history=None):
+        self.carry = carry
+        self.k_done = k_done
+        self.diags = [] if diags is None else diags
+        self.history = history
+
+
+class SMCRun:
+    """B = len(seeds) runs on one device, in the three parts that
+    `run_smc_batched` chains and `runner.ChunkedRunner` calls a chunk at a
+    time: `init` (init_state), `iterate` (iterations [k_done, k1) of the
+    loop, by absolute index) and `finalize`. Resolves the device and the
+    backend and moves the model to the device, as `run_smc_batched` does."""
+
+    def __init__(self, model, cfg: SMCConfig, seeds, device="cuda",
+                 momentum_proposal=None, draws: str = PHILOX):
+        device = resolve_device(device)
+        self.backend = resolve_backend(cfg, device, model)
+        self.model = model.to(device)
+        seeds = [int(s) for s in seeds]
+        if not seeds or not all(0 <= s < 2**63 for s in seeds):
+            raise ValueError(f"seeds must be one or more integers in [0, 2^63), got {seeds}")
+        self.cfg, self.device, self.seeds = cfg, device, seeds
+        self.seeds_t = torch.tensor(seeds, dtype=torch.int64, device=device)
+        self.momentum_proposal, self.draws = momentum_proposal, draws
+        self.dtype = getattr(torch, cfg.dtype)
+        self.fused = uses_fused_path(cfg, momentum_proposal)
+        per_iteration = (len(seeds) * (cfg.n_particles + 1)
+                         * (1 if self.fused else 2 * model.dim + 2))
+        # Iterations whose draws are made in one call. The draws are
+        # addressed by iteration, so where a block starts changes no value.
+        self.block = max(1, _DRAW_BLOCK // per_iteration)
+
+    def init(self, sample_proposal=None) -> RunState:
+        carry = init_state(self.model, self.cfg, self.seeds, self.device, sample_proposal)
+        history = None
+        if self.cfg.save_history:
+            history = {"x": [carry.x], "logw": [carry.logw]}
+            if self.cfg.is_asymptotic:
+                history["loglik"] = [carry.loglik]
+        return RunState(carry, history=history)
+
+    def iterate(self, state: RunState, k1: int) -> RunState:
+        """Iterations state.k_done .. k1 - 1, each drawing what its absolute
+        index addresses; appends their diagnostics and histories to state."""
+        cfg, N, D = self.cfg, self.cfg.n_particles, self.model.dim
+        for k0 in range(state.k_done, k1, self.block):
+            iterations = range(k0, min(k0 + self.block, k1))
+            step_draws = iteration_draws(cfg, self.seeds_t, iterations, N, D,
+                                         self.dtype, self.fused)
+            for i in range(len(iterations)):
+                state.carry, diag = smc_step(
+                    self.model, cfg, state.carry, backend=self.backend,
+                    draws=self.draws, momentum_proposal=self.momentum_proposal,
+                    **{name: v[i] for name, v in step_draws.items()})
+                state.diags.append(diag)
+                if state.history is not None:
+                    for name, seq in state.history.items():
+                        seq.append(getattr(state.carry, name))
+        state.k_done = k1
+        return state
+
+    def finalize(self, state: RunState) -> SMCResult:
+        """`finalize` of the K iterations of state, with the recycling
+        uniforms the asymptotic strategy's estimates at the end need."""
+        cfg, K, N = self.cfg, self.cfg.n_iterations, self.cfg.n_particles
+        if state.k_done != K:
+            raise ValueError(f"{state.k_done} of {K} iterations done")
+        recycle = None
+        if cfg.is_asymptotic and not cfg.save_history:
+            recycle = recycle_draws(self.seeds_t, [K], N, self.dtype)[0]
+        elif cfg.is_asymptotic:
+            recycle = torch.cat([
+                recycle_draws(self.seeds_t, range(k, min(k + self.block, K + 1)), N,
+                              self.dtype)
+                for k in range(0, K + 1, self.block)
+            ]).transpose(0, 1)
+        hist = state.history or {}
+        return finalize(self.model, cfg, state.carry, state.diags, hist.get("x"),
+                        hist.get("logw"), hist.get("loglik"), recycle)
+
+
 def run_smc_batched(model, cfg: SMCConfig, seeds, device="cuda",
                     sample_proposal=None, momentum_proposal=None,
                     draws: str = PHILOX) -> SMCResult:
     """Run B = len(seeds) independent SMC runs of K iterations on `device`:
-    init_state, K calls of smc_step (one NUTS launch each), finalize. Every
-    field of the result leads with B, and run b equals `run_smc` with seed
-    seeds[b]. Seeds are integers in [0, 2^63). Moves the model to the
-    device. The device defaults to the card and is never replaced by the
-    CPU: without a CUDA device the call raises unless "cpu" is asked for."""
-    device = resolve_device(device)
-    backend = resolve_backend(cfg, device, model)
-    model = model.to(device)
-    seeds = [int(s) for s in seeds]
-    if not seeds or not all(0 <= s < 2**63 for s in seeds):
-        raise ValueError(f"seeds must be one or more integers in [0, 2^63), got {seeds}")
-    carry = init_state(model, cfg, seeds, device, sample_proposal)
-    seeds_t = torch.tensor(seeds, dtype=torch.int64, device=device)
-    B, N = carry.logw.shape
-    K = cfg.n_iterations
-    dtype = carry.x.dtype
-    fused = uses_fused_path(cfg, momentum_proposal)
-    per_iteration = B * (N + 1) * (1 if fused else 2 * model.dim + 2)
-    block = max(1, _DRAW_BLOCK // per_iteration)
-    streaming = cfg.is_asymptotic and not cfg.save_history
-    diags = []
-    x_hist = [carry.x] if cfg.save_history else None
-    logw_hist = [carry.logw] if cfg.save_history else None
-    loglik_hist = [carry.loglik] if cfg.save_history and cfg.is_asymptotic else None
-    for k in range(K):
-        if k % block == 0:
-            step_draws = iteration_draws(cfg, seeds_t, range(k, min(k + block, K)),
-                                         N, model.dim, dtype, fused)
-        carry, diag = smc_step(
-            model, cfg, carry, backend=backend, draws=draws,
-            momentum_proposal=momentum_proposal,
-            **{name: v[k % block] for name, v in step_draws.items()})
-        diags.append(diag)
-        if cfg.save_history:
-            x_hist.append(carry.x)
-            logw_hist.append(carry.logw)
-            if loglik_hist is not None:
-                loglik_hist.append(carry.loglik)
-    recycle = None
-    if streaming:
-        recycle = recycle_draws(seeds_t, [K], N, dtype)[0]
-    elif cfg.is_asymptotic:
-        recycle = torch.cat([
-            recycle_draws(seeds_t, range(k, min(k + block, K + 1)), N, dtype)
-            for k in range(0, K + 1, block)
-        ]).transpose(0, 1)
-    return finalize(model, cfg, carry, diags, x_hist, logw_hist, loglik_hist,
-                    recycle)
+    init_state, K calls of smc_step (one NUTS launch each), finalize
+    (`SMCRun`). Every field of the result leads with B, and run b equals
+    `run_smc` with seed seeds[b]. Seeds are integers in [0, 2^63). Moves the
+    model to the device. The device defaults to the card and is never
+    replaced by the CPU: without a CUDA device the call raises unless "cpu"
+    is asked for."""
+    run = SMCRun(model, cfg, seeds, device, momentum_proposal, draws)
+    return run.finalize(run.iterate(run.init(sample_proposal), cfg.n_iterations))
 
 
 def run_smc(model, cfg: SMCConfig, seed: int = 0, device="cuda",
@@ -638,15 +689,23 @@ class SMCSampler:
         self.result: SMCResult | None = None
         self.run_time = None
 
-    def sample(self, seed=None) -> SMCResult:
+    def sample(self, seed=None, show_progress=False) -> SMCResult:
         """Run the sampler; `run_time` is the wall time up to the results on
-        the host."""
+        the host. `show_progress=True` shows the reference's progress bar
+        (reference smc_sampler.py:109): the run goes through
+        `runner.ChunkedRunner` in chunks of ceil(K / 20) iterations, with a
+        tqdm bar advanced after each (without tqdm, a line `SMC iteration
+        k/K` on stderr), and its results equal those without, to the bit."""
+        seed = self.seed if seed is None else seed
         start = time.perf_counter()
-        result = run_smc(
-            self.target, self.cfg, self.seed if seed is None else seed,
-            self.device, sample_proposal=self._sample_proposal,
-            momentum_proposal=self._momentum_proposal,
-        )
+        if show_progress:
+            result = self._sample_with_progress(seed)
+        else:
+            result = run_smc(
+                self.target, self.cfg, seed, self.device,
+                sample_proposal=self._sample_proposal,
+                momentum_proposal=self._momentum_proposal,
+            )
         host = {
             k: None if v is None else v.cpu().numpy()
             for k, v in result._asdict().items()
@@ -664,3 +723,33 @@ class SMCSampler:
             self.x_saved = host["x_saved"]
             self.logw_saved = host["logw_saved"]
         return result
+
+    def _sample_with_progress(self, seed) -> SMCResult:
+        from .runner import ChunkedRunner
+
+        runner = ChunkedRunner(
+            self.target, self.cfg, chunk_size=-(-self.cfg.n_iterations // 20),
+            sample_proposal=self._sample_proposal,
+            momentum_proposal=self._momentum_proposal, device=self.device,
+        )
+        # tqdm is imported alone: an ImportError raised by the run itself must
+        # not be taken for a missing tqdm.
+        try:
+            from tqdm import tqdm
+        except ImportError:
+            tqdm = None
+        if tqdm is None:
+            def progress(k_done, total):
+                print(f"SMC iteration {k_done}/{total}", file=sys.stderr)
+
+            return runner.run(seed, progress=progress)
+        bar = tqdm(total=self.cfg.n_iterations, desc="SMC", unit="it")
+
+        def progress(k_done, total):
+            bar.n = k_done
+            bar.refresh()
+
+        try:
+            return runner.run(seed, progress=progress)
+        finally:
+            bar.close()

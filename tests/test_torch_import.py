@@ -24,7 +24,8 @@ _MODULES = (
     "smcnuts_torch.models.logistic", "smcnuts_torch.ops.arma_fused",
     "smcnuts_torch.ops.nuts", "smcnuts_torch.proposals", "smcnuts_torch.config",
     "smcnuts_torch.ops.generated", "smcnuts_torch.ops.peak", "smcnuts_torch.models.base",
-    "smcnuts_torch.models.arma",
+    "smcnuts_torch.models.arma", "smcnuts_torch.runner", "smcnuts_torch.utils.checkpoint",
+    "smcnuts_torch.utils.io", "smcnuts_torch.utils.profiling",
 )
 
 
@@ -94,9 +95,8 @@ def test_no_source_imports(forbidden):
     assert not hits
 
 
-def test_chip_smoke_imports_neither():
-    """The chip script names jax and smcnuts_tpu in no import."""
-    with open(os.path.join(_REPO, "chip_smoke.py")) as f:
+def _imported_names(path):
+    with open(path) as f:
         tree = ast.parse(f.read())
     names = []
     for node in ast.walk(tree):
@@ -104,6 +104,20 @@ def test_chip_smoke_imports_neither():
             names += [a.name for a in node.names]
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
             names.append(node.module or "")
+    return names
+
+
+def test_chip_smoke_imports_neither():
+    """The chip script names jax and smcnuts_tpu in no import."""
+    names = _imported_names(os.path.join(_REPO, "chip_smoke.py"))
+    assert not [n for n in names
+                if n.split(".")[0] in ("jax", "jaxlib", "smcnuts_tpu")]
+    assert any(n.startswith("smcnuts_torch") for n in names)
+
+
+def test_experiment_driver_imports_neither():
+    """The port's experiment driver names jax and smcnuts_tpu in no import."""
+    names = _imported_names(os.path.join(_REPO, "experiments", "run_experiments_torch.py"))
     assert not [n for n in names
                 if n.split(".")[0] in ("jax", "jaxlib", "smcnuts_tpu")]
     assert any(n.startswith("smcnuts_torch") for n in names)

@@ -143,13 +143,12 @@ def test_cli_end_to_end_cpu(capsys):
 
 
 @pytest.mark.parametrize("argv", [
-    # The strategy, tempering, resampling and model flags run; beside a flag
-    # that is still outside the port they do not hide it.
-    ["--tempering", "--checkpoint", "ck.npz"],
+    # The strategy, resampling and model flags run; beside a flag that is
+    # still outside the port they do not hide it. (--checkpoint, --chunk-size
+    # and --output run: tests/test_torch_io_cli.py.)
     ["--lkernel", "asymptoticLKernel", "--mesh"],
     ["--resampling", "systematic", "--stan", "m.stan"], ["--stan-tile"], ["--mesh"],
-    ["--checkpoint", "ck.npz"], ["--stan", "m.stan"], ["--output", "o.npz"],
-    ["--model", "eightschools", "--output", "o.npz"], ["--data", "d.json"],
+    ["--stan", "m.stan"], ["--data", "d.json"],
 ], ids=lambda a: a[0])
 def test_cli_flags_outside_slice_raise(argv):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
