@@ -5,8 +5,8 @@
                                  # developing: prints no kernels line, no "ok"
     (phase keys: arma, prmwcd, main, batched, staged_times, cli, autodiff,
     gaussian, logistic, eightschools (phase 8 for one model alone),
-    strategies, fused_kernel, eager, unfused, wide_eager, generated, runner;
-    device, build and peak always run first)
+    strategies, fused_kernel, eager, unfused, wide_eager, generated, runner,
+    stan; device, build and peak always run first)
 
 Phases, each printing its own lines; any failure raises (non-zero exit):
 
@@ -221,6 +221,30 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
    summary. (f) `utils.profiling.phase_timings` on arma, one run at N=512:
    milliseconds an iteration of each phase. The launches of (a)-(e) count on
    their rows of the kernels line.
+
+13. Stan programs on the card, through the port's frontend (`stan/`):
+   examples/stan/radon_intercepts (D = 9, reverse mode, K7r), examples/stan/
+   irt_ar (D = 64, forward, K7f) and the AR(1)-error recurrence of
+   tests/test_stan_frontend.py at T = 200 (D = 2, forward, K7f). (a), before
+   phase 2: each parsed, interpreted and traced on the card's machine
+   (seconds each, the mode tile_autodiff="auto" chose, operations a
+   leapfrog), then one nvcc each, all at once in the background (beside
+   phase 2's); phase 13 prints their seconds and ptxas's lines. (c) run_smc_batched at 25 x 512 x
+   K=100, forwards, depth 10, each at its step (STAN_PROGRAMS): K launches,
+   no plain call, finite series, runs 0 and 24 equal their single runs to the
+   bit; wall and the 25-run means beside the values that generated the data.
+   (b) Each kernel against its plain version at 25 x 512 x depth 10 on the
+   population (c) ended with, zero bits and Philox: equal to the bit; its
+   device time, the plain version's and the bound. (d) radon without a
+   generated model, eager by autograd on the card (its logp_and_grad a graph
+   traced once and replayed), at 5 x 512 x K=20, beside the kernel's run of
+   the same shape: the means within 4 MC standard errors; ms a
+   logp_and_grad call of each eager model at 512 particles, interpreted,
+   and for radon replayed (equal to the bit). (e)
+   `python -m smcnuts_torch --stan radon --data ... --stan-tile -N 512 -K 100
+   --step-size 0.05` (K launches, the JAX CLI's keys) and the same without
+   --stan-tile at K=10 (eager, no launch), each with acceptance above 0 and
+   a final ESS below N (the particles moved).
 
 The line before the last two repeats the card's name and power limit, the
 second-to-last line is a JSON object describing the kernels (for each: the
@@ -584,9 +608,15 @@ def equal_fields(a, b):
 
 def single_run_diff(one, res, b):
     """Names of the fields in which the single run `one` differs from run b
-    of the batched result `res` in any bit."""
+    of the batched result `res` in any bit (NaN equal to NaN: a particle
+    whose density is NaN, as irt_ar's at a prior draw with |rho| > 1, has a
+    NaN weight in both)."""
+    def same(u, v):
+        return torch.equal(u, v) or (u.is_floating_point() and u.shape == v.shape and bool(
+            ((u == v) | (torch.isnan(u) & torch.isnan(v))).all()))
+
     return [f for f, v in one._asdict().items()
-            if v is not None and not torch.equal(v, getattr(res, f)[b])]
+            if v is not None and not same(v, getattr(res, f)[b])]
 
 
 def tree_roofline(name, out, survivors=(), bundle_rows=0, model=None):
@@ -2695,7 +2725,292 @@ def runner_phase(smi):
     return tally
 
 
-def partial_run(only, smi):
+# ---- phase 13: Stan programs on the card, through the port's frontend.
+
+# The slice's three programs: two examples of the repository and the AR(1)
+# error recurrence of tests/test_stan_frontend.py:270-284 at T = 200, its
+# data made by `_recurrence_data(T=200)` there (copied, as the port's test
+# copies it). Step sizes: examples/stan/README.md's 0.2 for radon is its
+# tempered asymptotic run's; under the forwards L-kernel without tempering
+# the trees diverge at 0.2 (radon) and at the CLI's 0.5 (the other two):
+# experiments/stan_step_sizes_torch.py (the port, on the card or the CPU) and
+# experiments/stan_step_sizes_jax.py (the JAX frontend, on the CPU) print
+# acceptance and depth at each step (PERF.md, §6).
+STAN_RECURRENCE = """
+data { int<lower=1> T; real y[T]; real phi; }
+parameters { real a; real<lower=0> s; }
+model {
+  vector[T] e;
+  real acc;
+  acc = 0;
+  e[1] = y[1];
+  for (t in 2:T) {
+    e[t] = y[t] - a * e[t-1];
+    acc += e[t] * 0.001;
+  }
+  target += normal_lpdf(a | 0, 1);
+  target += phi * (normal_lpdf(e | 0, s) + acc);
+}
+"""
+STAN_PROGRAMS = {
+    "radon_intercepts": dict(path="examples/stan/radon_intercepts.stan", step=0.05,
+                             mode="reverse", replaces="smcnuts_tpu/ops/nuts_pallas.py:1126"),
+    "irt_ar": dict(path="examples/stan/irt_ar.stan", step=0.1, mode="forward",
+                   replaces="smcnuts_tpu/ops/nuts_pallas.py:1674"),
+    "ar1_errors_t200": dict(path=None, step=0.05, mode="forward",
+                            replaces="smcnuts_tpu/ops/nuts_pallas.py:1674"),
+}
+STAN_EAGER_RUNS, STAN_EAGER_K = 5, 20  # the eager radon run and its kernel twin
+STAN_CLI_EAGER_K = 10
+
+
+def stan_source(name):
+    """(source, data) of one of STAN_PROGRAMS."""
+    import numpy as np
+
+    from smcnuts_torch.stan import load_stan_data
+
+    path = STAN_PROGRAMS[name]["path"]
+    if path is None:
+        y = np.random.default_rng(3).normal(size=200)
+        return STAN_RECURRENCE, {"T": 200, "y": y.tolist()}
+    with open(path) as f:
+        return f.read(), load_stan_data(path[: -len(".stan")] + ".json")
+
+
+def stan_generating(name, dim):
+    """The values that generated each program's data, in its parameters'
+    order and constrained, as the estimates are: radon's from
+    examples/stan/README.md (mu_a and sigma_a not stated), irt_ar's item
+    difficulties from its data file's `_b_true`, the recurrence's a = 0 and
+    s = 1 (its y are iid standard normals)."""
+    import numpy as np
+
+    if name == "radon_intercepts":
+        return [1.56, 0.90, 0.54, 1.29, 1.29, 0.7, None, None, 0.4]
+    if name == "irt_ar":
+        _, data = stan_source(name)
+        b = list(np.asarray(data["_b_true"], dtype=float))
+        return b + [None] * (dim - len(b))
+    return [0.0, 1.0]
+
+
+def stan_means_text(label, name, res, k, smi):
+    """The 25-run means of the final estimates beside the generating values
+    (both constrained)."""
+    m = res.mean_estimate[:, k].double().mean(0).tolist()
+    gen = stan_generating(name, len(m))
+    shown = min(len(m), 12)
+    pairs = [f"{m[i]:.3f}" + (f" ({gen[i]:.3f})" if gen[i] is not None else "")
+             for i in range(shown)]
+    more = "" if shown == len(m) else f", ... ({len(m) - shown} more)"
+    print(f"{label}: {RUNS}-run mean of the final estimates (generating value): "
+          f"{', '.join(pairs)}{more} ({smi})")
+
+
+def stan_prepare(smi):
+    """Phase 13 (a), run before phase 2: the three programs parsed,
+    interpreted (the eager model) and traced (tile=True) on the card's
+    machine, then one nvcc each started in the background, so that the
+    builds (irt_ar's takes about a minute) run beside phase 2's and later
+    phases, not inside phase 13. Returns what stan_phase takes."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from smcnuts_torch.ops.generated import build_generated
+    from smcnuts_torch.stan import compile_stan_program, parse
+
+    phase("13 (a). Stan programs: parse, interpret, trace; their nvcc started in the "
+          "background")
+    started = time.perf_counter()
+    dev = torch.device("cuda")
+    models, eager_models = {}, {}
+    for name in STAN_PROGRAMS:
+        src, data = stan_source(name)
+        t0 = time.perf_counter()
+        parse(src)
+        t1 = time.perf_counter()
+        eager_models[name] = compile_stan_program(src, data, name=name).to(dev)
+        t2 = time.perf_counter()
+        models[name] = compile_stan_program(src, data, name=name, tile=True).to(dev)
+        t3 = time.perf_counter()
+        tm = models[name].tile_model
+        if tm.autodiff != STAN_PROGRAMS[name]["mode"]:
+            raise AssertionError(f"(a) {name}: tile_autodiff='auto' chose {tm.autodiff}")
+        print(f"(a) {name}: D = {tm.dim}, {tm.autodiff} mode, {tm.n_ops} operations a "
+              f"leapfrog, {tm.data.numel()} data floats; parse {t1 - t0:.3f} s, "
+              f"interpret (the eager model) {t2 - t1:.3f} s, interpret and trace "
+              f"(tile=True) {t3 - t2:.1f} s (host clock; {smi})")
+    pool = ThreadPoolExecutor(len(models))
+    builds = {name: pool.submit(build_generated, m.tile_model) for name, m in models.items()}
+    return dict(models=models, eager_models=eager_models, builds=builds, pool=pool,
+                seconds=time.perf_counter() - started, started=time.perf_counter())
+
+
+def stan_phase(smi, prep):
+    """Phase 13: Stan programs compiled by the port's frontend (`prep`, from
+    stan_prepare), through the generated NUTS kernels (K7r, K7f). Returns
+    the kernels-line rows."""
+    from smcnuts_torch import SMCConfig, run_smc_batched
+    from smcnuts_torch.models.base import CallableModel
+    from smcnuts_torch.ops.draws import PHILOX, ZERO_BITS
+    from smcnuts_torch.ops.nuts_cuda import nuts_tree, nuts_tree_plain
+    from smcnuts_torch.utils.timing import CudaTimer, device_ms, median_ms
+
+    phase("13. Stan programs on the card (K7r, K7f through the port's frontend)")
+    started = time.perf_counter()
+    dev = torch.device("cuda")
+    models, eager_models, builds = prep["models"], prep["eager_models"], prep["builds"]
+    pool = prep["pool"]
+
+    rows, launches = {}, {name: 0 for name in models}
+    finals = {}
+    # (c) bench.py's shape: 25 runs x 512 x K=100, forwards, depth 10.
+    for name in sorted(models, key=lambda n: models[n].tile_model.n_ops):
+        m = models[name]
+        lib = builds[name].result()
+        print(f"(a) {name}: nvcc {lib.build_seconds:.1f} s (the three started at once, "
+              f"{time.perf_counter() - prep['started']:.1f} s before it is read here; {smi})")
+        generated_build(f"(a) {name}", m)
+        cfg = SMCConfig(n_particles=N, n_iterations=K, step_size=STAN_PROGRAMS[name]["step"],
+                        max_tree_depth=MAX_DEPTH)
+        label = f"(c) {name}, forwards, step {cfg.step_size}"
+        res, n_launch, _ = strategy_run(label, "generated", m, cfg, smi)
+        launches[name] += n_launch
+        stan_means_text(label, name, res, K, smi)
+        finals[name] = res.x_final.contiguous()
+    pool.shutdown()
+
+    # (b) Each kernel against its plain version at 25 x 512 x depth 10, on
+    # the posterior cloud (c) ended with, zero bits and Philox: to the bit.
+    for name, m in models.items():
+        x, step = finals[name], STAN_PROGRAMS[name]["step"]
+        seeds = torch.arange(RUNS, dtype=torch.int32, device=dev)
+        ones = torch.ones(x.shape[-1], device=dev)
+        worst = 0.0
+        for source in (ZERO_BITS, PHILOX):
+            args = (x, seeds, step, 1.0, ones, MAX_DEPTH, source)
+            out_k = nuts_tree(m, *args)
+            with CudaTimer() as t:
+                out_p = nuts_tree_plain(m, *args)
+            worst = max(worst, check_outputs(f"(b) {name} [{source}] kernel vs plain",
+                                             out_k, out_p, nan_lanes=True, bitwise=True))
+            print(f"(b) {name} [{source}]: kernel and plain version equal to the bit; "
+                  f"plain {t.ms:.1f} ms")
+        call = lambda: nuts_tree(m, *args)  # noqa: E731 (Philox, the last args)
+        ms = device_ms(call, repeats=DEVICE_REPEATS)
+        host_ms = median_ms(call, repeats=5)
+        bound = tree_roofline("generated", out_k, model=m.tile_model)
+        print(f"(b) time {name}, {RUNS} x {N} x depth {MAX_DEPTH} [philox]: {ms:.4f} ms "
+              f"(device alone, {DEVICE_REPEATS} launches back to back; a call timed "
+              f"alone {host_ms:.4f} ms); plain {t.ms:.1f} ms; {bound_text(bound)} "
+              f"({m.tile_model.n_ops} operations x {float(out_k[2]['leapfrogs'].sum()):.0f} "
+              f"leapfrogs; {smi})")
+        rows[name] = {"max_abs_err": worst, "ms": ms, "host_call_ms": host_ms,
+                      "plain_ms": t.ms, **bound}
+
+    # (d) radon eager by autograd on the card, beside its kernel run at the
+    # same shape: the means within 4 MC standard errors.
+    name = "radon_intercepts"
+    cfg = SMCConfig(n_particles=N, n_iterations=STAN_EAGER_K,
+                    step_size=STAN_PROGRAMS[name]["step"], max_tree_depth=MAX_DEPTH)
+    seeds = SEEDS[:STAN_EAGER_RUNS]
+    walls, res = {}, {}
+    for who, m in (("eager", eager_models[name]), ("kernel", models[name])):
+        reset_counts()
+        with CudaTimer() as t:
+            res[who] = run_smc_batched(m, cfg, seeds, "cuda")
+            res[who].mean_estimate[:, -1].cpu()
+        walls[who] = t.ms
+        counts, plain_calls = read_counts()
+        want = (0, STAN_EAGER_K) if who == "eager" else (STAN_EAGER_K, 0)
+        if (sum(counts.values()), plain_calls) != want:
+            raise AssertionError(f"(d) {name} {who}: {counts} launches, {plain_calls} "
+                                 f"plain calls; expected {want}")
+        check_series(f"(d) {name} {who}", res[who], STAN_EAGER_K)
+        if who == "kernel":
+            launches[name] += STAN_EAGER_K
+    me, mk = (res[w].mean_estimate[:, STAN_EAGER_K].double() for w in ("eager", "kernel"))
+    se = (me.var(0) / len(seeds) + mk.var(0) / len(seeds)).sqrt() + 1e-12
+    z = ((me.mean(0) - mk.mean(0)).abs() / se)
+    print(f"(d) {name} {len(seeds)} x {N} x K={STAN_EAGER_K}: eager (autograd, no kernel) "
+          f"{walls['eager']:.1f} ms, kernel {walls['kernel']:.1f} ms (CUDA events); "
+          f"|eager mean - kernel mean| / MC se {[round(float(v), 3) for v in z]} ({smi})")
+    if not bool((z <= 4.0).all()):
+        raise AssertionError(f"(d) {name}: the eager means are more than 4 MC standard "
+                             f"errors from the kernel run's")
+    # A logp_and_grad call of each eager model at 512 particles: interpreted
+    # (CallableModel's, autograd of the interpretation) and, for radon, the
+    # StanModel's replayed graph, equal to it to the bit.
+    for prog, m in eager_models.items():
+        xx = finals[prog][0].clone()
+        phi = torch.full((N,), 1.0, device=dev)
+        interpreted = median_ms(lambda: CallableModel.logp_and_grad(m, xx, phi), repeats=3)
+        text = f"{interpreted:.3f} ms interpreted"
+        if prog == name:
+            def same(a, b):
+                return torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+            want = CallableModel.logp_and_grad(m, xx, phi)
+            if not same(CallableModel.logp_and_grad(m, xx, phi), want):
+                raise AssertionError(f"(d) {prog}: two interpretations differ (an op "
+                                     f"that adds with atomics?)")
+            if not same(m.logp_and_grad(xx, phi), want):
+                raise AssertionError(f"(d) {prog}: the replayed graph differs from the "
+                                     f"interpretation")
+            replayed = median_ms(lambda: m.logp_and_grad(xx, phi), repeats=5)
+            text += (f", {replayed:.3f} ms replayed (its graph, {len(m._graphs)} traced, "
+                     f"equal to the interpretation to the bit)")
+        print(f"(d) {prog}: a logp_and_grad call of the eager model at {N} particles: "
+              f"{text} (CUDA events, median of 3 and 5; {smi})")
+
+    # (e) The CLI, with --stan-tile at K=100 (the kernel) and without it at
+    # K=10 (eager), through its main(), at (c)'s step: the particles must
+    # move (acceptance above 0, from the --output file) and the weights
+    # differ (final ESS below N).
+    import tempfile
+
+    import numpy as np
+
+    base = ["--stan", STAN_PROGRAMS[name]["path"], "--data",
+            STAN_PROGRAMS[name]["path"][: -len(".stan")] + ".json", "-N", str(N),
+            "--step-size", str(STAN_PROGRAMS[name]["step"])]
+    keys = {"model", "lkernel", "N", "K", "mean", "variance", "ess", "log_likelihood",
+            "phi_schedule"}
+    for argv, k, kernel in ((base + ["--stan-tile", "-K", str(K)], K, True),
+                            (base + ["-K", str(STAN_CLI_EAGER_K)], STAN_CLI_EAGER_K, False)):
+        reset_counts()
+        with tempfile.TemporaryDirectory() as tmp:
+            out = os.path.join(tmp, "diagnostics.npz")
+            t0 = time.perf_counter()
+            summary = quiet_cli(argv + ["--device", "cuda", "--output", out])
+            wall = time.perf_counter() - t0
+            acceptance = float(np.load(out)["acceptance_rate"][:k].mean())
+        counts, plain_calls = read_counts()
+        want = (k, 0) if kernel else (0, k)
+        if set(summary) != keys or (sum(counts.values()), plain_calls) != want:
+            raise AssertionError(f"(e) {' '.join(argv)}: keys {sorted(summary)}, "
+                                 f"{counts} launches, {plain_calls} plain calls")
+        if not all(math.isfinite(v) for v in summary["mean"] + summary["variance"]):
+            raise AssertionError(f"(e) {' '.join(argv)}: estimates not finite")
+        if not (summary["ess"] < N and acceptance > 0.0):
+            raise AssertionError(f"(e) {' '.join(argv)}: final ESS {summary['ess']} "
+                                 f"(must be below N = {N}), acceptance {acceptance} "
+                                 f"(must be above 0): the particles did not move")
+        if kernel:
+            launches[name] += k
+        print(f"(e) python -m smcnuts_torch {' '.join(argv)}: the JAX CLI's keys, "
+              f"{counts['generated']} kernel launches, {plain_calls} plain calls, "
+              f"{wall:.1f} s (host clock, the trace included), model "
+              f"{summary['model']}, acceptance {acceptance:.3f}, final ESS "
+              f"{summary['ess']:.1f} ({smi})")
+    for n in rows:
+        rows[n]["launches"] = launches[n]
+    print(f"phase 13 took {time.perf_counter() - started:.1f} s, and (a) before phase 2 "
+          f"{prep['seconds']:.1f} s (host clock; the budget of both is 150 s; {smi})")
+    return rows
+
+
+def partial_run(only, smi, stan_prep):
     """The phases named in `only` (after device and build), for development:
     no kernels line and no "ok" line, so it cannot pass for the whole run."""
     phases = {"arma": arma_kernel_phase, "prmwcd": prmwcd_kernel_phase,
@@ -2707,7 +3022,8 @@ def partial_run(only, smi):
               "strategies": strategies_phase,
               "fused_kernel": arma_fused_kernel_phase, "eager": eager_arma_phase,
               "unfused": unfused_kernel_phase, "wide_eager": wide_eager_phase,
-              "generated": generated_phase, "runner": runner_phase}
+              "generated": generated_phase, "runner": runner_phase,
+              "stan": lambda smi: stan_phase(smi, stan_prep)}
     for key in only:
         phases[key](smi)
     print(f"\nchip_smoke: partial run of {only} passed; no result line")
@@ -2717,10 +3033,12 @@ def main():
     started = time.perf_counter()
     name, smi = device_phase()
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    only = sys.argv[2].split(",") if len(sys.argv) == 3 and sys.argv[1] == "--only" else None
+    stan_prep = stan_prepare(smi) if only is None or "stan" in only else None
     build_phase()
     k8 = peak_phase(smi)
-    if len(sys.argv) == 3 and sys.argv[1] == "--only":
-        return partial_run(sys.argv[2].split(","), smi)
+    if only is not None:
+        return partial_run(only, smi, stan_prep)
     arma, arma_staged, arma_w1 = arma_kernel_phase(smi)
     prmwcd, prmwcd_staged, prmwcd_w1 = prmwcd_kernel_phase(smi)
     arma_launches = main_path_phase(smi)
@@ -2733,6 +3051,7 @@ def main():
     k5, k5_w1, k1u = fused_phase(smi)
     k7f, k7r, k7f_built, k7r_w2 = generated_phase(smi)
     tally = runner_phase(smi)
+    stan = stan_phase(smi, stan_prep)
     source = "smcnuts_torch/csrc/nuts_tree.cuh"
     # No single PyTorch call builds a NUTS tree, computes the fused ARMA
     # value and gradient or runs FMA chains, so no kernel has a library time.
@@ -2811,6 +3130,16 @@ def main():
         dict(name="nuts_tree_generated_eightschools_reverse_w2", route="cuda",
              source="smcnuts_torch/ops/generated.py",
              replaces="smcnuts_tpu/ops/nuts_pallas.py:1126", **k7r_w2),
+    ]
+    # K7 through the Stan frontend: each program's generated model inlined
+    # into the K1 template, one library each (phase 13).
+    kernels += [
+        dict(name=f"nuts_tree_generated_stan_{prog}_{STAN_PROGRAMS[prog]['mode']}",
+             route="cuda", source="smcnuts_torch/ops/generated.py",
+             replaces=STAN_PROGRAMS[prog]["replaces"], **row)
+        for prog, row in stan.items()
+    ]
+    kernels += [
         # K8: the FP32 peak, through its own entry point (ops/peak.peak_table).
         dict(name="fma_peak", route="cuda", source="smcnuts_torch/csrc/fma_peak.cu",
              replaces="experiments/bench_vpu_peak.py:38", **k8),

@@ -7,9 +7,15 @@ CLI) and either resampling scheme. `--checkpoint PATH` runs through
 `runner.ChunkedRunner` in chunks of `--chunk-size` iterations (default 10;
 without a checkpoint it changes nothing, as in that CLI), resuming from PATH
 when it exists; `--output PATH` saves every result field that is not None
-to an .npz, as host numpy arrays. The flags of that CLI that this port does
-not run yet (the Stan frontend, the mesh) raise NotImplementedError naming
-their ROADMAP item.
+to an .npz, as host numpy arrays.
+
+`--stan FILE.stan --data DATA.json` compiles a Stan program (`stan/`) as the
+target in place of `--model`, with a default step size of 0.5, as that CLI
+does; it runs on the eager backend by autograd, and with `--stan-tile` the
+program also gets a generated in-kernel model, so that `--nuts-backend auto`
+on a card runs it inside the CUDA NUTS kernel. Without `--stan`, `--data`
+and `--stan-tile` change nothing, as in that CLI. `--mesh` is not ported
+yet and raises NotImplementedError naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -20,9 +26,6 @@ import json
 import numpy as np
 
 _NOT_PORTED = {  # flag attribute -> ROADMAP item
-    "stan": "Queue 1 item 11",
-    "data": "Queue 1 item 11",
-    "stan_tile": "Queue 1 item 11",
     "mesh": "Queue 1 item 10",
 }
 
@@ -32,6 +35,16 @@ def main(argv=None) -> dict:
         prog="smcnuts_torch", description="SMC-NUTS sampler on PyTorch/CUDA"
     )
     p.add_argument("--model", default="arma", help="arma | prmwcd | eightschools | logistic")
+    p.add_argument("--stan", default=None, metavar="FILE.stan",
+                   help="compile a Stan program as the target (overrides "
+                        "--model); pair with --data")
+    p.add_argument("--data", default=None, metavar="DATA.json",
+                   help="Stan data JSON for --stan ('phi' in the data block "
+                        "is bound as the tempering parameter)")
+    p.add_argument("--stan-tile", action="store_true",
+                   help="with --stan: also build the generated in-kernel "
+                        "model, so the program runs inside the CUDA NUTS "
+                        "kernel (loops fully unrolled)")
     p.add_argument("-N", "--particles", type=int, default=512)
     p.add_argument("-K", "--iterations", type=int, default=100)
     p.add_argument("--step-size", type=float, default=None)
@@ -51,10 +64,7 @@ def main(argv=None) -> dict:
     p.add_argument("--tempering", action="store_true")
     p.add_argument("--adapt-step-size", action="store_true")
     p.add_argument("--adapt-mass-matrix", action="store_true")
-    # Accepted so that they fail loudly, not as unknown flags.
-    p.add_argument("--stan", default=None)
-    p.add_argument("--data", default=None)
-    p.add_argument("--stan-tile", action="store_true")
+    # Accepted so that it fails loudly, not as an unknown flag.
     p.add_argument("--mesh", action="store_true")
     p.add_argument("--checkpoint", default=None,
                    help="checkpoint path (a chunked run that resumes from it)")
@@ -73,7 +83,15 @@ def main(argv=None) -> dict:
     from .models import default_step_size, get_model
     from .sampler import run_smc
 
-    model = get_model(args.model)
+    if args.stan is not None:
+        from .stan import compile_stan_file
+
+        model = compile_stan_file(args.stan, data=args.data, tile=args.stan_tile)
+        args.model = model.name
+        if args.step_size is None:
+            args.step_size = 0.5
+    else:
+        model = get_model(args.model)
     if args.step_size is None:
         # The step size stored with the model's data; 0.5 without one (the
         # reference's default, run_experiments.py:87-90).

@@ -26,6 +26,8 @@ _MODULES = (
     "smcnuts_torch.ops.generated", "smcnuts_torch.ops.peak", "smcnuts_torch.models.base",
     "smcnuts_torch.models.arma", "smcnuts_torch.runner", "smcnuts_torch.utils.checkpoint",
     "smcnuts_torch.utils.io", "smcnuts_torch.utils.profiling",
+    "smcnuts_torch.stan", "smcnuts_torch.stan.parser", "smcnuts_torch.stan.math",
+    "smcnuts_torch.stan.compiler",
 )
 
 
@@ -55,6 +57,14 @@ def test_imports_with_jax_blocked():
         "fma_chains(torch.zeros(4), 4, 2)\n"
         "SMCConfig(n_particles=4, n_iterations=1, step_size=0.1, fused_epilogue=False,\n"
         "          eager_block_size=2)\n"
+        "from smcnuts_torch.stan import compile_stan_file\n"
+        "s = compile_stan_file('examples/stan/radon_intercepts.stan',\n"
+        "                      data='examples/stan/radon_intercepts.json', tile=True)\n"
+        "s.logp_and_grad(torch.zeros(2, 9)); s.tile_model.logp_and_grad(torch.zeros(2, 9))\n"
+        "compile_stan_file('examples/stan/gq_rng.stan', data='examples/stan/gq_rng.json')\\\n"
+        "    .constrain(torch.zeros(2, 1))\n"
+        "sys.path.insert(0, 'experiments')\n"
+        "import run_experiments_torch, stan_step_sizes_torch\n"
         "print('ok')\n"
     )
     env = dict(os.environ, PYTHONPATH=_REPO, OMP_NUM_THREADS="2")
@@ -118,6 +128,16 @@ def test_chip_smoke_imports_neither():
 def test_experiment_driver_imports_neither():
     """The port's experiment driver names jax and smcnuts_tpu in no import."""
     names = _imported_names(os.path.join(_REPO, "experiments", "run_experiments_torch.py"))
+    assert not [n for n in names
+                if n.split(".")[0] in ("jax", "jaxlib", "smcnuts_tpu")]
+    assert any(n.startswith("smcnuts_torch") for n in names)
+
+
+def test_stan_step_size_script_imports_neither():
+    """The port's Stan step-size script names jax and smcnuts_tpu in no
+    import (its JAX counterpart, experiments/stan_step_sizes_jax.py, is the
+    reference's and runs on the CPU only)."""
+    names = _imported_names(os.path.join(_REPO, "experiments", "stan_step_sizes_torch.py"))
     assert not [n for n in names
                 if n.split(".")[0] in ("jax", "jaxlib", "smcnuts_tpu")]
     assert any(n.startswith("smcnuts_torch") for n in names)

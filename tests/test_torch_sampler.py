@@ -142,17 +142,34 @@ def test_cli_end_to_end_cpu(capsys):
     assert '"phi_schedule"' in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("argv", [
-    # The strategy, resampling and model flags run; beside a flag that is
-    # still outside the port they do not hide it. (--checkpoint, --chunk-size
-    # and --output run: tests/test_torch_io_cli.py.)
-    ["--lkernel", "asymptoticLKernel", "--mesh"],
-    ["--resampling", "systematic", "--stan", "m.stan"], ["--stan-tile"], ["--mesh"],
-    ["--stan", "m.stan"], ["--data", "d.json"],
-], ids=lambda a: a[0])
-def test_cli_flags_outside_slice_raise(argv):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        torch_main(["-N", "8", "-K", "1", "--device", "cpu"] + argv)
+# What the JAX CLI (smcnuts_tpu/__main__.py) does with each argv: --mesh is
+# the one flag still outside the port (NotImplementedError naming its
+# ROADMAP item); --stan compiles the file, so a missing one raises
+# FileNotFoundError, as open() does in the JAX CLI; without --stan, --data
+# and --stan-tile change nothing and the model runs. (--checkpoint,
+# --chunk-size and --output run: tests/test_torch_io_cli.py; a Stan program
+# through the CLI: tests/test_torch_stan_tile.py.)
+_JAX_CLI_OUTCOME = {
+    ("--lkernel", "asymptoticLKernel", "--mesh"): (NotImplementedError, "Queue 1 item 10"),
+    ("--resampling", "systematic", "--stan", "m.stan"): (FileNotFoundError, "m.stan"),
+    ("--stan-tile",): None,
+    ("--mesh",): (NotImplementedError, "Queue 1 item 10"),
+    ("--stan", "m.stan"): (FileNotFoundError, "m.stan"),
+    ("--data", "d.json"): None,
+}
+
+
+@pytest.mark.parametrize("argv", [list(a) for a in _JAX_CLI_OUTCOME], ids=lambda a: a[0])
+def test_cli_flags_outside_slice_raise(argv, capsys):
+    outcome = _JAX_CLI_OUTCOME[tuple(argv)]
+    run = lambda: torch_main(["-N", "8", "-K", "1", "--device", "cpu"] + argv)  # noqa: E731
+    if outcome is None:
+        summary = run()
+        assert summary["model"] == "arma" and summary["phi_schedule"] == [1.0, 1.0]
+        assert '"phi_schedule"' in capsys.readouterr().out
+    else:
+        with pytest.raises(outcome[0], match=outcome[1]):
+            run()
 
 
 def test_backend_resolution():
