@@ -179,17 +179,19 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
    build's seconds, the values its program holds live at once in emission
    order (`ops.generated.peak_live`), ptxas's registers, stack and spills and
    its SASS instructions; fails past two minutes). K7f is emitted in
-   (primal node, pass) order; its witness, the same program in the order it
-   was built, is a library of its own; so is K7r split over 2 lanes a
+   (primal node, pass) order with its error recurrence as a loop over the
+   observations (`ops.generated.Recurrence`; the phase fails if it is not);
+   its witnesses, the same program straight-line and straight-line in the
+   order it was built, are libraries of their own; so is K7r split over 2 lanes a
    particle (group=2, its sums over the schools a loop). Each generated
    kernel (K7f, K7r) against its plain version (the program executed op by op
    in torch) at 25 x 512 x depth 10 under zero bits and Philox: equal to the
    bit, and phase 3's contract; staged with a split after every depth equal
    to the single kernel to the bit; against the hand kernel of the same
    density on identical inputs (logp0 at atol/rtol 1e-4, integer outputs on
-   99.9% of lanes), both timed in turns. K7f's witness equal to its plain
-   program and to K7f's kernel to the bit, and timed in turns with K7f and
-   the hand kernel (median of 6); K7r at 2 lanes equal to its plain program
+   99.9% of lanes), both timed in turns. K7f's witnesses each equal to its
+   plain program and to K7f's kernel to the bit, and timed in turns with K7f
+   and the hand kernel (median of 6); K7r at 2 lanes equal to its plain program
    to the bit, and timed in turns with K7r and the hand K6b at 25 x 512 x
    depth 10, at the tempered run's 25 x 1024 x depth 6, phi 1 and 0.1, and
    at 1,048,576 trees.
@@ -228,14 +230,18 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
    tests/test_stan_frontend.py at T = 200 (D = 2, forward, K7f). (a), before
    phase 2: each parsed, interpreted and traced on the card's machine
    (seconds each, the mode tile_autodiff="auto" chose, operations a
-   leapfrog), then one nvcc each, all at once in the background (beside
-   phase 2's); phase 13 prints their seconds and ptxas's lines. (c) run_smc_batched at 25 x 512 x
+   leapfrog; the two forward programs' recurrences emitted as loops, else
+   it fails), then one nvcc each, and one for each forward program's
+   straight-line witness, all at once in the background (beside phase 2's);
+   phase 13 prints their seconds and ptxas's lines. (c) run_smc_batched at 25 x 512 x
    K=100, forwards, depth 10, each at its step (STAN_PROGRAMS): K launches,
    no plain call, finite series, runs 0 and 24 equal their single runs to the
    bit; wall and the 25-run means beside the values that generated the data.
    (b) Each kernel against its plain version at 25 x 512 x depth 10 on the
    population (c) ended with, zero bits and Philox: equal to the bit; its
-   device time, the plain version's and the bound. (d) radon without a
+   device time, the plain version's and the bound; each forward program's
+   straight-line witness equal to its kernel to the bit, with its ptxas
+   lines and SASS counts, both timed in turns (median of 6). (d) radon without a
    generated model, eager by autograd on the card (its logp_and_grad a graph
    traced once and replayed), at 5 x 512 x K=20, beside the kernel's run of
    the same shape: the means within 4 MC standard errors; ms a
@@ -260,7 +266,8 @@ library time). Every "ms" is the device's time alone (utils/timing.device_ms);
 "host_call_ms" beside it is one call timed alone between two events, the
 host's launch included, as the rows were timed before. The witnesses' rows
 (the W = 1 NUTS kernels of arma, PRMwCD, logistic regression and eight
-schools, K5's, K7f in the order it was built and K7r split over 2 lanes) are
+schools, K5's, K7f straight-line and in the order it was built, the Stan
+forward programs straight-line, and K7r split over 2 lanes) are
 measurement entries: 0 launches on the main path and "measurement_entry":
 true. The
 last line is {"ok": true, "device": {...}}. Without a CUDA device, or without the
@@ -2237,6 +2244,26 @@ def generated_build(label, model):
     print(f"  SASS instructions: {sass_text(sass_instructions(lib.path), 'nuts_tree_kernel')}")
 
 
+def require_rerolled(label, tm):
+    """Fail unless the forward program's recurrences are emitted as loops
+    (`ops.generated.Recurrence`); print each loop's plan."""
+    import re
+
+    recs = tm.program.recurrences
+    if not recs:
+        raise AssertionError(f"{label}: no recurrence was re-rolled as a loop")
+    loops = "; ".join(
+        f"ops {r.bounds[0]}..{r.bounds[-1] - 1}: {len(r.bounds) - 1} steps of "
+        f"{len(r.classes)} kind(s), {len(r.registers)} registers "
+        f"({sum(len(g.init) for g in r.registers if g.index >= 0)} slots in arrays), "
+        f"{len(r.arrays)} export array(s)"
+        + (f", in loop {r.head}'s iterations at shift {r.shift}" if r.head >= 0 else "")
+        for r in recs)
+    unroll = ", ".join(re.findall(r"#pragma unroll (\d+)", tm.source))
+    print(f"{label}: {len(recs)} recurrence(s) emitted as loops ({loops}), unrolled by "
+          f"{unroll}; {len(tm.source.splitlines())} source lines, {tm.data.numel()} data floats")
+
+
 def generated_kernel_case(label, model, hand, x, step, smi):
     """K7 against its plain version at 25 x 512 x depth 10 under zero bits
     and Philox (to the bit, and phase 3's contract), the staged dispatch
@@ -2315,8 +2342,8 @@ def generated_builds(label, model, others, hand, x, step, smi, same_program=True
     program in another emission order) to `model`'s kernel too, under zero
     bits and Philox at 25 x 512 x depth 10; then every build, `model` and the
     hand kernel timed in turns (the device alone, median of VARIANT_ROUNDS).
-    Returns the kernels-line row of the first of `others`, a measurement
-    entry that the main path never launches."""
+    Returns the kernels-line row of each of `others` (name -> row), each a
+    measurement entry that the main path never launches."""
     from smcnuts_torch.ops.draws import PHILOX, ZERO_BITS
     from smcnuts_torch.ops.nuts_cuda import nuts_tree, nuts_tree_plain
     from smcnuts_torch.utils.timing import CudaTimer, median_ms
@@ -2324,8 +2351,7 @@ def generated_builds(label, model, others, hand, x, step, smi, same_program=True
     dev = x.device
     seeds = torch.arange(RUNS, dtype=torch.int32, device=dev)
     ones = torch.ones(x.shape[-1], device=dev)
-    first = next(iter(others))
-    errs, plain_ms, outs = [], None, {}
+    errs, plain_ms, outs = {who: [] for who in others}, {}, {}
     for source in (ZERO_BITS, PHILOX):
         args = (x, seeds, step, 1.0, ones, MAX_DEPTH, source)
         main = nuts_tree(model, *args) if same_program else None
@@ -2343,10 +2369,9 @@ def generated_builds(label, model, others, hand, x, step, smi, same_program=True
             print(f"{label} {who} [{source}]: equal to its plain program"
                   + (" and to the main build's kernel" if same_program else "")
                   + " to the bit")
-            if who == first:
-                errs.append(err)
-                if source == PHILOX:
-                    plain_ms, outs[who] = t.ms, out
+            errs[who].append(err)
+            if source == PHILOX:
+                plain_ms[who], outs[who] = t.ms, out
     calls = {"hand": lambda: nuts_tree(hand, *args),
              "main": lambda: nuts_tree(model, *args)}
     calls.update({who: (lambda m=m: nuts_tree(m, *args)) for who, m in others.items()})
@@ -2357,10 +2382,13 @@ def generated_builds(label, model, others, hand, x, step, smi, same_program=True
               f"alone, {DEVICE_REPEATS} launches back to back; median of "
               f"{VARIANT_ROUNDS} in turns: {', '.join(f'{v:.4f}' for v in rounds[k])}; "
               f"{smi})")
-    host_ms = median_ms(calls[first], repeats=5)
-    bound = tree_roofline("generated", outs[first], model=others[first].tile_model)
-    return {"launches": 0, "measurement_entry": True, "max_abs_err": max(errs),
-            "ms": med[first], "host_call_ms": host_ms, "plain_ms": plain_ms, **bound}
+    rows = {}
+    for who, other in others.items():
+        bound = tree_roofline("generated", outs[who], model=other.tile_model)
+        rows[who] = {"launches": 0, "measurement_entry": True, "max_abs_err": max(errs[who]),
+                     "ms": med[who], "host_call_ms": median_ms(calls[who], repeats=5),
+                     "plain_ms": plain_ms[who], **bound}
+    return rows
 
 
 def generated_split(label, model, hand, cfg, smi):
@@ -2405,11 +2433,15 @@ def generated_phase(smi):
     # K7r split over 2 lanes a particle, its sums over the schools a loop: a
     # measurement entry, a library of its own.
     schools_w2 = make_eightschools_generated(group=2).to(dev)
-    # K7f's witness: the same program in the order it was built, the whole
-    # primal before the first tangent pass (the emission before the
-    # (primal node, pass) order).
-    others = {"built order": arma_model_fwd(order="built").to(dev)}
+    # K7f's witnesses: the same program straight-line (the emission before
+    # its recurrence was re-rolled as a loop), and straight-line in the order
+    # it was built, the whole primal before the first tangent pass (the
+    # emission before the (primal node, pass) order).
+    require_rerolled("K7f arma", arma.tile_model)
+    others = {"straight-line": arma_model_fwd(reroll=False).to(dev),
+              "built order": arma_model_fwd(order="built").to(dev)}
     generated_build("K7f arma", arma)
+    generated_build("K7f arma, straight-line (the witness)", others["straight-line"])
     generated_build("K7f arma, built order (the witness)", others["built order"])
     generated_build("K7r eight schools", schools)
     generated_build("K7r eight schools, 2 lanes a particle", schools_w2)
@@ -2421,8 +2453,8 @@ def generated_phase(smi):
     x_arma = particles(RUNS * N, 6, dev).view(RUNS, N, 4)
     k7f = generated_kernel_case("K7f arma", arma, get_model("arma").to(dev), x_arma,
                                 STEP, smi)
-    k7f_built = generated_builds("K7f arma", arma, others, get_model("arma").to(dev),
-                                 x_arma, STEP, smi)
+    k7f_witnesses = generated_builds("K7f arma", arma, others, get_model("arma").to(dev),
+                                     x_arma, STEP, smi)
     es = AUTODIFF_MODELS["eightschools"]
     x_schools = autodiff_cloud("eightschools", (RUNS, N), 5, dev)
     k7r = generated_kernel_case("K7r eight schools", schools,
@@ -2431,7 +2463,7 @@ def generated_phase(smi):
     k7r_w2 = generated_builds("K7r eight schools", schools,
                               {"2 lanes a particle": schools_w2},
                               get_model("eightschools").to(dev), x_schools,
-                              es["cloud_step"], smi, same_program=False)
+                              es["cloud_step"], smi, same_program=False)["2 lanes a particle"]
 
     # K7r at the shape of its main path's run below (RUNS x n trees at the
     # run's step and depth), phi 1.0 and 0.1, and at WIDE_TREES trees (where
@@ -2499,7 +2531,7 @@ def generated_phase(smi):
     print(f"eager eight schools (autograd, no generated model) on the card: "
           f"{EAGER_CARD_K} iterations in {wall:.1f} s (host clock), no kernel launch, "
           f"final mean {[round(v, 3) for v in res.mean_estimate[EAGER_CARD_K].tolist()[:2]]}")
-    return k7f, k7r, k7f_built, k7r_w2
+    return k7f, k7r, k7f_witnesses, k7r_w2
 
 
 # ---- phase 12: chunked runs that resume, checkpoints, the CLI's output,
@@ -2816,7 +2848,8 @@ def stan_prepare(smi):
     phases, not inside phase 13. Returns what stan_phase takes."""
     from concurrent.futures import ThreadPoolExecutor
 
-    from smcnuts_torch.ops.generated import build_generated
+    from smcnuts_torch.models.base import CallableModel
+    from smcnuts_torch.ops.generated import build_generated, straight_line
     from smcnuts_torch.stan import compile_stan_program, parse
 
     phase("13 (a). Stan programs: parse, interpret, trace; their nvcc started in the "
@@ -2840,9 +2873,22 @@ def stan_prepare(smi):
               f"leapfrog, {tm.data.numel()} data floats; parse {t1 - t0:.3f} s, "
               f"interpret (the eager model) {t2 - t1:.3f} s, interpret and trace "
               f"(tile=True) {t3 - t2:.1f} s (host clock; {smi})")
-    pool = ThreadPoolExecutor(len(models))
+    # Each forward program's recurrences are loops; its witness, the same
+    # program straight-line, is a library of its own (irt_ar's nvcc takes
+    # about a minute).
+    witnesses = {}
+    for name, m in models.items():
+        if m.tile_model.autodiff == "forward":
+            require_rerolled(f"(a) {name}", m.tile_model)
+            witnesses[name] = CallableModel(
+                m.name, m.dim, m._logprior, m._loglik, m._constrain,
+                tile_model=straight_line(m.tile_model)).to(dev)
+    pool = ThreadPoolExecutor(len(models) + len(witnesses))
     builds = {name: pool.submit(build_generated, m.tile_model) for name, m in models.items()}
+    witness_builds = {name: pool.submit(build_generated, w.tile_model)
+                      for name, w in witnesses.items()}
     return dict(models=models, eager_models=eager_models, builds=builds, pool=pool,
+                witnesses=witnesses, witness_builds=witness_builds,
                 seconds=time.perf_counter() - started, started=time.perf_counter())
 
 
@@ -2863,7 +2909,7 @@ def stan_phase(smi, prep):
     pool = prep["pool"]
 
     rows, launches = {}, {name: 0 for name in models}
-    finals = {}
+    finals, witness_rows = {}, {}
     # (c) bench.py's shape: 25 runs x 512 x K=100, forwards, depth 10.
     for name in sorted(models, key=lambda n: models[n].tile_model.n_ops):
         m = models[name]
@@ -2907,6 +2953,10 @@ def stan_phase(smi, prep):
               f"leapfrogs; {smi})")
         rows[name] = {"max_abs_err": worst, "ms": ms, "host_call_ms": host_ms,
                       "plain_ms": t.ms, **bound}
+        if name in prep["witnesses"]:
+            rows[name], witness_rows[name] = stan_witness(
+                name, m, prep["witnesses"][name], prep["witness_builds"][name], x, step,
+                rows[name], smi)
 
     # (d) radon eager by autograd on the card, beside its kernel run at the
     # same shape: the means within 4 MC standard errors.
@@ -3007,7 +3057,52 @@ def stan_phase(smi, prep):
         rows[n]["launches"] = launches[n]
     print(f"phase 13 took {time.perf_counter() - started:.1f} s, and (a) before phase 2 "
           f"{prep['seconds']:.1f} s (host clock; the budget of both is 150 s; {smi})")
-    return rows
+    return rows, witness_rows
+
+
+def stan_witness(name, model, witness, build, x, step, row, smi):
+    """Phase 13 (b) for a forward program: its straight-line witness (the
+    same program, every op straight-line; its own library) equal to the
+    re-rolled kernel, which (b) held to their one plain version, to the bit
+    under zero bits and Philox at 25 x 512 x depth 10, both timed in turns (the
+    device alone, median of VARIANT_ROUNDS), with ptxas's lines and SASS
+    counts. Returns the re-rolled row with its time in turns, and the
+    witness's row (a measurement entry)."""
+    from smcnuts_torch.ops.draws import PHILOX, ZERO_BITS
+    from smcnuts_torch.ops.nuts_cuda import nuts_tree
+    from smcnuts_torch.utils.timing import median_ms
+
+    lib = build.result()
+    print(f"(b) {name}, straight-line (the witness): nvcc {lib.build_seconds:.1f} s (started "
+          f"in (a) with the others; {smi})")
+    generated_build(f"(b) {name}, straight-line (the witness)", witness)
+    if witness.tile_model.program.ops != model.tile_model.program.ops:
+        raise AssertionError(f"(b) {name}: the witness is another program")
+    dev = x.device
+    seeds = torch.arange(RUNS, dtype=torch.int32, device=dev)
+    ones = torch.ones(x.shape[-1], device=dev)
+    for source in (ZERO_BITS, PHILOX):
+        args = (x, seeds, step, 1.0, ones, MAX_DEPTH, source)
+        out_w = nuts_tree(witness, *args)
+        diff = bitwise_differences(out_w, nuts_tree(model, *args))
+        if diff:
+            raise AssertionError(f"(b) {name} witness [{source}]: differs from the "
+                                 f"re-rolled kernel in {diff}")
+        print(f"(b) {name} witness [{source}]: equal to the re-rolled kernel to the bit")
+    calls = {"re-rolled": lambda: nuts_tree(model, *args),
+             "straight-line": lambda: nuts_tree(witness, *args)}
+    rounds, med = timed_in_turns(calls)
+    for k in calls:
+        print(f"(b) time {name} {k}, {RUNS} x {N} x depth {MAX_DEPTH} [philox]: "
+              f"{med[k]:.4f} ms, {med['straight-line'] / med[k]:.3f}x the witness's speed "
+              f"(device alone, {DEVICE_REPEATS} launches back to back; median of "
+              f"{VARIANT_ROUNDS} in turns: {', '.join(f'{v:.4f}' for v in rounds[k])}; {smi})")
+    bound = tree_roofline("generated", out_w, model=witness.tile_model)
+    witness_row = {"launches": 0, "measurement_entry": True, "max_abs_err": 0.0,
+                   "ms": med["straight-line"],
+                   "host_call_ms": median_ms(calls["straight-line"], repeats=5),
+                   "plain_ms": row["plain_ms"], **bound}
+    return {**row, "ms": med["re-rolled"]}, witness_row
 
 
 def partial_run(only, smi, stan_prep):
@@ -3049,9 +3144,9 @@ def main():
     strategies, strategies_cont = strategies_phase(smi)
     strategies["eightschools"] += schools_cli
     k5, k5_w1, k1u = fused_phase(smi)
-    k7f, k7r, k7f_built, k7r_w2 = generated_phase(smi)
+    k7f, k7r, k7f_witnesses, k7r_w2 = generated_phase(smi)
     tally = runner_phase(smi)
-    stan = stan_phase(smi, stan_prep)
+    stan, stan_witnesses = stan_phase(smi, stan_prep)
     source = "smcnuts_torch/csrc/nuts_tree.cuh"
     # No single PyTorch call builds a NUTS tree, computes the fused ARMA
     # value and gradient or runs FMA chains, so no kernel has a library time.
@@ -3117,11 +3212,15 @@ def main():
         dict(name="nuts_tree_generated_arma_forward", route="cuda",
              source="smcnuts_torch/ops/generated.py",
              replaces="smcnuts_tpu/ops/nuts_pallas.py:1674", **k7f),
-        # K7f's witness: the same program emitted in the order it was built,
-        # its own library; a measurement entry.
+        # K7f's witnesses: the same program straight-line, and straight-line
+        # in the order it was built, each its own library; measurement
+        # entries.
+        dict(name="nuts_tree_generated_arma_forward_straight_line", route="cuda",
+             source="smcnuts_torch/ops/generated.py",
+             replaces="smcnuts_tpu/ops/nuts_pallas.py:1674", **k7f_witnesses["straight-line"]),
         dict(name="nuts_tree_generated_arma_forward_built_order", route="cuda",
              source="smcnuts_torch/ops/generated.py",
-             replaces="smcnuts_tpu/ops/nuts_pallas.py:1674", **k7f_built),
+             replaces="smcnuts_tpu/ops/nuts_pallas.py:1674", **k7f_witnesses["built order"]),
         dict(name="nuts_tree_generated_eightschools_reverse", route="cuda",
              source="smcnuts_torch/ops/generated.py",
              replaces="smcnuts_tpu/ops/nuts_pallas.py:1126", **k7r),
@@ -3138,6 +3237,14 @@ def main():
              route="cuda", source="smcnuts_torch/ops/generated.py",
              replaces=STAN_PROGRAMS[prog]["replaces"], **row)
         for prog, row in stan.items()
+    ]
+    # The forward programs' straight-line witnesses, each its own library;
+    # measurement entries.
+    kernels += [
+        dict(name=f"nuts_tree_generated_stan_{prog}_forward_straight_line", route="cuda",
+             source="smcnuts_torch/ops/generated.py",
+             replaces=STAN_PROGRAMS[prog]["replaces"], **row)
+        for prog, row in stan_witnesses.items()
     ]
     kernels += [
         # K8: the FP32 peak, through its own entry point (ops/peak.peak_table).

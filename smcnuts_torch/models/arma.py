@@ -238,13 +238,15 @@ def arma_loglik_seq(y):
     return loglik
 
 
-def arma_model_fwd(y=None, order="primal") -> CallableModel:
+def arma_model_fwd(y=None, order="primal", reroll=True) -> CallableModel:
     """arma as a user's torch density: a `CallableModel` whose logprior and
     loglik take one particle, with the generated forward-mode in-kernel model
-    of the scalar density lprior + phi * loglik, emitted in `order`
-    (`ops.generated.tile_model_from_logp_fwd`). The observations enter as
-    Python floats (rounded to float32 in the kernel, as `arma_tile_model_fwd`
-    rounds them)."""
+    of the scalar density lprior + phi * loglik, emitted in `order`, its
+    error recurrence as a loop over the observations unless `reroll` is
+    False (`ops.generated.tile_model_from_logp_fwd`). The observations enter
+    as Python floats (rounded to float32, as `arma_tile_model_fwd` rounds
+    them): literals of the straight-line program, a column of the data block
+    in the loop."""
     if y is None:
         y = load_asset()["y"]
     loglik = arma_loglik_seq(y)
@@ -257,7 +259,8 @@ def arma_model_fwd(y=None, order="primal") -> CallableModel:
         lambda t: loglik(t.unbind(0)),
         constrain=lambda t: torch.cat([t[:3], torch.exp(t[3:4])]),
         param_names=ArmaModel.param_names,
-        tile_model=tile_model_from_logp_fwd(logp_seq, 4, name="arma", order=order),
+        tile_model=tile_model_from_logp_fwd(logp_seq, 4, name="arma", order=order,
+                                            reroll=reroll),
     )
 
 

@@ -17,6 +17,16 @@ both cleaned up by `_cse_jaxpr` / `_simplify_call` (`:1193`, `:1422`). Here:
   is emitted in (primal node, pass) order (`_primal_order`), which keeps few
   values live at once (`peak_live`); reverse-mode programs keep the order
   they were built in;
+- a forward-mode program's recurrences, runs of steps that repeat the same
+  ops in the same shape, are emitted as loops over their steps (`_reroll`,
+  `Recurrence`, `_c_recurrences`): the values a step hands on in registers,
+  each step's own literals and data a column of the data block, kinds of
+  step that the data fold differently chosen by a column, an array of slots
+  where the data choose which value a step reads (a gather, an indexed
+  accumulator), a loop that reads another's steps in that loop's
+  iterations, each loop unrolled by a factor its body's size sets
+  (`_unroll`), so the code does not grow with the recurrence; the program
+  itself, and so its bits, stay the same (`reroll=False`: straight-line);
 - a reverse-mode program whose sums over an axis have summand cones that
   are one body (the same ops in the same shape, reading x[a + i], data and
   literals of their own, and values every summand shares: `_Body`) is split
@@ -80,6 +90,7 @@ NotImplementedError naming the ATen op and the model.
 
 from __future__ import annotations
 
+import bisect
 import contextlib
 import ctypes
 import dataclasses
@@ -750,6 +761,9 @@ class Program:
     group: int = 1
     loops: tuple = ()
     schedule: tuple = ()
+    # A forward program's recurrences emitted as loops over their steps
+    # (`_reroll`, `Recurrence`), in program order; the other ops straight-line.
+    recurrences: tuple = ()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -1250,6 +1264,656 @@ def _group_program(b: _Scalars, logp, grads, dim, W):
                                schedule=sched)
 
 
+# ---------------------------------------------------------------------------
+# Forward-mode recurrences emitted as loops: the carried re-roll pass.
+# ---------------------------------------------------------------------------
+
+# A run of steps becomes a loop where it has this many steps and operations,
+# and its kinds of step (each emitted once) at most half its operations.
+REROLL_MIN_STEPS = 8
+REROLL_MIN_OPS = 128
+REROLL_MAX_KINDS = 8
+REROLL_MAX_SLOTS = 512
+# The data block with the loops' columns stays within this many floats (a
+# block's 48 KB of shared memory without an opt-in, `ops/nuts_cuda.py`,
+# with room to spare); a program that would need more stays straight-line.
+REROLL_MAX_DATA = 8192
+# The unroll factor nvcc is given for a loop (`#pragma unroll`): the largest
+# power of two up to 8 whose unrolled body holds at most REROLL_UNROLL_OPS
+# template ops, so the code grows with the step's code, not with the
+# recurrence. On an H100 at 25 x 512 trees x depth 10 (a few warps an SM, a
+# step's latency exposed at unroll 1) the generated arma ran 1.81x its
+# straight line at 8 (0.97x at 1), the Stan T=200 recurrence 1.27x at 8,
+# irt_ar (four kinds of step, 202 template ops) 1.41x at 2 and 1.14x at 8
+# (experiments/generated_loop_unroll_torch.py; PERF.md). An int here forces
+# the factor, as that script does.
+REROLL_UNROLL = None
+REROLL_UNROLL_OPS = 512
+_LEAVES = ("x", "phi", "data")
+
+
+@dataclasses.dataclass(frozen=True)
+class Register:
+    """A value that a recurrence's steps carry: one slot (`index` -1), or an
+    array of slots of which step k reads and writes slot d[index + k] (an
+    accumulator that the data index, such as the gradient of b[item[t]], or
+    a gather of values made before the loop). `init[s]` is slot s's value
+    before the loop (a node id, or None), `writes` the (kind, template op)
+    pairs that assign it at the end of a step. `alias` = (recurrence,
+    array): the slots are that earlier recurrence's export array, read
+    only."""
+
+    writes: tuple
+    init: tuple
+    index: int = -1
+    alias: tuple = ()
+
+
+@dataclasses.dataclass(frozen=True)
+class Recurrence:
+    """Program ops bounds[0] .. bounds[-1] - 1 emitted as one loop over
+    n = len(bounds) - 1 steps, step k the ops bounds[k] .. bounds[k + 1] - 1:
+    an emission plan, the program keeps every op. Step k is of kind
+    kinds[k] (read from the data block's column at `kind`, -1 where there is
+    one kind), and `classes[c]` is kind c's template, (op, refs) a step's
+    ops in order. A ref is ("t", j) the step's template op j, ("u", v) a
+    node computed before the loop or a literal, ("col", o) entry o + k of the
+    data block (a literal, datum, slot index or kind of the step's own) or
+    ("r", R) register R (`Register`). `arrays[a]` holds ((kind, template
+    op), ...): the values a step of that kind stores at entry k of export
+    array a. `outs` defines each node of the loop that is read after it:
+    (node, ("r", R)), (node, ("r", R, slot)) or (node, ("e", a, k))."""
+
+    bounds: tuple
+    kinds: tuple
+    kind: int
+    classes: tuple
+    registers: tuple
+    arrays: tuple
+    outs: tuple
+    # A loop whose gathers read only the loop before it, at the step a fixed
+    # number of steps from its own, runs inside that loop's iterations:
+    # `head` is the first loop of the iterations it shares (-1: its own),
+    # and its step k runs in iteration k + shift, after the loops before it
+    # in the iteration, its gathers reading the entry just made (`_fuse`).
+    head: int = -1
+    shift: int = 0
+
+
+class _Peel(Exception):
+    """The step at which a run of steps stops being one loop."""
+
+    def __init__(self, step):
+        super().__init__(step)
+        self.step = step
+
+
+class _NoLoop(Exception):
+    """The run of steps is not one loop."""
+
+
+def _key(v):
+    """A program value as it compares: literals by their bits."""
+    return ("c", _bits(v)) if type(v) is float else ("b", v) if type(v) is bool else v
+
+
+def _find_chain(ops, usable) -> list:
+    """The longest chain of usable ops of one kind, each reading the one
+    before: a recurrence's accumulator (the density, a tangent), one link a
+    step. Program indices, in order."""
+    best, prev = [0] * len(ops), [-1] * len(ops)
+    for i, (op, *args) in enumerate(ops):
+        if not usable[i] or op in _LEAVES:
+            continue
+        best[i] = 1
+        for a in args:
+            if type(a) is int and usable[a] and ops[a][0] == op and best[a] >= best[i]:
+                best[i], prev[i] = best[a] + 1, a
+    i = max(range(len(ops)), key=best.__getitem__, default=-1)
+    chain = []
+    while i >= 0 and best[i]:
+        chain.append(i)
+        i = prev[i]
+    return chain[::-1]
+
+
+def _step_sig(ops, s, e) -> tuple:
+    """The shape of ops s .. e - 1 as a step: each op and its operands' kinds,
+    a reference inside the step by its place in it."""
+    out = []
+    for i in range(s, e):
+        op, *args = ops[i]
+        if op in _LEAVES:
+            out.append((op,))
+            continue
+        out.append((op, *(("t", a - s) if type(a) is int and a >= s else
+                          ("n",) if type(a) is int else ("b", a) if type(a) is bool else ("f",)
+                          for a in args)))
+    return tuple(out)
+
+
+def _peel_rare_ends(wins, sigs):
+    """Drop the steps at either end whose shape no other step has."""
+    counts = {}
+    for g in sigs:
+        counts[g] = counts.get(g, 0) + 1
+    lo, hi = 0, len(wins)
+    while lo < hi and counts[sigs[lo]] == 1:
+        lo += 1
+    while hi > lo and counts[sigs[hi - 1]] == 1:
+        hi -= 1
+    return wins[lo:hi], sigs[lo:hi]
+
+
+def _slots(reads, writes, bounds, kinds):
+    """How one register holds what its steps read (`reads[k]`, the nodes
+    step k reads from it) and write (`writes`, kind -> template op): one
+    slot, where each read finds the last value written or, before any
+    write, one node made before the loop; else slots, step k reading and
+    writing the slot that holds what it reads (a node made before the loop
+    takes a slot of its own). Returns (each slot's first value, each step's
+    slot or None for one slot, each slot's last value); raises _Peel(k)
+    where step k reads a value that no slot holds any more."""
+    n, s0 = len(reads), bounds[0]
+    for k in range(n):
+        if len(reads[k]) > 1:
+            raise _Peel(k)
+    cur, first, one = None, None, True
+    for k in range(n):
+        if reads[k]:
+            (v,) = reads[k]
+            if cur is None and v < s0:
+                first = cur = v
+            elif cur != v:
+                one = False
+                break
+        if kinds[k] in writes:
+            cur = bounds[k] + writes[kinds[k]]
+    if one:
+        return [first], None, [cur]
+    content, held, idx, init = [], {}, [0] * n, []
+    for k in range(n):
+        w = kinds[k] in writes
+        if reads[k]:
+            (v,) = reads[k]
+            s = held.get(v)
+            if s is None or content[s] != v:
+                if v >= s0:
+                    raise _Peel(k)
+                s = held[v] = len(content)
+                content.append(v)
+                init.append(v)
+        elif w:
+            s = len(content)
+            content.append(None)
+            init.append(None)
+        else:
+            continue
+        idx[k] = s
+        if w:
+            content[s] = bounds[k] + writes[kinds[k]]
+            held[content[s]] = s
+    return init, idx, content
+
+
+def _plan(prog: Program, bounds, kinds, before, last_use):
+    """The draft loop of the steps `bounds` (kinds `kinds`): its templates,
+    columns and registers. `before` holds the drafts of loops that come
+    earlier in the program, whose export arrays a gather may read. Raises
+    _Peel(k) where step k breaks the loop, _NoLoop where no run would do."""
+    ops, data = prog.ops, prog.data
+    n, s0, end = len(bounds) - 1, bounds[0], bounds[-1]
+    steps_of = {}
+    for k, c in enumerate(kinds):
+        steps_of.setdefault(c, []).append(k)
+    for v in range(s0, end):
+        if ops[v][0] in _CMP and last_use[v] >= bounds[bisect.bisect_right(bounds, v)]:
+            raise _Peel(bisect.bisect_right(bounds, v) - 1)  # a predicate read later
+    columns = {}
+
+    def column(vals):
+        full = [0.0] * n
+        for k, v in vals:
+            full[k] = v
+        key = tuple(_bits(v) for v in full)
+        columns.setdefault(key, full)
+        return ("col", key)
+
+    classes, pending = [], {}
+    for c in range(len(steps_of)):
+        ks = steps_of[c]
+        tmpl = []
+        for j in range(bounds[ks[0] + 1] - bounds[ks[0]]):
+            per = [ops[bounds[k] + j] for k in ks]
+            op, *args0 = per[0]
+            if op == "x":
+                raise _NoLoop("a coordinate's leaf inside a step")
+            if op == "phi":
+                tmpl.append(("phi", ()))
+                continue
+            if op == "data":
+                vals = [(k, data[o[1]]) for k, o in zip(ks, per)]
+                same = all(_bits(v) == _bits(vals[0][1]) for _, v in vals)
+                tmpl.append(("data", (("u", vals[0][1]) if same else column(vals),)))
+                continue
+            refs = []
+            for p, a0 in enumerate(args0):
+                vals = [(k, o[1 + p]) for k, o in zip(ks, per)]
+                if type(a0) is float:
+                    same = all(_bits(v) == _bits(a0) for _, v in vals)
+                    refs.append(("u", a0) if same else column(vals))
+                elif type(a0) is not int:
+                    refs.append(("u", a0))
+                elif a0 >= bounds[ks[0]]:
+                    refs.append(("t", a0 - bounds[ks[0]]))
+                elif a0 < s0 and all(v == a0 for _, v in vals):
+                    refs.append(("u", a0))
+                else:
+                    pending[(c, j, p)] = vals
+                    refs.append(None)
+            tmpl.append((op, refs))
+        classes.append(tmpl)
+
+    # Registers: a reader (kind, op, operand) and the (kind, op) that made
+    # what it reads are one register.
+    parent = {}
+
+    def find(u):
+        while parent.setdefault(u, u) != u:
+            parent[u] = parent[parent[u]]
+            u = parent[u]
+        return u
+
+    for key, vals in pending.items():
+        find(("r", key))
+        for k, v in vals:
+            if v >= s0:
+                kp = bisect.bisect_right(bounds, v) - 1
+                parent[find(("r", key))] = find(("w", kinds[kp], v - bounds[kp]))
+    members = {}
+    for u in list(parent):
+        members.setdefault(find(u), []).append(u)
+    groups = []
+    for us in members.values():
+        writes = {}
+        for u in us:
+            if u[0] == "w":
+                if u[1] in writes:
+                    raise _NoLoop("two values of one step in one register")
+                if ops[bounds[steps_of[u[1]][0]] + u[2]][0] in _CMP:
+                    raise _NoLoop("a predicate carried")
+                writes[u[1]] = u[2]
+        groups.append(dict(readers=[u[1] for u in us if u[0] == "r"], writes=writes))
+
+    def reads_of(readers):
+        reads = [set() for _ in range(n)]
+        for key in readers:
+            for k, v in pending[key]:
+                reads[k].add(v)
+        return reads
+
+    def fits(readers, writes):
+        try:
+            return _slots(reads_of(readers), writes, bounds, kinds)
+        except _Peel:
+            return None
+
+    # A register whose steps read what a read-only one gathers (an
+    # accumulator whose first value each slot takes from before the loop)
+    # takes that one's reads; read-only registers that fit one array share it.
+    merged = set()
+    group_of = {key: gi for gi, g in enumerate(groups) for key in g["readers"]}
+    for g in groups:
+        for c, j in list(g["writes"].items()):
+            for p in range(len(classes[c][j][1])):
+                h = group_of.get((c, j, p))
+                if h is None or h in merged or groups[h]["writes"] or groups[h] is g:
+                    continue
+                if fits(g["readers"] + groups[h]["readers"], g["writes"]):
+                    g["readers"] += groups[h]["readers"]
+                    merged.add(h)
+    shared = []
+    for gi, g in enumerate(groups):
+        if gi in merged or g["writes"]:
+            continue
+        for h in shared:
+            if fits(h["readers"] + g["readers"], {}):
+                h["readers"] += g["readers"]
+                merged.add(gi)
+                break
+        else:
+            shared.append(g)
+    groups = [g for gi, g in enumerate(groups) if gi not in merged]
+    # An op that reads a register and is read after the loop writes it back,
+    # where the register still fits: its last values leave from the slots,
+    # not from an export array (the accumulator of b[item[t]]'s gradient).
+    writers = {(c, j) for g in groups for c, j in g["writes"].items()}
+    for g in groups:
+        for c, j, _ in list(g["readers"]):
+            if (c in g["writes"] or (c, j) in writers or classes[c][j][0] in _CMP
+                    or all(last_use[bounds[k] + j] < end for k in steps_of[c])):
+                continue
+            if fits(g["readers"], {**g["writes"], c: j}):
+                g["writes"][c] = j
+                writers.add((c, j))
+
+    regs, final, where_r = [], {}, {}
+    for R, g in enumerate(groups):
+        writes, reads = g["writes"], reads_of(g["readers"])
+        for key in g["readers"]:
+            where_r[key] = R
+        for k in range(n):
+            if len(reads[k]) > 1:
+                raise _Peel(k)
+        read = sorted({v for r in reads for v in r})
+        src = [d for d in before if d["bounds"][0] <= read[0] and read[-1] < d["bounds"][-1]]
+        if not writes and src and len(read) > 1:
+            # A gather of an earlier loop's values: its export array.
+            d, idx, made = src[0], [0] * n, {}
+            for k in range(n):
+                if reads[k]:
+                    (v,) = reads[k]
+                    kk = bisect.bisect_right(d["bounds"], v) - 1
+                    if made.setdefault(d["kinds"][kk], v - d["bounds"][kk]) != v - d["bounds"][kk]:
+                        break
+                    idx[k] = kk
+            else:
+                regs.append(dict(writes={}, init=[], index=idx,
+                                 alias=(d, tuple(sorted(made.items())))))
+                continue
+        init, idx, content = _slots(reads, writes, bounds, kinds)
+        if len(content) > REROLL_MAX_SLOTS:
+            raise _NoLoop("too many slots")
+        made = sum(v is not None and ops[v][0] not in _LEAVES for v in init)
+        if not writes and 2 * made > n:
+            # A copy of straight-line values into local memory, about one a
+            # step: the loop would only move them there and back.
+            raise _NoLoop("a gather of values computed before the loop")
+        regs.append(dict(writes=writes, init=init, index=idx, alias=None))
+        for s, v in enumerate(content):
+            if v is not None and v >= s0:
+                final[v] = ("r", R) if idx is None else ("r", R, s)
+    for key, R in where_r.items():
+        classes[key[0]][key[1]][1][key[2]] = ("r", R)
+    return dict(bounds=tuple(bounds), kinds=tuple(kinds), classes=classes,
+                columns=columns, registers=regs, final=final)
+
+
+def _loop_of_chain(prog: Program, chain, taken, drafts, last_use):
+    """The draft loop whose steps end where the chain's links do (shifted
+    by the offset that gives the fewest kinds of step), the steps at either
+    end that break it peeled; None where no loop of REROLL_MIN_STEPS steps
+    and REROLL_MIN_OPS operations remains."""
+    ops = prog.ops
+    taken_before = [0]
+    for t in taken:
+        taken_before.append(taken_before[-1] + t)
+    gaps = sorted(b - a for a, b in zip(chain, chain[1:]))
+    best = None
+    for delta in range(max(1, gaps[len(gaps) // 4])):
+        run, runs = [], []
+        for a, b in zip(chain, chain[1:]):
+            s, e = a + 1 + delta, b + 1 + delta
+            if e <= len(ops) and taken_before[e] == taken_before[s]:
+                run.append((s, e))
+            else:
+                runs.append(run)
+                run = []
+        wins = max(runs + [run], key=len)
+        wins, sigs = _peel_rare_ends(wins, [_step_sig(ops, s, e) for s, e in wins])
+        score = (len(set(sigs)), -len(wins))
+        if wins and (best is None or score < best[0]):
+            best = (score, wins, sigs)
+    if best is None:
+        return None
+    _, wins, sigs = best
+    before = [d for d in drafts if d["bounds"][-1] <= wins[0][0]]
+    while len(wins) >= REROLL_MIN_STEPS:
+        kind_of = {}
+        kinds = [kind_of.setdefault(g, len(kind_of)) for g in sigs]
+        if len(kind_of) > REROLL_MAX_KINDS:
+            return None
+        bounds = [s for s, _ in wins] + [wins[-1][1]]
+        try:
+            draft = _plan(prog, bounds, kinds, before, last_use)
+        except _Peel as e:
+            k = e.step
+            wins, sigs = (wins[k + 1:], sigs[k + 1:]) if 2 * k < len(wins) else (wins[:k], sigs[:k])
+            wins, sigs = _peel_rare_ends(wins, sigs)
+            continue
+        except _NoLoop:
+            return None
+        size = bounds[-1] - bounds[0]
+        body = sum(len(t) for t in draft["classes"])
+        return draft if size >= REROLL_MIN_OPS and 2 * body <= size else None
+    return None
+
+
+def _reroll(prog: Program) -> Program:
+    """`prog` with its recurrences emitted as loops (`Recurrence`): each run
+    of steps that repeat the same ops in the same shape, found from the
+    longest chains of accumulating ops and checked op for op; the program's
+    ops are unchanged, so its plain version, `count_ops` and `peak_live`
+    too. A program with none is returned as it is."""
+    ops = prog.ops
+    last_use = list(range(len(ops)))
+    for i, (op, *args) in enumerate(ops):
+        if op not in _LEAVES:
+            for a in args:
+                if type(a) is int:
+                    last_use[a] = i
+    for o in (prog.logp, *prog.grad):
+        if type(o) is int:
+            last_use[o] = len(ops)
+    taken, blocked, drafts = [False] * len(ops), set(), []
+    while True:
+        usable = [not t and i not in blocked for i, t in enumerate(taken)]
+        chain = _find_chain(ops, usable)
+        if len(chain) <= REROLL_MIN_STEPS:
+            break
+        draft = _loop_of_chain(prog, chain, taken, drafts, last_use)
+        if draft is None:
+            blocked.update(chain)
+            continue
+        drafts.append(draft)
+        for i in range(draft["bounds"][0], draft["bounds"][-1]):
+            taken[i] = True
+    if not drafts:
+        return prog
+    drafts.sort(key=lambda d: d["bounds"][0])
+    number = {id(d): li for li, d in enumerate(drafts)}
+    owner = [-1] * len(ops)
+    for li, d in enumerate(drafts):
+        for i in range(d["bounds"][0], d["bounds"][-1]):
+            owner[i] = li
+
+    # What is read outside each loop: by straight-line ops, the outputs,
+    # other loops' shared operands and registers' first values.
+    needed = [{} for _ in drafts]
+
+    def need(v):
+        if type(v) is int and owner[v] >= 0:
+            needed[owner[v]][v] = None
+
+    for i, (op, *args) in enumerate(ops):
+        if owner[i] < 0 and op not in _LEAVES:
+            for a in args:
+                need(a)
+    for o in (prog.logp, *prog.grad):
+        need(o)
+    for d in drafts:
+        for tmpl in d["classes"]:
+            for _, refs in tmpl:
+                for r in refs:
+                    if r[0] == "u":
+                        need(r[1])
+        for reg in d["registers"]:
+            for v in reg["init"]:
+                need(v)
+
+    arrays = [[] for _ in drafts]  # per loop: {kind: template op} each
+
+    def array(li, made):
+        for a, arr in enumerate(arrays[li]):
+            if all(arr.get(c, j) == j for c, j in made):
+                arr.update(made)
+                return a
+        arrays[li].append(dict(made))
+        return len(arrays[li]) - 1
+
+    for d in drafts:
+        for reg in d["registers"]:
+            if reg["alias"] is not None:
+                src, made = reg["alias"]
+                reg["alias"] = (number[id(src)], array(number[id(src)], made))
+    outs = []
+    for li, d in enumerate(drafts):
+        b = d["bounds"]
+        mine = []
+        for v in sorted(needed[li]):
+            if v in d["final"]:
+                mine.append((v, d["final"][v]))
+                continue
+            k = bisect.bisect_right(b, v) - 1
+            mine.append((v, ("e", array(li, [(d["kinds"][k], v - b[k])]), k)))
+        outs.append(tuple(mine))
+
+    data, placed = list(prog.data), {}
+
+    def place(vals):
+        key = tuple(_bits(float(v)) for v in vals)
+        if key not in placed:
+            placed[key] = len(data)
+            data.extend(float(v) for v in vals)
+        return placed[key]
+
+    recs = []
+    for li, d in enumerate(drafts):
+        def ref(r):
+            return ("col", place(d["columns"][r[1]])) if r[0] == "col" else r
+
+        regs = tuple(Register(
+            writes=tuple(sorted(reg["writes"].items())), init=tuple(reg["init"]),
+            index=-1 if reg["index"] is None else place(reg["index"]),
+            alias=reg["alias"] or ()) for reg in d["registers"])
+        recs.append(Recurrence(
+            bounds=d["bounds"], kinds=d["kinds"],
+            kind=place(d["kinds"]) if len(d["classes"]) > 1 else -1,
+            classes=tuple(tuple((op, tuple(ref(r) for r in refs)) for op, refs in tmpl)
+                          for tmpl in d["classes"]),
+            registers=regs,
+            arrays=tuple(tuple(sorted(arr.items())) for arr in arrays[li]),
+            outs=outs[li]))
+    recs = _fuse(prog, data, recs)
+    if len(data) > REROLL_MAX_DATA or any(
+            r.alias for rec in recs if rec.head < 0 for r in rec.registers):
+        # A loop that gathers another's values but cannot run in its
+        # iterations would pass them through export arrays in local memory,
+        # which on an H100 made the Stan T=200 recurrence 5.5x slower than
+        # its straight line (PERF.md): such a program stays straight-line.
+        return prog
+    out = dataclasses.replace(prog, data=tuple(data), recurrences=recs)
+    for k in range(len(recs)):
+        _check_unrolled(out, k)
+    return out
+
+
+def _fuse(prog: Program, data, recs) -> tuple:
+    """The recurrences, each that reads the loops before it only by
+    gathering the previous one's values at step k + c (c fixed) from its
+    step k, and whose operands, first values and the straight-line ops
+    between them read nothing else of those loops, set to run inside their
+    iterations (`Recurrence.head`): the values pass from one to the other
+    in registers, not through an export array in local memory."""
+    recs = list(recs)
+    for i in range(1, len(recs)):
+        a, b = recs[i - 1], recs[i]
+        head = a.head if a.head >= 0 else i - 1
+        spans = [(recs[g].bounds[0], recs[g].bounds[-1]) for g in range(head, i)]
+
+        def inside(v):
+            return type(v) is int and any(lo <= v < hi for lo, hi in spans)
+
+        reading = {}
+        for c, tmpl in enumerate(b.classes):
+            for _, refs in tmpl:
+                for r in refs:
+                    if r[0] == "r":
+                        reading.setdefault(r[1], set()).add(c)
+        gathers = [R for R, r in enumerate(b.registers) if r.alias]
+        shifts = {int(data[b.registers[R].index + k]) - k for R in gathers
+                  for k, c in enumerate(b.kinds) if c in reading.get(R, ())}
+        if (not gathers or len(shifts) != 1
+                or any(b.registers[R].alias[0] != i - 1 for R in gathers)
+                or any(inside(v) for r in b.registers for v in r.init)
+                or any(r[0] == "u" and inside(r[1]) for tmpl in b.classes
+                       for _, refs in tmpl for r in refs)
+                or any(inside(v) for j in range(a.bounds[-1], b.bounds[0])
+                       if prog.ops[j][0] not in _LEAVES for v in prog.ops[j][1:])):
+            continue
+        recs[i] = dataclasses.replace(b, head=head, shift=a.shift + shifts.pop())
+    return tuple(recs)
+
+
+def _unrolled(prog: Program, k: int):
+    """Recurrence k of `prog` as its loop computes it, step by step: the
+    ops of each step with their operands resolved to node ids (a literal or
+    datum by its value), and the nodes that `outs` defines, resolved."""
+    recs, data = prog.recurrences, prog.data
+    rec = recs[k]
+    slots = [list(r.init) for r in rec.registers]
+    steps = []
+    for s, c in enumerate(rec.kinds):
+        base = rec.bounds[s]
+
+        def val(r):
+            kind, v = r
+            if kind == "t":
+                return base + v
+            if kind == "u":
+                return v
+            if kind == "col":
+                return data[v + s]
+            reg = rec.registers[v]
+            i = 0 if reg.index < 0 else int(data[reg.index + s])
+            if reg.alias:
+                src = recs[reg.alias[0]]
+                return src.bounds[i] + dict(src.arrays[reg.alias[1]])[src.kinds[i]]
+            return slots[v][i]
+
+        step = [(op,) if op == "phi" else (op, *(val(r) for r in refs))
+                for op, refs in rec.classes[c]]
+        for R, reg in enumerate(rec.registers):
+            for cc, j in reg.writes:
+                if cc == c:
+                    slots[R][0 if reg.index < 0 else int(data[reg.index + s])] = base + j
+        steps.append(step)
+    outs = {}
+    for node, src in rec.outs:
+        if src[0] == "e":
+            i = src[2]
+            outs[node] = rec.bounds[i] + dict(rec.arrays[src[1]])[rec.kinds[i]]
+        else:
+            outs[node] = slots[src[1]][src[2] if len(src) == 3 else 0]
+    return steps, outs
+
+
+def _check_unrolled(prog: Program, k: int):
+    """Recurrence k regenerates its steps' ops exactly, and each node it
+    defines after the loop is the one named."""
+    rec = prog.recurrences[k]
+    steps, outs = _unrolled(prog, k)
+    for s, step in enumerate(steps):
+        lo, hi = rec.bounds[s], rec.bounds[s + 1]
+        want = [prog.ops[i] if prog.ops[i][0] != "data" else ("data", prog.data[prog.ops[i][1]])
+                for i in range(lo, hi)]
+        if [tuple(map(_key, o)) for o in step] != [tuple(map(_key, o)) for o in want]:
+            raise AssertionError(f"recurrence {k}: step {s} does not regenerate ops "
+                                 f"{lo}..{hi - 1}")
+    if any(node != v for node, v in outs.items()):
+        raise AssertionError(f"recurrence {k}: a node after the loop is not its own")
+
+
 _INFIX = {"add": "+", "sub": "-", "mul": "*", "div": "/", **{
     k: v for k, v in zip(_CMP, ("<", "<=", ">", ">=", "==", "!="))}}
 _CALL = {"exp": "expf", "log": "logf", "log1p": "log1pf", "expm1": "expm1f",
@@ -1359,8 +2023,161 @@ def _c_loop(prog: Program, k: int) -> list:
     return lines
 
 
+def _arrays_used(prog: Program):
+    """The export arrays that the emission keeps: (stored, current), sets
+    of (recurrence, array). An array is stored where a node after its loop,
+    or a gather of a loop that runs on its own, reads it; a loop that runs
+    inside another's iterations (`Recurrence.head`) reads the entry of the
+    step that has just run, kept in one value, the array's current entry."""
+    stored, current = set(), set()
+    for k, rec in enumerate(prog.recurrences):
+        stored |= {(k, src[1]) for _, src in rec.outs if src[0] == "e"}
+        for r in rec.registers:
+            if r.alias:
+                (current if rec.head >= 0 else stored).add(r.alias)
+    return stored, current
+
+
+def _c_declare(prog: Program, k: int, stored) -> list:
+    """Recurrence k's registers (their first values) and stored arrays."""
+    rec = prog.recurrences[k]
+    lines = [f"    // ops {rec.bounds[0]}..{rec.bounds[-1] - 1}: a recurrence of "
+             f"{len(rec.bounds) - 1} steps, {len(rec.classes)} kind(s) of step"]
+    for R, r in enumerate(rec.registers):
+        init = ["0.0f" if v is None else _ref(v) for v in r.init]
+        if r.alias:
+            continue
+        if r.index < 0:
+            lines.append(f"    float r{k}c{R} = {init[0]};")
+        else:
+            lines.append(f"    float r{k}c{R}[{len(init)}] = {{{', '.join(init)}}};")
+    lines += [f"    float r{k}e{a}[{len(rec.bounds) - 1}];" for a in range(len(rec.arrays))
+              if (k, a) in stored]
+    return lines
+
+
+def _c_step(prog: Program, k: int, step: str, pad: str, stored, current) -> list:
+    """One step of recurrence k, its index `step` (a C expression): the
+    slots' indices and the step's kind read from the data block, the kind's
+    template, then the registers and array entries it assigns."""
+    rec = prog.recurrences[k]
+    p = f"r{k}"
+
+    def reg(R):
+        r = rec.registers[R]
+        if r.alias and r.alias in current:
+            return f"r{r.alias[0]}x{r.alias[1]}"
+        if r.alias:
+            return f"r{r.alias[0]}e{r.alias[1]}[{p}i{r.index}]"
+        return f"{p}c{R}" if r.index < 0 else f"{p}c{R}[{p}i{r.index}]"
+
+    def ref(r):
+        kind, v = r
+        if kind == "t":
+            return f"{p}t{v}"
+        if kind == "u":
+            return _ref(v)
+        if kind == "col":
+            return f"d[{v} + {step}]"
+        return reg(v)
+
+    lines = [f"{pad}const int {p}i{o} = static_cast<int>(d[{o} + {step}]);"
+             for o in sorted({r.index for r in rec.registers
+                              if r.index >= 0 and r.alias not in current})]
+    many = len(rec.classes) > 1
+    if many:
+        lines.append(f"{pad}const int {p}k = static_cast<int>(d[{rec.kind} + {step}]);")
+    inner = pad + "  " if many else pad
+    for c, tmpl in enumerate(rec.classes):
+        if many:
+            lines.append(f"{pad}if ({p}k == 0) {{" if c == 0 else
+                         f"{pad}}} else if ({p}k == {c}) {{" if c < len(rec.classes) - 1
+                         else f"{pad}}} else {{")
+        for j, (op, refs) in enumerate(tmpl):
+            rhs = "phi" if op == "phi" else ref(refs[0]) if op == "data" else _c_rhs(op, refs, ref)
+            lines.append(f"{inner}const {'bool' if op in _CMP else 'float'} {p}t{j} = {rhs};")
+        lines += [f"{inner}{reg(R)} = {p}t{j};" for R, r in enumerate(rec.registers)
+                  for cc, j in r.writes if cc == c]
+        for a, arr in enumerate(rec.arrays):
+            for cc, j in arr:
+                if cc == c and (k, a) in stored:
+                    lines.append(f"{inner}{p}e{a}[{step}] = {p}t{j};")
+                if cc == c and (k, a) in current:
+                    lines.append(f"{inner}{p}x{a} = {p}t{j};")
+    if many:
+        lines.append(f"{pad}}}")
+    return lines
+
+
+def _c_outs(prog: Program, k: int) -> list:
+    """The nodes of recurrence k that are read after it."""
+    lines = []
+    for node, src in prog.recurrences[k].outs:
+        rhs = (f"r{k}e{src[1]}[{src[2]}]" if src[0] == "e" else
+               f"r{k}c{src[1]}[{src[2]}]" if len(src) == 3 else f"r{k}c{src[1]}")
+        lines.append(f"    const float v{node} = {rhs};")
+    return lines
+
+
+def _unroll(prog: Program, group) -> int:
+    """The unroll factor of the loop that runs the recurrences `group`
+    (REROLL_UNROLL)."""
+    if REROLL_UNROLL is not None:
+        return REROLL_UNROLL
+    body = sum(len(t) for m in group for t in prog.recurrences[m].classes)
+    u = 1
+    while u < 8 and 2 * u * body <= REROLL_UNROLL_OPS:
+        u *= 2
+    return u
+
+
+def _c_recurrences(prog: Program) -> list:
+    """The straight-line ops and the recurrences in program order: each
+    recurrence one `for` over its steps (unrolled by `_unroll`, so the code
+    does not grow with them), the recurrences that run inside another's iterations
+    (`Recurrence.head`) in the same `for`, the straight-line ops between
+    them before it."""
+    recs, stored, current = prog.recurrences, *_arrays_used(prog)
+    lines, i, k = [], 0, 0
+    while k < len(recs):
+        group = [k] + [m for m in range(k + 1, len(recs)) if recs[m].head == k]
+        lines += [_c_line(prog, j) for j in range(i, recs[k].bounds[0])]
+        for a, b in zip(group, group[1:]):
+            lines += [_c_line(prog, j) for j in range(recs[a].bounds[-1], recs[b].bounds[0])]
+        for m in group:
+            lines += _c_declare(prog, m, stored)
+        if len(group) == 1:
+            lines += [f"#pragma unroll {_unroll(prog, group)}",
+                      f"    for (int step = 0; step < {len(recs[k].bounds) - 1}; ++step) {{"]
+            lines += _c_step(prog, k, "step", "      ", stored, current)
+        else:
+            span = [(recs[m].shift, recs[m].shift + len(recs[m].bounds) - 1) for m in group]
+            lo, hi = min(a for a, _ in span), max(b for _, b in span)
+            lines += [f"    // recurrences {', '.join(map(str, group))} in one loop: step s of "
+                      f"each in iteration s + its shift",
+                      f"#pragma unroll {_unroll(prog, group)}",
+                      f"    for (int it = {lo}; it < {hi}; ++it) {{"]
+            lines += [f"      float r{m}x{a};" for m, a in sorted(current) if m in group]
+            for m, (a, b) in zip(group, span):
+                step = "it" if a == 0 else f"(it - {a})"
+                if (a, b) == (lo, hi):
+                    lines.append(f"      // recurrence {m}")
+                    lines += _c_step(prog, m, step, "      ", stored, current)
+                    continue
+                lines.append(f"      if (it >= {a} && it < {b}) {{  // recurrence {m}")
+                lines += _c_step(prog, m, step, "        ", stored, current)
+                lines.append("      }")
+        lines.append("    }")
+        for m in group:
+            lines += _c_outs(prog, m)
+        i, k = recs[group[-1]].bounds[-1], group[-1] + 1
+    return lines + [_c_line(prog, j) for j in range(i, len(prog.ops))]
+
+
 def _c_body(prog: Program) -> list:
-    if prog.group == 1:
+    if prog.recurrences:
+        lines = _c_recurrences(prog)
+    elif prog.group == 1:
         lines = [_c_line(prog, i) for i in range(len(prog.ops))]
     else:
         lines = [f"    const int lane = group_lane<{prog.group}>();",
@@ -1387,6 +2204,9 @@ def _cuda_source(prog: Program, name: str, autodiff: str) -> tuple:
         entry += f", {GROUP_BLOCK}"
         n_ops = (f"{n_ops} operations, its {len(prog.loops)} loop(s) split over "
                  f"{prog.group} lanes a particle, blocks of {GROUP_BLOCK} threads")
+    elif prog.recurrences:
+        n_ops = (f"{n_ops} operations, {len(prog.recurrences)} recurrence(s) "
+                 f"emitted as loops over their steps")
     else:
         n_ops = f"{n_ops} operations"
     src = f"""// Generated by smcnuts_torch/ops/generated.py from the density '{name}'
@@ -1582,18 +2402,23 @@ def tile_model_from_logp(logp_fn, dim, name="generated", group=None) -> Generate
 
 
 def tile_model_from_logp_fwd(logp_seq_fn, dim, name="generated",
-                             order="primal") -> GeneratedModel:
+                             order="primal", reroll=True) -> GeneratedModel:
     """A generated model of `logp_seq_fn(coords, phi) -> scalar`, whose
     coordinates arrive as a sequence of D scalars, with its gradient by
     forward mode: the primal traced once (make_fx over D + 1 scalars), then
     one tangent pass a coordinate by this module's rules, in which a
     symbolically zero tangent stays absent. D <= MAX_FORWARD_DIM.
 
-    The program is emitted in (primal node, pass) order (`_primal_order`);
-    `order="built"` emits it in the order it was built, the whole primal
-    before the first pass: the same operations on the same operands, so the
-    same bits, with more values live at once (the measurement witness of
-    `chip_smoke.py` phase 11)."""
+    The program is emitted in (primal node, pass) order (`_primal_order`),
+    and with `reroll` each recurrence it holds (a run of steps that repeat
+    the same ops in the same shape, `_reroll`) as one loop over its steps,
+    so that the code does not grow with the recurrence's length; the
+    program, and so its bits, stay the same. `reroll=False` emits every op
+    straight-line (the measurement witness of `chip_smoke.py` phases 11 and
+    13). `order="built"` emits it straight-line in the order it was built,
+    the whole primal before the first pass: the same operations on the same
+    operands, with more values live at once (phase 11's witness of the
+    order)."""
     from torch.fx.experimental.proxy_tensor import make_fx
 
     if order not in ("primal", "built"):
@@ -1631,7 +2456,19 @@ def tile_model_from_logp_fwd(logp_seq_fn, dim, name="generated",
                 tan[i] = t
         grads.append(tan.get(logp, 0.0) if type(logp) is int else 0.0)
     b.ctx = (n_primal, 0)  # the outputs' last multiplies, at the end
-    return GeneratedModel(_finish(b, logp, grads, dim, order), "forward", name)
+    prog = _finish(b, logp, grads, dim, order)
+    if reroll and order == "primal":
+        prog = _reroll(prog)
+    return GeneratedModel(prog, "forward", name)
+
+
+def straight_line(model: GeneratedModel) -> GeneratedModel:
+    """The same program with every op straight-line: a re-rolled forward
+    model's witness, without tracing the density again."""
+    prog = model.program
+    n_data = sum(op == "data" for op, *_ in prog.ops)
+    prog = dataclasses.replace(prog, data=prog.data[:n_data], recurrences=())
+    return GeneratedModel(prog, model.autodiff, model.name)
 
 
 # ---------------------------------------------------------------------------

@@ -1665,7 +1665,8 @@ def _uses_rng(stmts) -> bool:
 def compile_stan_program(source: str, data: dict, name: str = "stan",
                          scan_threshold: int | None = 64,
                          tile: bool = False,
-                         tile_autodiff: str = "auto") -> StanModel:
+                         tile_autodiff: str = "auto",
+                         tile_reroll: bool = True) -> StanModel:
     """Compile Stan source + data dict into a `CallableModel` (a
     `StanModel`): `name`, `dim`, `constrained_dim`, `param_names` (with
     `tp.i` and `gq.i` for transformed parameters and generated quantities),
@@ -1689,6 +1690,8 @@ def compile_stan_program(source: str, data: dict, name: str = "stan",
       blocks (or a user function body) hold a long static loop that CARRIES
       state across iterations, reverse otherwise — the JAX frontend's choice
       (`smcnuts_tpu/stan/compiler.py:2854-2863`).
+    A forward-mode model emits its recurrences as loops over their steps;
+    `tile_reroll=False` emits every op straight-line (the same program).
     """
     del scan_threshold
     prog = parse(source)
@@ -1863,7 +1866,8 @@ def compile_stan_program(source: str, data: dict, name: str = "stan",
                 else "reverse"
             )
         if tile_autodiff == "forward":
-            tile_model = tile_model_from_logp_fwd(logp_direct_seq, dim, name=name)
+            tile_model = tile_model_from_logp_fwd(logp_direct_seq, dim, name=name,
+                                                  reroll=tile_reroll)
         elif tile_autodiff == "reverse":
             tile_model = tile_model_from_logp(logp_direct, dim, name=name)
         else:

@@ -477,8 +477,15 @@ def test_emitted_source_is_deterministic_and_exact():
     assert a.source == b.source and a.hash == b.hash
     assert "static constexpr int D = 4;" in a.source
     assert "static constexpr int kScalars = 0;" in a.source
+    # The observations are exact: literals of the straight-line program, and
+    # in the re-rolled one (the default) literals of its peeled steps or
+    # entries of its data block's column.
+    flat = arma_model_fwd(y, reroll=False).tile_model
+    data = set(a.data.numpy().view(np.uint32).tolist())
     for v in y:
-        assert f"({float(np.float32(v)).hex()}f)" in a.source
+        literal = f"({float(np.float32(v)).hex()}f)"
+        assert literal in flat.source
+        assert literal in a.source or int(np.float32(v).view(np.uint32)) in data
     es = make_eightschools_generated().tile_model
     assert es.hash == make_eightschools_generated().tile_model.hash
     # The data (y, and what folds from sigma) are the data block, exactly.

@@ -42,7 +42,10 @@ ARMA_BUILT_HASH = "e254d05f13f36d39"
 
 @pytest.fixture(scope="module")
 def arma():
-    return {order: arma_model_fwd(order=order).tile_model for order in ("primal", "built")}
+    # Straight-line: the emission order of every op (the default re-rolls
+    # the recurrence as a loop, tests/test_torch_generated_loop.py).
+    return {order: arma_model_fwd(order=order, reroll=False).tile_model
+            for order in ("primal", "built")}
 
 
 def _random_density(seed, dim=3, n_ops=40):

@@ -64,7 +64,7 @@ def test_imports_with_jax_blocked():
         "compile_stan_file('examples/stan/gq_rng.stan', data='examples/stan/gq_rng.json')\\\n"
         "    .constrain(torch.zeros(2, 1))\n"
         "sys.path.insert(0, 'experiments')\n"
-        "import run_experiments_torch, stan_step_sizes_torch\n"
+        "import run_experiments_torch, stan_step_sizes_torch, generated_loop_unroll_torch\n"
         "print('ok')\n"
     )
     env = dict(os.environ, PYTHONPATH=_REPO, OMP_NUM_THREADS="2")
@@ -163,3 +163,12 @@ def test_kernel_sources_of_every_model_are_in_the_package():
         fused = f.read()
     assert '#include "arma_model.cuh"' in fused and "arma_loglik_grad<" in fused
     assert "smcnuts_arma_ll_vg" in fused
+
+
+def test_loop_unroll_script_imports_neither():
+    """The port's measurement of K7f's loops at several unroll factors names
+    jax and smcnuts_tpu in no import."""
+    names = _imported_names(os.path.join(_REPO, "experiments", "generated_loop_unroll_torch.py"))
+    assert not [n for n in names
+                if n.split(".")[0] in ("jax", "jaxlib", "smcnuts_tpu")]
+    assert any(n.startswith("smcnuts_torch") for n in names)
