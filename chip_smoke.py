@@ -127,7 +127,13 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
    witness (`ops.nuts_cuda.LOGISTIC_VARIANTS`, `EIGHTSCHOOLS_VARIANTS`, one
    thread a tree, the sequential order) equal to the bit to the plain
    version at group=1, timed in turns with the main entry at 25 x 512 and at
-   1,048,576 trees, with ptxas's lines for each. Last, each model's
+   1,048,576 trees, with ptxas's lines for each. The Gaussian's main entry
+   runs the template's pipelined walk; its witness, the kernel before it (`GAUSSIAN_VARIANTS`: one thread a
+   tree, the walk every other model runs), equal to the main entry's output
+   to the bit (no second plain tree at 25 x 512), both timed in turns at
+   25 x 512 x depth 10 and at 1 x 2048, 25 x 2048 and 100 x 512 at the
+   tempered run's step 0.5 and depth 5, with ptxas's lines and the SASS
+   instructions of each. Last, each model's
    single kernel and a few split tuples timed at 100 x 512 lanes at the step
    size of its run in phase 9: what the models' compaction hints rest on.
 9. the three strategies, full width, through `run_smc_batched` with 25 runs:
@@ -135,7 +141,9 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
    (tempering, saved history) and the Gaussian-approximation L-kernel, inside
    the PARITY bands; the tempered Gaussian (D=3, prior variance 9, N=2048,
    K=20, step 0.5, depth 5, forwards L-kernel) with final moments within
-   4 standard errors / 25% of the closed form; eight schools (N=1024, K=30,
+   4 standard errors / 25% of the closed form, every dispatch to the entry
+   `ops.nuts_cuda` names (`smcnuts_nuts_tree_gaussian3`, the pipelined
+   walk; nuts_tree.entry_launches) and none to the witness; eight schools (N=1024, K=30,
    step 0.2, depth 6, forwards L-kernel, tempered) with 3 < mu < 6 and
    2 < tau < 6; logistic regression (N=1024, K=30, step 0.1, depth 6,
    asymptotic) held, by the PARITY bands (3 MC standard errors + 0.1
@@ -496,6 +504,7 @@ def reset_counts():
     nuts_tree.r_given_launches = {k: 0 for k in nuts_tree.r_given_launches}
     nuts_tree.stage_launches = 0
     nuts_tree.cont_launches = {k: 0 for k in nuts_tree.cont_launches}
+    nuts_tree.entry_launches = {}
     nuts_tree_plain.calls = 0
     nuts_tree_plain.model_calls = 0
     arma_ll_vg.launches = 0
@@ -1506,10 +1515,115 @@ def autodiff_cloud(name, shape, seed, device):
             + scale[..., None] * torch.tensor(sd, device=device) * z).contiguous()
 
 
+def gaussian_entry_check(label, model, k):
+    """Every one of the k dispatches since reset_counts went to the Gaussian
+    entry that ops.nuts_cuda names (the pipelined walk), none to the
+    witness."""
+    from smcnuts_torch.ops.nuts_cuda import GAUSSIAN_VARIANTS, nuts_tree
+
+    entry = f"smcnuts_nuts_tree_gaussian{model.dim}"
+    witness = GAUSSIAN_VARIANTS[GAUSSIAN_WITNESS][0]
+    got = dict(nuts_tree.entry_launches)
+    if got.get(entry) != k or sum(got.values()) != k:
+        raise AssertionError(f"{label}: dispatches by entry {got}; expected {k} to {entry}")
+    print(f"{label}: all {k} dispatches to {entry} (the pipelined walk), none to the "
+          f"witness {witness}")
+
+
+# The Gaussian's witness (ops.nuts_cuda.GAUSSIAN_VARIANTS), and the shapes
+# both builds are timed at beside 25 x 512 x depth 10: (runs, particles) at
+# the tempered run's step and depth (phase 9: one run, and the dispatch of
+# its 25 runs; the compaction hint's 100 x 512).
+GAUSSIAN_WITNESS = "gaussian3_witness"
+GAUSSIAN_SHAPES = ((1, 2048), (RUNS, 2048), (4 * RUNS, N))
+
+
+def gaussian_witness(model, batch_args, single_out, plain_ms, smi):
+    """The Gaussian's witness against the main entry's output to the bit (a
+    small cloud with a lane of density -inf under zero bits, and the batched
+    shape), both timed in turns at 25 x 512 x depth 10 and at
+    GAUSSIAN_SHAPES, with ptxas's lines and SASS counts of both builds;
+    returns what the kernels line says of the witness."""
+    import re
+
+    from smcnuts_torch.models import gaussian
+    from smcnuts_torch.ops.nuts_cuda import (
+        GAUSSIAN_VARIANTS, build_library, nuts_tree, nuts_tree_variant)
+    from smcnuts_torch.ops.draws import PHILOX, ZERO_BITS
+    from smcnuts_torch.utils.timing import median_ms
+
+    dev = batch_args[0].device
+    ones = torch.ones(model.dim, device=dev)
+    nuts_tree_variant.launches[GAUSSIAN_WITNESS] = 0
+    small = (autodiff_cloud("gaussian", (2, 1024), 7, dev),
+             torch.tensor([11, 12], dtype=torch.int32, device=dev), 0.02,
+             torch.tensor([1.0, 0.4], device=dev), ones, 6, ZERO_BITS)
+    small[0][0, 0, NAN_LANE["gaussian"][0]] = NAN_LANE["gaussian"][1]
+    for label, args in (("[zero_bits] phi 1.0 | 0.4, 2 x 1024, depth 6", small),
+                        (f"[philox] {RUNS} x {N}, depth {MAX_DEPTH}", batch_args)):
+        main = single_out if args is batch_args else nuts_tree(model, *args)
+        diff = bitwise_differences(nuts_tree_variant(GAUSSIAN_WITNESS, model, *args), main)
+        if diff:
+            raise AssertionError(f"gaussian witness {label}: differs from the main "
+                                 f"entry in {diff}")
+        print(f"gaussian witness {label}: equal to the main entry to the bit")
+    witness_out = nuts_tree_variant(GAUSSIAN_WITNESS, model, *batch_args)
+    witness_host = median_ms(lambda: nuts_tree_variant(GAUSSIAN_WITNESS, model, *batch_args),
+                             repeats=5)
+    cfg = AUTODIFF_MODELS["gaussian"]
+    shapes = [(f"{RUNS} x {N} x depth {MAX_DEPTH}", batch_args)] + [
+        (f"{runs} x {n} x depth {cfg['depth']}, step {cfg['step']}",
+         (autodiff_cloud("gaussian", (runs, n), 6, dev),
+          torch.arange(runs, dtype=torch.int32, device=dev), cfg["step"], 1.0, ones,
+          cfg["depth"], PHILOX))
+        for runs, n in GAUSSIAN_SHAPES]
+    med = {}
+    for label, args in shapes:
+        rounds, m = timed_in_turns({
+            "main": lambda: nuts_tree(model, *args),
+            GAUSSIAN_WITNESS: lambda: nuts_tree_variant(GAUSSIAN_WITNESS, model, *args)})
+        med.setdefault("main", m["main"])
+        med.setdefault(GAUSSIAN_WITNESS, m[GAUSSIAN_WITNESS])
+        for k in ("main", GAUSSIAN_WITNESS):
+            print(f"time gaussian {k}, {label} [philox]: {m[k]:.4f} ms, "
+                  f"{m[GAUSSIAN_WITNESS] / m[k]:.3f}x the witness's speed (device alone, "
+                  f"{DEVICE_REPEATS} launches back to back; median of {VARIANT_ROUNDS} in "
+                  f"turns: {', '.join(f'{v:.4f}' for v in rounds[k])}; {smi})")
+    lib = build_library()
+    counts = sass_instructions(lib.path)
+    entries = {"main": "GaussianPipelinedILi3EEELb", "witness": "GaussianModelILi3EEELb"}
+    blocks = {"main": str(gaussian.BLOCK), "witness": "128"}
+    name, found = None, set()
+    for line in lib.log.splitlines():
+        if "Compiling entry" in line:
+            name = line.split("'")[1] if "'" in line else line
+        elif name is not None and ("registers" in line or "stack frame" in line):
+            for who, pattern in entries.items():
+                block = re.search(r"ELb([01])ELi(\d+)E", name)
+                if pattern in name and block.group(2) == blocks[who]:
+                    stage = "continuation" if block.group(1) == "1" else "first stage"
+                    found.add((who, stage))
+                    print(f"  ptxas gaussian {who}, {stage}, {block.group(2)} threads: "
+                          f"{line.split(':', 1)[-1].strip()}")
+    if len(found) != 2 * len(entries):
+        raise AssertionError(f"gaussian: ptxas lines found for {sorted(found)} only")
+    for who, pattern in entries.items():
+        tail = f"ELi{blocks[who]}EEEvNS_8TreeArgsE"
+        mine = {k: v for k, v in counts.items() if k.endswith(tail)}
+        print(f"  SASS gaussian {who}: {sass_text(mine, pattern)}")
+    bound = tree_roofline("gaussian", witness_out)
+    print(f"gaussian witness: {bound_text(bound)}; launches in this phase (not on the "
+          f"main path) {nuts_tree_variant.launches[GAUSSIAN_WITNESS]}; entry "
+          f"{GAUSSIAN_VARIANTS[GAUSSIAN_WITNESS][0]}")
+    return {"launches": 0, "measurement_entry": True, "max_abs_err": 0.0,
+            "ms": med[GAUSSIAN_WITNESS], "host_call_ms": witness_host,
+            "plain_ms": plain_ms, **bound}
+
+
 def autodiff_kernel_phase(name, smi):
-    """Phase 8 for one model; returns what the kernels line says of it and,
-    for logistic regression and eight schools, of its W = 1 witness (else
-    None)."""
+    """Phase 8 for one model; returns what the kernels line says of it and of
+    its witness: the W = 1 witness of logistic regression and eight schools,
+    the Gaussian's kernel before the pipelined walk."""
     from smcnuts_torch.models import eightschools, logistic
     from smcnuts_torch.ops.draws import PHILOX, ZERO_BITS
     from smcnuts_torch.ops.nuts_cuda import build_library, nuts_tree, nuts_tree_plain
@@ -1560,6 +1674,8 @@ def autodiff_kernel_phase(name, smi):
                       model, batch_args, smi)
     bound = tree_roofline(name, single_out)
     witness = None
+    if name == "gaussian":
+        witness = gaussian_witness(model, batch_args, single_out, times["plain_ms"], smi)
     if group_mod is not None:
         small = (autodiff_cloud(name, (2, 1024), 7, dev), seed2, step,
                  torch.tensor([1.0, 0.4], device=dev), ones, 6, ZERO_BITS)
@@ -1598,8 +1714,9 @@ def autodiff_kernel_phase(name, smi):
 
 
 def autodiff_kernels_phase(smi):
-    """Phase 8: what the kernels line says of each model, and of the W = 1
-    witnesses of logistic regression and eight schools."""
+    """Phase 8: what the kernels line says of each model, and of its witness
+    (the W = 1 witnesses of logistic regression and eight schools, the
+    Gaussian's kernel before the pipelined walk)."""
     phase("8. Gaussian, eight-schools and logistic kernels vs plain")
     rows = {name: autodiff_kernel_phase(name, smi) for name in AUTODIFF_MODELS}
     return ({name: row for name, (row, _) in rows.items()},
@@ -1686,6 +1803,8 @@ def strategy_run(label, name, model, cfg, smi, profiled=False):
     if counts[name] != k or sum(counts.values()) != k or plain_calls != 0:
         raise AssertionError(f"{label}: {counts} dispatches, {plain_calls} plain "
                              f"calls; expected {k} and 0")
+    if name == "gaussian":
+        gaussian_entry_check(label, model, k)
     check_series(label, res, k)
     if float(res.acceptance_rate[:, k].abs().max()) != 0.0:
         raise AssertionError(f"{label}: acceptance[K] must be 0")
@@ -3190,14 +3309,18 @@ def main():
              launches=strategies[model] + tally.launches.get(model, 0), **autodiff[model])
         for model in AUTODIFF_MODELS
     ]
-    # The W = 1 witnesses of K6c and K6b (one thread a particle):
-    # measurement entries.
+    # The W = 1 witnesses of K6c and K6b (one thread a particle), and K6a's
+    # kernel before the pipelined walk: measurement entries.
     kernels += [
         dict(name=f"nuts_tree_{model}_w1", route="cuda",
              source=f"smcnuts_torch/csrc/{model}_variants.cu",
              replaces="smcnuts_tpu/ops/nuts_pallas.py:1094", **witnesses[model])
         for model in ("logistic", "eightschools")
     ]
+    kernels.append(dict(name="nuts_tree_gaussian_witness", route="cuda",
+                        source="smcnuts_torch/csrc/gaussian_variants.cu",
+                        replaces="smcnuts_tpu/ops/nuts_pallas.py:1094",
+                        **witnesses["gaussian"]))
     kernels += [
         # K5: the fused ARMA value and gradient that the eager tree calls.
         dict(name="arma_ll_vg", route="cuda", source="smcnuts_torch/csrc/arma_fused.cu",

@@ -13,7 +13,14 @@
 // together, each holding the same x, and every lane must return the same
 // bits (group_lane, group_mask below), and
 //   static constexpr int kMaxRegisters;  // a register cap for ptxas, or 0
-// (nuts_tree.cuh: MinBlocks).
+// (nuts_tree.cuh: MinBlocks), and, for a model at W = 1,
+//   static constexpr bool kPipelined;  // true: the pipelined walk
+// (nuts_tree.cuh: pipelined_walk), in which case it also has
+//   __device__ bool data_in_range() const;  // its divisors in the fast path's range
+//   __device__ auto in_registers() const;   // its data copied into registers, whose
+//     logp_grad(x, phi, grad, bool& in_range) divides by the fast path and
+//     clears in_range where an operand leaves its range
+// (the Gaussian, gaussian_model.cuh).
 #pragma once
 
 namespace smcnuts {

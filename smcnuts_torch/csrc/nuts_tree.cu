@@ -11,10 +11,13 @@
 // (prmwcd_model.cuh; a half warp a particle, the observations and the prior
 // split over its lanes),
 // and elementwise_tile_model (in-kernel jax.vjp) over the gaussian,
-// eightschools and logistic densities as GaussianModel<2|3|5>
-// (gaussian_model.cuh), EightSchoolsModel<8> (eightschools_model.cuh) and
-// LogisticModel<8, 16> (logistic_model.cuh; a half warp a particle, the
-// observations split over its lanes).
+// eightschools and logistic densities as GaussianPipelined<2|3|5>
+// (gaussian_model.cuh; one thread a tree through the pipelined walk of
+// nuts_tree.cuh, in blocks of kGaussianBlock; the kernel before it,
+// GaussianModel<3>, is its witness, gaussian_variants.cu),
+// EightSchoolsModel<8> (eightschools_model.cuh) and LogisticModel<8, 16>
+// (logistic_model.cuh; a half warp a particle, the observations split over
+// its lanes).
 // Their plain PyTorch version is smcnuts_torch/ops/nuts_cuda.py::nuts_tree_plain.
 
 #include "arma_model.cuh"
@@ -40,6 +43,11 @@ constexpr int kLogisticDim = 8; // covariates of the logistic instantiation
 constexpr int kLogisticGroup = 16;  // lanes a logistic particle: a half warp
 constexpr int kLogisticBlock = 64;  // threads a block of the logistic entry: 4 particles
 using LogisticGroupModel = LogisticModel<kLogisticDim, kLogisticGroup>;
+// Threads a block of the Gaussian entries: the pipelined walk keeps each
+// thread's checkpoint stack in shared memory, 2 x 11 x D floats, 28,160
+// bytes a block of 64 at D = 5 (56,320 at 128, past the 48 KB a block gets
+// without an opt-in).
+constexpr int kGaussianBlock = 64;
 
 }  // namespace smcnuts
 
@@ -89,15 +97,20 @@ int smcnuts_logistic_blocks_per_sm(int n_data) {
   return smcnuts::blocks_per_sm<smcnuts::LogisticGroupModel, smcnuts::kLogisticBlock>(n_data);
 }
 
+int smcnuts_gaussian_block() { return smcnuts::kGaussianBlock; }
+
 int smcnuts_nuts_tree_bundle_rows(int dim) { return smcnuts::bundle_rows(dim); }
 
 // The entries (SMCNUTS_ENTRY of nuts_tree.cuh says what each does).
 SMCNUTS_ENTRY(smcnuts_nuts_tree_arma, smcnuts::ArmaGroupModel, smcnuts::kArmaBlock)
 SMCNUTS_ENTRY(smcnuts_nuts_tree_prmwcd, smcnuts::PrmwcdGroupModel, smcnuts::kPrmwcdBlock)
 // The Gaussian's dimensions: the list of ops/nuts_cuda.py::GAUSSIAN_DIMS.
-SMCNUTS_ENTRY(smcnuts_nuts_tree_gaussian2, smcnuts::GaussianModel<2>)
-SMCNUTS_ENTRY(smcnuts_nuts_tree_gaussian3, smcnuts::GaussianModel<3>)
-SMCNUTS_ENTRY(smcnuts_nuts_tree_gaussian5, smcnuts::GaussianModel<5>)
+SMCNUTS_ENTRY(smcnuts_nuts_tree_gaussian2, smcnuts::GaussianPipelined<2>,
+              smcnuts::kGaussianBlock)
+SMCNUTS_ENTRY(smcnuts_nuts_tree_gaussian3, smcnuts::GaussianPipelined<3>,
+              smcnuts::kGaussianBlock)
+SMCNUTS_ENTRY(smcnuts_nuts_tree_gaussian5, smcnuts::GaussianPipelined<5>,
+              smcnuts::kGaussianBlock)
 SMCNUTS_ENTRY(smcnuts_nuts_tree_eightschools, smcnuts::EightSchoolsGroupModel,
               smcnuts::kSchoolsBlock)
 SMCNUTS_ENTRY(smcnuts_nuts_tree_logistic, smcnuts::LogisticGroupModel, smcnuts::kLogisticBlock)

@@ -67,6 +67,14 @@
 // 25 x 512 and loses 1.7x at 1,048,576 trees, where one thread a tree
 // already filled the card (chip_smoke.py phase 3; PERF.md).
 //
+// The pipelined walk (pipelined_walk below), for a model that asks for it
+// (Model::kPipelined; the Gaussian): one thread a tree, one loop over
+// the leaves of every doubling, the model's divisions by their fast path
+// with one range check an evaluation, the U-turn tests and pick by selects,
+// the stack in shared memory; the same trees to the bit, 2.2x the walk
+// below at 25 x 512 x depth 10 on an H100 (chip_smoke.py phase 8). Every
+// other model compiles to the walk below, unchanged.
+//
 // Design: each group walks its own tree with real early exit, so the TPU
 // kernel's per-lane masks become plain control flow. Run parameters (phi,
 // step size, inverse mass, seed) are read per run at p / n_per_run, so B runs
@@ -255,6 +263,191 @@ __host__ __device__ constexpr int group_floats() {
   return GroupWidth<Model>::value > 1 ? (2 * (kMaxDepth + 1) + 8) * Model::D : 0;
 }
 
+// Whether the model runs the pipelined walk: Model::kPipelined where the
+// model names it, else false, the walk of nuts_tree_body that every other
+// model runs.
+template <class Model, class = void>
+struct Pipelined {
+  static constexpr bool value = false;
+};
+template <class Model>
+struct Pipelined<Model, std::void_t<decltype(Model::kPipelined)>> {
+  static constexpr bool value = Model::kPipelined;
+};
+
+// Floats of shared memory a thread of the pipelined walk keeps after the
+// model's data: its checkpoint stack, kMaxDepth + 1 slots of x and r (the
+// slot of leaf l is popc(l >> 1) <= kMaxDepth - 1; slot kMaxDepth takes an
+// odd leaf's store, which no test reads).
+template <class Model>
+__host__ __device__ constexpr int thread_floats() {
+  return Pipelined<Model>::value ? 2 * (kMaxDepth + 1) * Model::D : 0;
+}
+
+// Whether the sub-tree from checkpoint `slot` (element (slot, d) at
+// ck[(slot D + d) kStride]) to the leaf (x1, r1) turns back on itself: with
+// dx = direction (x1 - ck_x), either dot below zero; both dots computed, as
+// independent values.
+template <int D, int kStride>
+__device__ __forceinline__ bool subtree_turns(const float* ck_x, const float* ck_r, int slot,
+                                              const float* x1, const float* r1,
+                                              const float* im, float direction) {
+  float dx[D], cr[D];
+#pragma unroll
+  for (int d = 0; d < D; ++d) {
+    dx[d] = direction * (x1[d] - ck_x[(slot * D + d) * kStride]);
+    cr[d] = ck_r[(slot * D + d) * kStride];
+  }
+  return (dot_im<D>(dx, im, cr) < 0.0f) | (dot_im<D>(dx, im, r1) < 0.0f);
+}
+
+// The doublings start_depth..stop_depth of one tree, one thread a tree,
+// walked so that a leaf keeps its bookkeeping off the leapfrog's dependent
+// chain; returns whether the tree stopped. The same trees as the walk of
+// nuts_tree_body, every operation on the same operands, so the same bits:
+// only the order in which independent work is issued changes.
+//   - One loop over the leaves of every doubling of the stage; a
+//     doubling's end, rare, is a branch inside it.
+//   - The leaf's density from the model's data in registers
+//     (Model::in_registers), every division by its fast path and one range
+//     check (gaussian_model.cuh), evaluated again with `/` where the check
+//     fails; the divisions' regions were the latency of a leaf.
+//   - The U-turn test of the sub-tree an odd leaf closes, the checkpoint
+//     store (an odd leaf's to a slot no test reads) and the multinomial pick
+//     by predicates and selects, in every leaf; only a leaf that closes more
+//     than one sub-tree (a quarter of them) branches to test the others.
+//   - The checkpoint stack in shared memory after the model's data, element
+//     (slot, d) of thread t at (slot D + d) kBlock + t, so the threads of a
+//     warp touch 32 banks.
+// On an H100 at one warp a scheduler the walk is bound by the instructions a
+// warp issues: drawing the leaf's uniform a leaf ahead and issuing the next
+// leaf's leapfrog before this leaf's stop decision added instructions and
+// cost time (PERF.md: the levers' table), so neither is done.
+template <class Model, int kBlock>
+__device__ __forceinline__ bool pipelined_walk(
+    const TreeArgs& a, const Model& model, const TreeDraws& draws, const float* im, float phi,
+    float eps, float logu, float H0, float* stack_s, float* xm, float* rm, float* gm, float* xp,
+    float* rp, float* gp, float* xs, float* rs, float& lps, float& n, float& alpha_sum,
+    float& alpha_cnt, float& lf_cnt, float& depth_done) {
+  constexpr int D = Model::D;
+  constexpr int kStack = (kMaxDepth + 1) * D;
+  static_assert(GroupWidth<Model>::value == 1, "the pipelined walk runs one thread a tree");
+  float* const ck_x = stack_s + threadIdx.x;
+  float* const ck_r = stack_s + kStack * kBlock + threadIdx.x;
+  const auto m = model.in_registers();
+  const bool data_ok = model.data_in_range();
+
+  int depth = a.start_depth;
+  bool back = !(draws.uniform(kDirection, depth, 0) < 0.5f);
+  float direction = back ? -1.0f : 1.0f;
+  float deps = direction * eps;
+  float half = 0.5f * deps;
+  // The state the next leaf's leapfrog starts from, then the leaf itself.
+  float x1[D], r1[D], g1[D], xpr[D], rpr[D];
+#pragma unroll
+  for (int d = 0; d < D; ++d) {
+    x1[d] = back ? xm[d] : xp[d];
+    r1[d] = back ? rm[d] : rp[d];
+    g1[d] = back ? gm[d] : gp[d];
+    xpr[d] = x1[d];
+    rpr[d] = r1[d];
+  }
+  float lppr = lps, nsub = 0.0f;
+  int leaf = 0;
+  for (;;) {
+    const bool last = leaf == (1 << depth) - 1;
+    // This leaf's leapfrog; its density again with `/` where the fast
+    // divisions' check failed.
+    float r_half[D];
+#pragma unroll
+    for (int d = 0; d < D; ++d) r_half[d] = r1[d] + half * g1[d];
+#pragma unroll
+    for (int d = 0; d < D; ++d) x1[d] = x1[d] + (deps * im[d]) * r_half[d];
+    bool in_range = data_ok;
+    float lp1 = m.logp_grad(x1, phi, g1, in_range);
+    if (!in_range) lp1 = model.logp_grad(x1, phi, g1);
+#pragma unroll
+    for (int d = 0; d < D; ++d) r1[d] = r_half[d] + half * g1[d];
+
+    // The bookkeeping of this leaf.
+    const float joint = lp1 - kinetic<D>(im, r1);
+    const bool ok = isfinite(joint);
+    const bool valid = ok & (logu < joint);
+    const bool div = !ok | ((logu - kDivergence) >= joint);
+    nsub = nsub + (valid ? 1.0f : 0.0f);
+    const bool take = valid & (draws.uniform(kLeaf, depth, leaf) * nsub < 1.0f);
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      xpr[d] = take ? x1[d] : xpr[d];
+      rpr[d] = take ? r1[d] : rpr[d];
+    }
+    lppr = take ? lp1 : lppr;
+    const float ratio = expf(joint - H0);
+    alpha_sum = alpha_sum + (ok ? (ratio > 1.0f ? 1.0f : ratio) : 0.0f);  // NaN stays NaN
+    alpha_cnt = alpha_cnt + 1.0f;
+    lf_cnt = lf_cnt + 1.0f;
+
+    // Checkpoints: even leaves store the left end of the sub-trees they
+    // open, odd leaves test every sub-tree they close.
+    const int idx_max = __popc(leaf >> 1);
+    const bool odd = leaf & 1;
+    const int put = odd ? kMaxDepth : idx_max;
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      ck_x[(put * D + d) * kBlock] = x1[d];
+      ck_r[(put * D + d) * kBlock] = r1[d];
+    }
+    bool turned = odd & subtree_turns<D, kBlock>(ck_x, ck_r, idx_max, x1, r1, im, direction);
+    const int closes = __ffs(~leaf) - 1;  // sub-trees this leaf closes
+    if (closes > 1) {
+      for (int slot = idx_max - closes + 1; slot < idx_max; ++slot) {
+        turned = turned | subtree_turns<D, kBlock>(ck_x, ck_r, slot, x1, r1, im, direction);
+      }
+    }
+    const bool sstop = div | turned;
+
+    if (sstop | last) {
+      // The doubling's end.
+      if (back) {
+        copy<D>(xm, x1); copy<D>(rm, r1); copy<D>(gm, g1);
+      } else {
+        copy<D>(xp, x1); copy<D>(rp, r1); copy<D>(gp, g1);
+      }
+      if (!sstop && draws.uniform(kAccept, depth, 0) * n < nsub) {
+        copy<D>(xs, xpr);
+        copy<D>(rs, rpr);
+        lps = lppr;
+      }
+      n = n + nsub;
+      depth_done = depth_done + 1.0f;
+      float dx[D];
+#pragma unroll
+      for (int d = 0; d < D; ++d) dx[d] = xp[d] - xm[d];
+      if (sstop || dot_im<D>(dx, im, rm) < 0.0f || dot_im<D>(dx, im, rp) < 0.0f) return true;
+      if (depth == a.stop_depth) return false;
+      // The next doubling, from the end it grows.
+      depth = depth + 1;
+      leaf = 0;
+      back = !(draws.uniform(kDirection, depth, 0) < 0.5f);
+      direction = back ? -1.0f : 1.0f;
+      deps = direction * eps;
+      half = 0.5f * deps;
+#pragma unroll
+      for (int d = 0; d < D; ++d) {
+        x1[d] = back ? xm[d] : xp[d];
+        r1[d] = back ? rm[d] : rp[d];
+        g1[d] = back ? gm[d] : gp[d];
+        xpr[d] = x1[d];
+        rpr[d] = r1[d];
+      }
+      lppr = lps;
+      nsub = 0.0f;
+    } else {
+      leaf = leaf + 1;
+    }
+  }
+}
+
 // kCont = false: the first stage, group t is particle t and runs the prologue.
 // kCont = true: a continuation stage, group t takes slot t of cont_in.
 // A group is one thread at W = 1, and then t is the thread's index.
@@ -341,93 +534,99 @@ __device__ __forceinline__ void nuts_tree_body(const TreeArgs a) {
   float* const ck_r = kShared ? group_s + kStack : ck_rl;
 
   bool stopped = false;
-  for (int depth = a.start_depth; depth <= a.stop_depth; ++depth) {
-    const bool back = !(draws.uniform(kDirection, depth, 0) < 0.5f);
-    const float direction = back ? -1.0f : 1.0f;
-    float x[D], r[D], g[D], xpr[D], rpr[D];
+  if constexpr (Pipelined<Model>::value) {
+    stopped = pipelined_walk<Model, kBlock>(a, model, draws, im, phi, eps, logu, H0,
+                                            data_s + a.n_data, xm, rm, gm, xp, rp, gp, xs, rs,
+                                            lps, n, alpha_sum, alpha_cnt, lf_cnt, depth_done);
+  } else {
+    for (int depth = a.start_depth; depth <= a.stop_depth; ++depth) {
+      const bool back = !(draws.uniform(kDirection, depth, 0) < 0.5f);
+      const float direction = back ? -1.0f : 1.0f;
+      float x[D], r[D], g[D], xpr[D], rpr[D];
 #pragma unroll
-    for (int d = 0; d < D; ++d) {
-      x[d] = back ? xm[d] : xp[d];
-      r[d] = back ? rm[d] : rp[d];
-      g[d] = back ? gm[d] : gp[d];
-      xpr[d] = x[d];
-      rpr[d] = r[d];
-    }
-    float lppr = lps, nsub = 0.0f;
-    bool sstop = false;
-    const float deps = direction * eps;
-    const float half = 0.5f * deps;
-
-    const int num_leaves = 1 << depth;
-    for (int leaf = 0; leaf < num_leaves && !sstop; ++leaf) {
-      float r_half[D], x1[D], g1[D], r1[D];
-#pragma unroll
-      for (int d = 0; d < D; ++d) r_half[d] = r[d] + half * g[d];
-#pragma unroll
-      for (int d = 0; d < D; ++d) x1[d] = x[d] + (deps * im[d]) * r_half[d];
-      const float lp1 = model.logp_grad(x1, phi, g1);
-#pragma unroll
-      for (int d = 0; d < D; ++d) r1[d] = r_half[d] + half * g1[d];
-
-      const float joint = lp1 - kinetic<D>(im, r1);
-      const bool ok = isfinite(joint);
-      const bool valid = ok && (logu < joint);
-      const bool div = !ok || ((logu - kDivergence) >= joint);
-      nsub = nsub + (valid ? 1.0f : 0.0f);
-      if (valid && draws.uniform(kLeaf, depth, leaf) * nsub < 1.0f) {
-        copy<D>(xpr, x1);
-        copy<D>(rpr, r1);
-        lppr = lp1;
+      for (int d = 0; d < D; ++d) {
+        x[d] = back ? xm[d] : xp[d];
+        r[d] = back ? rm[d] : rp[d];
+        g[d] = back ? gm[d] : gp[d];
+        xpr[d] = x[d];
+        rpr[d] = r[d];
       }
-      const float ratio = expf(joint - H0);
-      alpha_sum = alpha_sum + (ok ? (ratio > 1.0f ? 1.0f : ratio) : 0.0f);  // NaN stays NaN
-      alpha_cnt = alpha_cnt + 1.0f;
-      lf_cnt = lf_cnt + 1.0f;
+      float lppr = lps, nsub = 0.0f;
+      bool sstop = false;
+      const float deps = direction * eps;
+      const float half = 0.5f * deps;
 
-      // Checkpoints: even leaves store the left end of the sub-trees they
-      // open, odd leaves test every sub-tree they close.
-      const int idx_max = __popc(leaf >> 1);
-      bool turned = false;
-      if ((leaf & 1) == 0) {
-        copy<D>(ck_x + idx_max * D, x1);
-        copy<D>(ck_r + idx_max * D, r1);
-        if constexpr (kShared) __syncwarp(group_mask<W>());
-      } else {
-        const int idx_min = idx_max - (__popc(leaf ^ (leaf + 1)) - 1) + 1;
-        for (int slot = idx_min; slot <= idx_max; ++slot) {
-          float dx[D];
+      const int num_leaves = 1 << depth;
+      for (int leaf = 0; leaf < num_leaves && !sstop; ++leaf) {
+        float r_half[D], x1[D], g1[D], r1[D];
 #pragma unroll
-          for (int d = 0; d < D; ++d) dx[d] = direction * (x1[d] - ck_x[slot * D + d]);
-          turned = turned || dot_im<D>(dx, im, ck_r + slot * D) < 0.0f ||
-                   dot_im<D>(dx, im, r1) < 0.0f;
+        for (int d = 0; d < D; ++d) r_half[d] = r[d] + half * g[d];
+#pragma unroll
+        for (int d = 0; d < D; ++d) x1[d] = x[d] + (deps * im[d]) * r_half[d];
+        const float lp1 = model.logp_grad(x1, phi, g1);
+#pragma unroll
+        for (int d = 0; d < D; ++d) r1[d] = r_half[d] + half * g1[d];
+
+        const float joint = lp1 - kinetic<D>(im, r1);
+        const bool ok = isfinite(joint);
+        const bool valid = ok && (logu < joint);
+        const bool div = !ok || ((logu - kDivergence) >= joint);
+        nsub = nsub + (valid ? 1.0f : 0.0f);
+        if (valid && draws.uniform(kLeaf, depth, leaf) * nsub < 1.0f) {
+          copy<D>(xpr, x1);
+          copy<D>(rpr, r1);
+          lppr = lp1;
         }
-      }
-      sstop = div || turned;
-      copy<D>(x, x1);
-      copy<D>(r, r1);
-      copy<D>(g, g1);
-    }
+        const float ratio = expf(joint - H0);
+        alpha_sum = alpha_sum + (ok ? (ratio > 1.0f ? 1.0f : ratio) : 0.0f);  // NaN stays NaN
+        alpha_cnt = alpha_cnt + 1.0f;
+        lf_cnt = lf_cnt + 1.0f;
 
-    if (back) {
-      copy<D>(xm, x); copy<D>(rm, r); copy<D>(gm, g);
-    } else {
-      copy<D>(xp, x); copy<D>(rp, r); copy<D>(gp, g);
-    }
-    if (!sstop && draws.uniform(kAccept, depth, 0) * n < nsub) {
-      copy<D>(xs, xpr);
-      copy<D>(rs, rpr);
-      lps = lppr;
-    }
-    n = n + nsub;
-    depth_done = depth_done + 1.0f;
-    if constexpr (kShared) __syncwarp(group_mask<W>());
-
-    float dx[D];
+        // Checkpoints: even leaves store the left end of the sub-trees they
+        // open, odd leaves test every sub-tree they close.
+        const int idx_max = __popc(leaf >> 1);
+        bool turned = false;
+        if ((leaf & 1) == 0) {
+          copy<D>(ck_x + idx_max * D, x1);
+          copy<D>(ck_r + idx_max * D, r1);
+          if constexpr (kShared) __syncwarp(group_mask<W>());
+        } else {
+          const int idx_min = idx_max - (__popc(leaf ^ (leaf + 1)) - 1) + 1;
+          for (int slot = idx_min; slot <= idx_max; ++slot) {
+            float dx[D];
 #pragma unroll
-    for (int d = 0; d < D; ++d) dx[d] = xp[d] - xm[d];
-    if (sstop || dot_im<D>(dx, im, rm) < 0.0f || dot_im<D>(dx, im, rp) < 0.0f) {
-      stopped = true;
-      break;
+            for (int d = 0; d < D; ++d) dx[d] = direction * (x1[d] - ck_x[slot * D + d]);
+            turned = turned || dot_im<D>(dx, im, ck_r + slot * D) < 0.0f ||
+                     dot_im<D>(dx, im, r1) < 0.0f;
+          }
+        }
+        sstop = div || turned;
+        copy<D>(x, x1);
+        copy<D>(r, r1);
+        copy<D>(g, g1);
+      }
+
+      if (back) {
+        copy<D>(xm, x); copy<D>(rm, r); copy<D>(gm, g);
+      } else {
+        copy<D>(xp, x); copy<D>(rp, r); copy<D>(gp, g);
+      }
+      if (!sstop && draws.uniform(kAccept, depth, 0) * n < nsub) {
+        copy<D>(xs, xpr);
+        copy<D>(rs, rpr);
+        lps = lppr;
+      }
+      n = n + nsub;
+      depth_done = depth_done + 1.0f;
+      if constexpr (kShared) __syncwarp(group_mask<W>());
+
+      float dx[D];
+#pragma unroll
+      for (int d = 0; d < D; ++d) dx[d] = xp[d] - xm[d];
+      if (sstop || dot_im<D>(dx, im, rm) < 0.0f || dot_im<D>(dx, im, rp) < 0.0f) {
+        stopped = true;
+        break;
+      }
     }
   }
 
@@ -510,10 +709,12 @@ constexpr auto tree_kernel() {
   }
 }
 
-// Dynamic shared memory of a block: the model's data, then each group's.
+// Dynamic shared memory of a block: the model's data, then each group's, or
+// each thread's stack of the pipelined walk.
 template <class Model, int kBlock>
 size_t block_smem(int n_data) {
-  return static_cast<size_t>(n_data + kBlock / GroupWidth<Model>::value * group_floats<Model>()) *
+  return static_cast<size_t>(n_data + kBlock / GroupWidth<Model>::value * group_floats<Model>() +
+                             kBlock * thread_floats<Model>()) *
          sizeof(float);
 }
 

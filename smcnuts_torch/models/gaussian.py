@@ -17,6 +17,12 @@ from torch import nn
 
 from .base import LOG_SQRT_2PI
 
+# Threads a block of the Gaussian's CUDA entries (kGaussianBlock of
+# csrc/nuts_tree.cu; the library load checks it): the pipelined walk keeps
+# each thread's checkpoint stack in shared memory, 28,160 bytes a block at
+# D = 5.
+BLOCK = 64
+
 
 def _log_norm_const(var: np.ndarray) -> float:
     """-0.5 sum log var - D log sqrt(2 pi), in var's own precision as the JAX
@@ -30,10 +36,11 @@ class GaussianModel(nn.Module):
     float32."""
 
     name = "gaussian"
-    # `chip_smoke.py` timed the single kernel and six split tuples at 51,200
-    # lanes (D = 3, step 0.5, depth 5) on an NVIDIA H100, 700 W: the fastest
-    # tuple (0.195 ms) lay within the single kernel's own two readings (0.204
-    # and 0.226 ms). No hint.
+    # `chip_smoke.py` phase 8 timed the single kernel (the pipelined walk)
+    # and six split tuples at 51,200 lanes (100 x 512, D = 3, step 0.5,
+    # depth 5) on an NVIDIA H100, 700 W: the single kernel was the fastest
+    # (0.0361 and 0.0359 ms; the best split, after doubling 2, 0.0385 ms).
+    # No hint.
     compaction_hint = ()
     compaction_hint_adapted = ()
 
