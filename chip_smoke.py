@@ -6,7 +6,7 @@
     (phase keys: arma, prmwcd, main, batched, staged_times, cli, autodiff,
     gaussian, logistic, eightschools (phase 8 for one model alone),
     strategies, fused_kernel, eager, unfused, wide_eager, generated, runner,
-    stan; device, build and peak always run first)
+    stan, solvers; device, build and peak always run first)
 
 Phases, each printing its own lines; any failure raises (non-zero exit):
 
@@ -165,7 +165,7 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
    eager tree's block), 12,800 and 1,048,576 lanes; the device-alone time
    beside torch.profiler's device time of the same launches. (b) The
    slice's path, run_smc_batched(make_arma(fused="cuda"), eager,
-   fused_epilogue=False) at 25 x 512 x K=100, depth 10, blocks of 4,096: K5
+   fused_epilogue=False) at 25 x 512 x K=30 (EAGER_K), depth 10, blocks of 4,096: K5
    launched once per model evaluation of the tree, the whole-tree kernel and
    the plain K5 never; finite series, the PARITY bands, runs 0 and 24 equal
    their single runs; wall, and the profile of 2 iterations; then 3
@@ -259,6 +259,33 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
    --step-size 0.05` (K launches, the JAX CLI's keys) and the same without
    --stan-tile at K=10 (eager, no launch), each with acceptance above 0 and
    a final ESS below N (the particles moved).
+
+solvers. float64 on the card, the rest of the Stan frontend, the special
+   functions of the generated lowering. (a), after phase 2b: lv_rk4 and the
+   five special-function programs (STAN_PROGRAMS) traced with tile=True,
+   in worker processes three at once, and each library's nvcc started as its
+   trace ends, beside the later phases. Then: arma in float64 on the eager
+   tree (F64_RUNS x F64_N x K=F64_K, depth F64_DEPTH, with and without
+   tempering): float64 throughout, no NUTS kernel and no K5 launch, finite
+   series, the float32 kernel run's moments inside the float64 runs' Monte
+   Carlo spread, the float64 draws on the card equal to the CPU's; (b)
+   lv_rk45 (the adaptive solver and its adjoint) eager in float64, one run
+   at LV_EAGER_N x K=LV_EAGER_K, depth LV_EAGER_DEPTH, started around the
+   data's generating values: finite, no kernel launch, the model calls an
+   iteration; logp and gradient at LV_CHECK_N particles equal to the CPU's
+   float64 values at rtol 1e-10, RK steps a particle and seconds a
+   logp_and_grad call at LV_TIMED_N; (c) lv_rk4 (ode_rk4 at LV_RK4_STEPS
+   steps a year, K7r) at 25 x 512 x K=100: K dispatches, no plain call,
+   runs 0 and 24 equal their single runs; then on the population it ended
+   with, the kernel against its plain version at 25 x 512 x depth 10, zero
+   bits and Philox, to the bit (the plain program replayed as a CUDA graph,
+   held to the program op by op), both timed there, and the kernel's
+   bound; (d) the five special-function programs (N = 200): each kernel
+   against its plain version likewise on a cloud around its generating
+   values, timed, and a run at 25 x 512 x K=SPECIAL_K (its launches); the
+   libdevice calls they emit (cos, sin, erf, erfc, lgamma) equal to torch's op on every float32 of the range the
+   densities use (`ops.generated.libdevice_unary`), timed beside torch's
+   op (a measurement entry).
 
 The line before the last two repeats the card's name and power limit, the
 second-to-last line is a JSON object describing the kernels (for each: the
@@ -2077,6 +2104,12 @@ def arma_fused_kernel_phase(smi):
     return k5, witness
 
 
+# 10b's iterations: on an NVIDIA H100 80GB HBM3 at 700 W the eager path at
+# K=100 took 88 s and its two single runs 40 more (PERF.md); the same checks
+# at K=30 leave time for phase `solvers`.
+EAGER_K = 30
+
+
 def eager_config(**kw):
     from smcnuts_torch import SMCConfig
 
@@ -2087,8 +2120,8 @@ def eager_config(**kw):
 
 def eager_arma_phase(smi):
     """10b: the slice's path at full width, run_smc_batched(make_arma(
-    fused="cuda"), eager, fused_epilogue=False) with 25 runs x 512 x K=100 at
-    the default eager_block_size: K5 launched once per model evaluation of
+    fused="cuda"), eager, fused_epilogue=False) with 25 runs x 512 x
+    K=EAGER_K at the default eager_block_size: K5 launched once per model evaluation of
     the tree, the whole-tree kernel and the plain K5 never; finite series,
     the PARITY bands, runs 0 and 24 equal to their single runs. Then 3
     iterations against the plain ARMA loop (fused=None). Returns K5's
@@ -2101,34 +2134,36 @@ def eager_arma_phase(smi):
     from smcnuts_torch.ops.nuts_cuda import nuts_tree_plain
     from smcnuts_torch.utils.timing import CudaTimer
 
-    phase(f"10b. eager arma path with K5, {RUNS} runs x N={N} x K={K}")
-    cfg = eager_config()
+    phase(f"10b. eager arma path with K5, {RUNS} runs x N={N} x K={EAGER_K}")
+    cfg = dataclasses.replace(eager_config(), n_iterations=EAGER_K)
     label = "arma eager, fused=\"cuda\", unfused proposal"
     reset_counts()
     t0 = time.perf_counter()
     with CudaTimer() as t:
         res = run_smc_batched(make_arma(fused="cuda"), cfg, SEEDS, "cuda")
-        res.mean_estimate[:, K].cpu()
+        res.mean_estimate[:, EAGER_K].cpu()
     host_s = time.perf_counter() - t0
     counts, plain_calls = read_counts()
     k5, evals = arma_ll_vg.launches, nuts_tree_plain.model_calls
     print(f"{label}: K5 launches {k5}, model evaluations of the tree {evals}, "
           f"plain tree calls {plain_calls}, whole-tree kernel {counts}, plain K5 "
           f"calls {arma_ll_vg_plain.calls}")
-    if not (k5 == evals > 0 and plain_calls == K and sum(counts.values()) == 0
+    if not (k5 == evals > 0 and plain_calls == EAGER_K and sum(counts.values()) == 0
             and arma_ll_vg_plain.calls == 0):
         raise AssertionError(f"{label}: K5 must run every model evaluation of the "
                              f"eager tree, and nothing else may run")
-    check_series(label, res, K)
+    check_series(label, res, EAGER_K)
     print(f"{label}: wall {t.ms:.1f} ms (CUDA events, results on the host; host "
-          f"clock {host_s:.3f} s), {t.ms / K:.1f} ms an iteration, "
-          f"{RUNS * N * K / (t.ms / 1000.0):.0f} particle-iterations/s, "
-          f"{k5 / K:.1f} K5 launches an iteration ({smi})")
-    print(f"{label}: mean tree depth {float(res.tree_depth[:, :K].mean()):.3f}, "
-          f"leapfrogs per particle-iteration {float(res.tree_leapfrogs[:, :K].mean()):.2f}, "
-          f"acceptance {float(res.acceptance_rate[:, :K].mean()):.3f}, resampled "
-          f"{int(res.resampled.sum())}/{RUNS * K}")
-    parity_bands(label, "arma", res.mean_estimate[:, K].cpu(), res.variance_estimate[:, K])
+          f"clock {host_s:.3f} s), {t.ms / EAGER_K:.1f} ms an iteration, "
+          f"{RUNS * N * EAGER_K / (t.ms / 1000.0):.0f} particle-iterations/s, "
+          f"{k5 / EAGER_K:.1f} K5 launches an iteration ({smi})")
+    print(f"{label}: mean tree depth {float(res.tree_depth[:, :EAGER_K].mean()):.3f}, "
+          f"leapfrogs per particle-iteration "
+          f"{float(res.tree_leapfrogs[:, :EAGER_K].mean()):.2f}, acceptance "
+          f"{float(res.acceptance_rate[:, :EAGER_K].mean()):.3f}, resampled "
+          f"{int(res.resampled.sum())}/{RUNS * EAGER_K}")
+    parity_bands(label, "arma", res.mean_estimate[:, EAGER_K].cpu(),
+                 res.variance_estimate[:, EAGER_K])
     for b in (0, RUNS - 1):
         diff = single_run_diff(run_smc(make_arma(fused="cuda"), cfg, SEEDS[b], "cuda"),
                                res, b)
@@ -2402,6 +2437,7 @@ def generated_kernel_case(label, model, hand, x, step, smi):
     for source in (ZERO_BITS, PHILOX):
         args = (x, seeds, step, 1.0, ones, MAX_DEPTH, source)
         out_k = nuts_tree(model, *args)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         out_p = nuts_tree_plain(model, *args)
         torch.cuda.synchronize()
@@ -2433,7 +2469,9 @@ def generated_kernel_case(label, model, hand, x, step, smi):
               f"{float((out_k[0] - out_h[0]).abs().max()):.3g}, max |delta_h diff| "
               f"{float((out_k[2]['delta_h'] - out_h[2]['delta_h']).abs().nan_to_num().max()):.3g}")
         if source == PHILOX:
-            plain_ms = median_ms(lambda: nuts_tree_plain(model, *args), repeats=1, warmup=0)
+            # The Philox call above, timed on the host after a synchronize
+            # (one call takes seconds).
+            plain_ms = 1e3 * plain_s
             single = out_k
     times = {"hand": [], "generated": []}
     for who in ("hand", "generated", "generated", "hand"):
@@ -2454,15 +2492,18 @@ def generated_kernel_case(label, model, hand, x, step, smi):
             **bound}
 
 
-def generated_builds(label, model, others, hand, x, step, smi, same_program=True):
+def generated_builds(label, model, others, hand, x, step, smi, same_program=True,
+                     main_plain_ms=None):
     """Other builds of one generated density (`others`: a readable name ->
-    a CallableModel of the same density, each its own library): each equal
-    to its plain program to the bit, and with `same_program` (the same
-    program in another emission order) to `model`'s kernel too, under zero
-    bits and Philox at 25 x 512 x depth 10; then every build, `model` and the
-    hand kernel timed in turns (the device alone, median of VARIANT_ROUNDS).
-    Returns the kernels-line row of each of `others` (name -> row), each a
-    measurement entry that the main path never launches."""
+    a CallableModel of the same density, each its own library), under zero
+    bits and Philox at 25 x 512 x depth 10: with `same_program` (the same
+    program in another emission order) each equal to `model`'s kernel to the
+    bit, which generated_kernel_case held to their one plain program
+    (main_plain_ms its time); else each equal to its own plain program to
+    the bit. Then every build, `model` and the hand kernel timed in turns
+    (the device alone, median of VARIANT_ROUNDS). Returns the kernels-line
+    row of each of `others` (name -> row), each a measurement entry that
+    the main path never launches."""
     from smcnuts_torch.ops.draws import PHILOX, ZERO_BITS
     from smcnuts_torch.ops.nuts_cuda import nuts_tree, nuts_tree_plain
     from smcnuts_torch.utils.timing import CudaTimer, median_ms
@@ -2476,21 +2517,24 @@ def generated_builds(label, model, others, hand, x, step, smi, same_program=True
         main = nuts_tree(model, *args) if same_program else None
         for who, other in others.items():
             out = nuts_tree(other, *args)
-            with CudaTimer() as t:
-                plain = nuts_tree_plain(other, *args)
-            err = check_outputs(f"{label} {who} [{source}] kernel vs plain", out, plain,
-                                nan_lanes=True, bitwise=True)
             if same_program:
                 diff = bitwise_differences(out, main)
                 if diff:
                     raise AssertionError(f"{label} {who} [{source}]: differs from the "
                                          f"main build's kernel in {diff}")
-            print(f"{label} {who} [{source}]: equal to its plain program"
-                  + (" and to the main build's kernel" if same_program else "")
-                  + " to the bit")
+                err, ms = 0.0, main_plain_ms
+                print(f"{label} {who} [{source}]: equal to the main build's kernel, and so "
+                      f"to their plain program, to the bit")
+            else:
+                with CudaTimer() as t:
+                    plain = nuts_tree_plain(other, *args)
+                err = check_outputs(f"{label} {who} [{source}] kernel vs plain", out, plain,
+                                    nan_lanes=True, bitwise=True)
+                ms = t.ms
+                print(f"{label} {who} [{source}]: equal to its plain program to the bit")
             errs[who].append(err)
             if source == PHILOX:
-                plain_ms[who], outs[who] = t.ms, out
+                plain_ms[who], outs[who] = ms, out
     calls = {"hand": lambda: nuts_tree(hand, *args),
              "main": lambda: nuts_tree(model, *args)}
     calls.update({who: (lambda m=m: nuts_tree(m, *args)) for who, m in others.items()})
@@ -2532,12 +2576,15 @@ def generated_split(label, model, hand, cfg, smi):
 
 def generated_phase(smi):
     """Phase 11: returns what the kernels line says of K7f and K7r."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from smcnuts_torch import SMCConfig, run_smc, run_smc_batched
     from smcnuts_torch.models import get_model
     from smcnuts_torch.models.arma import arma_model_fwd
     from smcnuts_torch.models.base import CallableModel
     from smcnuts_torch.models.eightschools import make_eightschools_generated
     from smcnuts_torch.ops.draws import PHILOX
+    from smcnuts_torch.ops.generated import build_generated
     from smcnuts_torch.ops.nuts_cuda import build_library, nuts_tree
 
     phase("11. user-written densities: generated in-kernel models (K7f, K7r)")
@@ -2559,6 +2606,12 @@ def generated_phase(smi):
     require_rerolled("K7f arma", arma.tile_model)
     others = {"straight-line": arma_model_fwd(reroll=False).to(dev),
               "built order": arma_model_fwd(order="built").to(dev)}
+    # The five libraries' nvcc at once (~7 s each alone); generated_build
+    # then reports each.
+    with ThreadPoolExecutor(5) as pool:
+        list(pool.map(lambda m: build_generated(m.tile_model),
+                      (arma, others["straight-line"], others["built order"], schools,
+                       schools_w2)))
     generated_build("K7f arma", arma)
     generated_build("K7f arma, straight-line (the witness)", others["straight-line"])
     generated_build("K7f arma, built order (the witness)", others["built order"])
@@ -2573,7 +2626,7 @@ def generated_phase(smi):
     k7f = generated_kernel_case("K7f arma", arma, get_model("arma").to(dev), x_arma,
                                 STEP, smi)
     k7f_witnesses = generated_builds("K7f arma", arma, others, get_model("arma").to(dev),
-                                     x_arma, STEP, smi)
+                                     x_arma, STEP, smi, main_plain_ms=k7f["plain_ms"])
     es = AUTODIFF_MODELS["eightschools"]
     x_schools = autodiff_cloud("eightschools", (RUNS, N), 5, dev)
     k7r = generated_kernel_case("K7r eight schools", schools,
@@ -2903,14 +2956,228 @@ model {
   target += phi * (normal_lpdf(e | 0, s) + acc);
 }
 """
+# The Stan case study's Lotka-Volterra model (N = 20 years of two species,
+# D = 8, its priors), in the new ODE interface; `{solver}` is the call:
+# lv_rk45 the adaptive solver (eager), lv_rk4 fixed-step RK4 at LV_RK4_STEPS
+# steps a year (the kernel). The trajectory z is the model block's (the
+# case study's transformed parameter): `constrain`, which the sampler calls
+# every iteration for the estimates, then solves no ODE, and a prior draw
+# whose RK4 trajectory overflows float32 leaves no infinite estimate (a
+# zero weight times an infinite value is NaN in the weighted mean).
+LV_PROGRAM = """
+functions {
+  vector dz_dt(real t, vector z, array[] real theta) {
+    real u = z[1];
+    real v = z[2];
+    vector[2] dz;
+    dz[1] = (theta[1] - theta[2] * v) * u;
+    dz[2] = (-theta[3] + theta[4] * u) * v;
+    return dz;
+  }
+}
+data {
+  int<lower=0> N;
+  array[N] real ts;
+  array[2] real y_init;
+  array[N, 2] real<lower=0> y;
+}
+parameters {
+  array[4] real<lower=0> theta;
+  vector<lower=0>[2] z_init;
+  array[2] real<lower=0> sigma;
+}
+model {
+  array[N] vector[2] z = {solver};
+  theta[{1, 3}] ~ normal(1, 0.5);
+  theta[{2, 4}] ~ normal(0.05, 0.05);
+  sigma ~ lognormal(-1, 1);
+  z_init ~ lognormal(log(10), 1);
+  for (k in 1:2) {
+    y_init[k] ~ lognormal(log(z_init[k]), sigma[k]);
+    y[:, k] ~ lognormal(log(z[:, k]), sigma[k]);
+  }
+}
+"""
+# The smallest steps a year whose RK4 solution is within 1e-4 relative of
+# lv_rk45's on the median of 1,024 prior draws
+# (experiments/lv_rk4_steps_torch.py; PERF.md).
+LV_RK4_STEPS = 12
+# The case study's posterior means, which lv_data's counts are drawn around.
+LV_TRUTH = (0.55, 0.028, 0.80, 0.024, 33.9, 5.9, 0.25, 0.25)
+
+
+def lv_data(seed=0):
+    """N = 20 yearly counts of both species and the initial state: the
+    trajectory from LV_TRUTH by RK4 at 1,000 steps a year, times lognormal
+    noise of sd 0.25 drawn from a numpy seed (tests/test_torch_stan_solvers.py
+    makes the same data)."""
+    import numpy as np
+
+    a, b, c, d, u0, v0 = LV_TRUTH[:6]
+    z = np.array([u0, v0])
+
+    def f(z):
+        return np.array([(a - b * z[1]) * z[0], (-c + d * z[0]) * z[1]])
+
+    h, zs = 1e-3, []
+    for _ in range(20):
+        for _ in range(1000):
+            k1 = f(z)
+            k2 = f(z + h / 2 * k1)
+            k3 = f(z + h / 2 * k2)
+            k4 = f(z + h * k3)
+            z = z + h / 6 * (k1 + 2 * k2 + 2 * k3 + k4)
+        zs.append(z)
+    rng = np.random.default_rng(seed)
+    y = np.array(zs) * np.exp(0.25 * rng.normal(size=(20, 2)))
+    y_init = np.array([u0, v0]) * np.exp(0.25 * rng.normal(size=2))
+    return {"N": 20, "ts": [float(t) for t in range(1, 21)], "y_init": y_init.tolist(),
+            "y": y.tolist()}
+
+
+# The five programs of the special functions (N = 200 observations each, made
+# from a numpy seed; tests/test_torch_stan_special.py holds the same at
+# N = 24): von Mises with unknown mu and kappa (cos, sin, i0e, i1e),
+# skew-normal regression and exp-modified-normal reaction times (log_ndtr of
+# a parameter), student-t regression with unknown nu (lgamma of a parameter,
+# digamma), probit regression with K = 5 covariates (Phi of a parameter, erf).
+SPECIAL_N = 200
+VON_MISES = """
+data { int<lower=1> N; vector[N] y; }
+parameters { real mu; real<lower=0> kappa; }
+model {
+  mu ~ normal(0, 1);
+  kappa ~ gamma(2, 0.5);
+  y ~ von_mises(mu, kappa);
+}
+"""
+SKEW_NORMAL = """
+data { int<lower=1> N; vector[N] x; vector[N] y; }
+parameters { real a; real b; real<lower=0> omega; real alpha; }
+model {
+  a ~ normal(0, 5);
+  b ~ normal(0, 5);
+  omega ~ normal(0, 2);
+  alpha ~ normal(0, 3);
+  y ~ skew_normal(a + b * x, omega, alpha);
+}
+"""
+STUDENT_T = """
+data { int<lower=1> N; vector[N] x; vector[N] y; }
+parameters { real a; real b; real<lower=0> sigma; real<lower=1> nu; }
+model {
+  a ~ normal(0, 5);
+  b ~ normal(0, 5);
+  sigma ~ normal(0, 2);
+  nu ~ gamma(2, 0.1);
+  y ~ student_t(nu, a + b * x, sigma);
+}
+"""
+PROBIT = """
+data { int<lower=1> N; int<lower=1> K; matrix[N, K] X; array[N] int<lower=0, upper=1> y; }
+parameters { real alpha; vector[K] beta; }
+model {
+  alpha ~ normal(0, 2);
+  beta ~ normal(0, 1);
+  y ~ bernoulli(Phi(alpha + X * beta));
+}
+"""
+EXP_MOD_NORMAL = """
+data { int<lower=1> N; vector[N] rt; }
+parameters { real mu; real<lower=0> sigma; real<lower=0> lambda; }
+model {
+  mu ~ normal(0.5, 0.5);
+  sigma ~ normal(0, 0.5);
+  lambda ~ gamma(2, 0.5);
+  rt ~ exp_mod_normal(mu, sigma, lambda);
+}
+"""
+
+
+def von_mises_data(seed=0, n=SPECIAL_N):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return {"N": n, "y": rng.vonmises(0.5, 4.0, n).tolist()}
+
+
+def skew_normal_data(seed=0, n=SPECIAL_N):
+    """y = 0.3 + 0.8 x + 0.7 z, z skew-normal of shape 3."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=n)
+    delta = 3.0 / np.sqrt(1 + 3.0 ** 2)
+    z = delta * np.abs(rng.normal(size=n)) + np.sqrt(1 - delta ** 2) * rng.normal(
+        size=n)
+    return {"N": n, "x": x.tolist(), "y": (0.3 + 0.8 * x + 0.7 * z).tolist()}
+
+
+def student_t_data(seed=0, n=SPECIAL_N):
+    """y = 0.3 + 0.8 x + 0.5 t, t student-t of 4 degrees of freedom."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=n)
+    return {"N": n, "x": x.tolist(),
+            "y": (0.3 + 0.8 * x + 0.5 * rng.standard_t(4.0, n)).tolist()}
+
+
+def probit_data(seed=0, n=SPECIAL_N, k=5):
+    """y ~ bernoulli(Phi(0.2 + X beta)), beta = (0.5, -1, 0.3, 0.8, -0.4)."""
+    from math import erf, sqrt
+
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n, k))
+    eta = 0.2 + x @ np.array([0.5, -1.0, 0.3, 0.8, -0.4])
+    p = 0.5 * (1 + np.vectorize(erf)(eta / sqrt(2)))
+    return {"N": n, "K": k, "X": x.tolist(),
+            "y": (rng.uniform(size=n) < p).astype(int).tolist()}
+
+
+def exp_mod_normal_data(seed=0, n=SPECIAL_N):
+    """Reaction times in seconds: normal(0.4, 0.05) plus exponential of rate 5."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return {"N": n,
+            "rt": (rng.normal(0.4, 0.05, n) + rng.exponential(1 / 5.0, n))
+            .tolist()}
+
+
+K7R = "smcnuts_tpu/ops/nuts_pallas.py:1126"
+K7F = "smcnuts_tpu/ops/nuts_pallas.py:1674"
+# phase: 13, or "solvers". source and data: a program kept here (a string
+# with its data recipe), else `path`. The steps of phase `solvers`' programs
+# are the largest of 0.02, 0.05, 0.1 and 0.2 with an acceptance above 0.5
+# at 25 x 512 x K=30 on the card (experiments/stan_step_sizes_torch.py;
+# PERF.md §6), lv_rk45 taking lv_rk4's.
 STAN_PROGRAMS = {
     "radon_intercepts": dict(path="examples/stan/radon_intercepts.stan", step=0.05,
-                             mode="reverse", replaces="smcnuts_tpu/ops/nuts_pallas.py:1126"),
+                             mode="reverse", replaces=K7R, phase=13),
     "irt_ar": dict(path="examples/stan/irt_ar.stan", step=0.1, mode="forward",
-                   replaces="smcnuts_tpu/ops/nuts_pallas.py:1674"),
-    "ar1_errors_t200": dict(path=None, step=0.05, mode="forward",
-                            replaces="smcnuts_tpu/ops/nuts_pallas.py:1674"),
+                   replaces=K7F, phase=13),
+    "ar1_errors_t200": dict(path=None, step=0.05, mode="forward", replaces=K7F, phase=13),
+    "lv_rk45": dict(source=LV_PROGRAM.replace("{solver}", "ode_rk45(dz_dt, z_init, 0, ts, theta)"),
+                    data=lv_data, step=0.02, mode=None, replaces=None, phase="solvers"),
+    "lv_rk4": dict(source=LV_PROGRAM.replace(
+                       "{solver}", f"ode_rk4(dz_dt, z_init, 0, ts, {LV_RK4_STEPS}, theta)"),
+                   data=lv_data, step=0.02, mode="reverse", replaces=K7R, phase="solvers"),
+    "von_mises": dict(source=VON_MISES, data=von_mises_data, step=0.05, mode="reverse",
+                      replaces=K7R, phase="solvers"),
+    "skew_normal": dict(source=SKEW_NORMAL, data=skew_normal_data, step=0.02, mode="reverse",
+                        replaces=K7R, phase="solvers"),
+    "student_t": dict(source=STUDENT_T, data=student_t_data, step=0.05, mode="reverse",
+                      replaces=K7R, phase="solvers"),
+    "probit": dict(source=PROBIT, data=probit_data, step=0.05, mode="reverse",
+                   replaces=K7R, phase="solvers"),
+    "exp_mod_normal": dict(source=EXP_MOD_NORMAL, data=exp_mod_normal_data, step=0.02,
+                           mode="reverse", replaces=K7R, phase="solvers"),
 }
+STAN_PHASE13 = tuple(n for n, p in STAN_PROGRAMS.items() if p["phase"] == 13)
+SPECIAL_PROGRAMS = ("von_mises", "skew_normal", "student_t", "probit", "exp_mod_normal")
 STAN_EAGER_RUNS, STAN_EAGER_K = 5, 20  # the eager radon run and its kernel twin
 STAN_CLI_EAGER_K = 10
 
@@ -2921,6 +3188,8 @@ def stan_source(name):
 
     from smcnuts_torch.stan import load_stan_data
 
+    if "source" in STAN_PROGRAMS[name]:
+        return STAN_PROGRAMS[name]["source"], STAN_PROGRAMS[name]["data"]()
     path = STAN_PROGRAMS[name]["path"]
     if path is None:
         y = np.random.default_rng(3).normal(size=200)
@@ -2976,7 +3245,7 @@ def stan_prepare(smi):
     started = time.perf_counter()
     dev = torch.device("cuda")
     models, eager_models = {}, {}
-    for name in STAN_PROGRAMS:
+    for name in STAN_PHASE13:
         src, data = stan_source(name)
         t0 = time.perf_counter()
         parse(src)
@@ -3224,7 +3493,375 @@ def stan_witness(name, model, witness, build, x, step, row, smi):
     return {**row, "ms": med["re-rolled"]}, witness_row
 
 
-def partial_run(only, smi, stan_prep):
+# ---- phase `solvers`: float64 runs on the card (the eager backend), the
+# Stan frontend's ODE solvers, and the special functions of the generated
+# lowering (K7r).
+
+# arma in float64 on the eager tree: tests/test_float64.py:30's 256
+# particles, 5 runs, reduced from its K=20 to K=10 and to depth 5 (the eager
+# tree with the plain ARMA model took 3.4 s an iteration at 25 x 512, depth
+# 10, on an NVIDIA H100 80GB HBM3 at 700 W; PERF.md).
+F64_RUNS, F64_N, F64_K, F64_DEPTH = 5, 256, 10, 5
+# lv_rk45 on the eager backend in float64: reduced from the main path's 25 x
+# 512 x K=100 at depth 10 to one run of 64 x K=2 at depth 3, started around
+# the data's generating values. Each logp_and_grad call solves the ODE and
+# its adjoint under a host loop a step, so a call costs seconds whatever the
+# lanes: 1 x 256 x K=2 at depth 3 took 208 s, 16 calls an iteration at 6.5 s
+# each (NVIDIA H100 80GB HBM3, 700 W; PERF.md).
+LV_EAGER_N, LV_EAGER_K, LV_EAGER_DEPTH, LV_CHECK_N, LV_TIMED_N = 64, 2, 3, 64, 256
+SPECIAL_K = 10  # the short main-path run of each special-function program
+# The float32 inputs each libdevice call is swept over, every one of them:
+# the ranges the densities use.
+LIBDEVICE_RANGES = {"cos": (-50.0, 50.0), "sin": (-50.0, 50.0), "erf": (-10.0, 10.0),
+                    "erfc": (-10.0, 10.0), "lgamma": (0.0, 1e4)}
+SOLVER_TILE = ("lv_rk4",) + SPECIAL_PROGRAMS
+# The spread of the special programs' clouds around their generating values
+# (unconstrained): probit's eta stays within float32's Phi < 1.
+SPECIAL_SPREAD = {"probit": 0.1}
+SPECIAL_TRUTH = {
+    "von_mises": (0.5, math.log(4.0)),
+    "skew_normal": (0.3, 0.8, math.log(0.7), 3.0),
+    "student_t": (0.3, 0.8, math.log(0.5), math.log(3.0)),
+    "probit": (0.2, 0.5, -1.0, 0.3, 0.8, -0.4),
+    "exp_mod_normal": (0.4, math.log(0.05), math.log(5.0)),
+}
+
+
+def trace_program(name):
+    """In a worker process: compile STAN_PROGRAMS[name] with tile=True on the
+    CPU; returns (its generated program, mode, seconds)."""
+    from smcnuts_torch.stan import compile_stan_program
+
+    torch.set_num_threads(1)
+    src, data = stan_source(name)
+    t0 = time.perf_counter()
+    tm = compile_stan_program(src, data, name=name, tile=True).tile_model
+    return tm.program, tm.autodiff, time.perf_counter() - t0
+
+
+def solvers_prepare(smi):
+    """Phase `solvers` (a), run after phase 2b (phase 2's build keeps its
+    minute): lv_rk4 and the five special programs traced (tile=True) in
+    worker processes, three at once, and each library's nvcc started in a
+    thread as its trace ends, so that both run beside the later phases.
+    Returns what solvers_phase takes."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
+
+    from smcnuts_torch.ops.generated import GeneratedModel, build_generated
+
+    phase("solvers (a). lv_rk4 and the special-function programs: traced in processes, "
+          "their nvcc started in the background")
+    started = time.perf_counter()
+    # Three at once: the card's machine has 8 cores, and the phases that run
+    # beside them time their host.
+    procs = ProcessPoolExecutor(3, mp_context=multiprocessing.get_context("spawn"))
+    traces = {name: procs.submit(trace_program, name) for name in SOLVER_TILE}
+
+    def build(name):
+        program, mode, seconds = traces[name].result()
+        gm = GeneratedModel(program, mode, name)
+        return gm, seconds, build_generated(gm)
+
+    threads = ThreadPoolExecutor(len(SOLVER_TILE))
+    builds = {name: threads.submit(build, name) for name in SOLVER_TILE}
+    print(f"(a) {len(SOLVER_TILE)} traces and builds started ({smi})")
+    return dict(builds=builds, procs=procs, threads=threads, started=started)
+
+
+def solver_model(name, gm=None):
+    """STAN_PROGRAMS[name] compiled on the card, eager, with the generated
+    model gm (traced in solvers_prepare) attached."""
+    from smcnuts_torch.stan import compile_stan_program
+
+    src, data = stan_source(name)
+    m = compile_stan_program(src, data, name=name)
+    if gm is not None:
+        m.tile_model = gm
+    return m.to(torch.device("cuda"))
+
+
+def float64_eager_phase(smi):
+    """(a) arma in float64 on the card through the eager tree ("auto"), with
+    and without tempering, beside the float32 kernel run of the same
+    configuration: float64 throughout, no NUTS kernel and no K5 launch,
+    finite series, the float32 moments inside the float64 runs' Monte Carlo
+    spread (tests/test_float64.py's bound); the float64 draws on the card
+    equal the CPU's."""
+    import dataclasses
+
+    from smcnuts_torch import SMCConfig, run_smc_batched
+    from smcnuts_torch.models import get_model
+    from smcnuts_torch.ops.arma_fused import arma_ll_vg
+    from smcnuts_torch.ops.draws import LEAF, PHILOX, TreeDraws
+    from smcnuts_torch.ops.nuts_cuda import nuts_tree
+    from smcnuts_torch.utils.timing import CudaTimer
+
+    seeds = [7 * (i + 1) for i in range(F64_RUNS)]
+    for tempering in (False, True):
+        cfg = SMCConfig(n_particles=F64_N, n_iterations=F64_K, step_size=STEP,
+                        max_tree_depth=F64_DEPTH, dtype="float64", tempering=tempering,
+                        save_history=False)
+        label = f"(a) arma float64, {F64_RUNS} x {F64_N} x K={F64_K}, depth {F64_DEPTH}, " + (
+            "tempered" if tempering else "forwards")
+        res = {}
+        for dtype in ("float64", "float32"):
+            reset_counts()
+            with CudaTimer() as t:
+                res[dtype] = run_smc_batched(get_model("arma"),
+                                             dataclasses.replace(cfg, dtype=dtype), seeds, "cuda")
+                res[dtype].mean_estimate[:, -1].cpu()
+            check_series(f"{label} [{dtype}]", res[dtype], F64_K)
+            want = 0 if dtype == "float64" else F64_K
+            if nuts_tree.launches != want or arma_ll_vg.launches != 0:
+                raise AssertionError(f"{label} [{dtype}]: {nuts_tree.launches} NUTS kernel "
+                                     f"launches (expected {want}), {arma_ll_vg.launches} K5")
+            print(f"{label} [{dtype}]: wall {t.ms:.1f} ms (CUDA events), NUTS kernel "
+                  f"launches {nuts_tree.launches}, K5 launches {arma_ll_vg.launches} ({smi})")
+        wrong = [f for f, v in res["float64"]._asdict().items()
+                 if v is not None and v.is_floating_point() and v.dtype != torch.float64]
+        if wrong:
+            raise AssertionError(f"{label}: not float64: {wrong}")
+        m32, m64 = (res[d].mean_estimate[:, -1].double().cpu() for d in ("float32", "float64"))
+        v32, v64 = (res[d].variance_estimate[:, -1].double().cpu()
+                    for d in ("float32", "float64"))
+        se = (m32.var(0) / F64_RUNS + m64.var(0) / F64_RUNS).sqrt()
+        vse = (v32.var(0) / F64_RUNS + v64.var(0) / F64_RUNS).sqrt()
+        delta, vdelta = (m32.mean(0) - m64.mean(0)).abs(), (v32.mean(0) - v64.mean(0)).abs()
+        if not (bool((delta <= 4 * se + 1e-3).all())
+                and bool((vdelta <= 4 * vse + 0.05 * v64.mean(0).abs() + 1e-3).all())):
+            raise AssertionError(f"{label}: the float32 moments lie outside the float64 "
+                                 f"runs' spread: {delta.tolist()} against {se.tolist()}")
+        print(f"{label}: |float32 mean - float64 mean| {[round(float(v), 5) for v in delta]}, "
+              f"MC standard error {[round(float(v), 5) for v in se]}: inside 4 of them + 1e-3")
+    seed = torch.tensor([11, 12])
+    run, particle = torch.tensor([0, 0, 1, 1]), torch.tensor([0, 5, 2, 7])
+    draws = [TreeDraws(PHILOX, seed.to(d), run.to(d), particle.to(d), torch.float64)
+             .uniforms(LEAF, range(64), 0).cpu() for d in ("cpu", "cuda")]
+    if not torch.equal(*draws):
+        raise AssertionError("(a) the float64 draws on the card differ from the CPU's")
+    print("(a) the float64 draws on the card equal the CPU's, bit for bit")
+
+
+def lv_rk45_phase(smi):
+    """(b) lv_rk45 (the adaptive solver and its adjoint) on the eager
+    backend in float64: one run at LV_EAGER_N x K=LV_EAGER_K, depth
+    LV_EAGER_DEPTH; finite series, no kernel launch, its model calls; logp
+    and gradient at LV_CHECK_N particles equal to the CPU's float64 values
+    at rtol 1e-10; steps a solve and the seconds of a logp_and_grad call."""
+    from smcnuts_torch import DiagNormalProposal, SMCConfig, run_smc_batched
+    from smcnuts_torch.ops import ode
+    from smcnuts_torch.ops.nuts_cuda import nuts_tree, nuts_tree_plain
+    from smcnuts_torch.utils.timing import CudaTimer
+
+    name = "lv_rk45"
+    m = solver_model(name)
+    if not m.has_adaptive_solver:
+        raise AssertionError("(b) lv_rk45 must be marked for interpretation at every call")
+    cfg = SMCConfig(n_particles=LV_EAGER_N, n_iterations=LV_EAGER_K,
+                    step_size=STAN_PROGRAMS[name]["step"], max_tree_depth=LV_EAGER_DEPTH,
+                    dtype="float64")
+    # The initial particles around the data's generating values: the
+    # default proposal, N(0, I) on the unconstrained scale, puts beta and
+    # delta at ~1 (their prior's mean is 0.05), where the system is stiff
+    # and a solve takes thousands of steps.
+    start = DiagNormalProposal(8, mean=tuple(math.log(v) for v in LV_TRUTH),
+                               var=(0.01,) * 8)
+    reset_counts()
+    ode.solve_batched.steps = 0
+    with CudaTimer() as t:
+        res = run_smc_batched(m, cfg, [0], "cuda", sample_proposal=start)
+        res.mean_estimate[:, -1].cpu()
+    check_series("(b) lv_rk45", res, LV_EAGER_K)
+    calls, wall_s = nuts_tree_plain.model_calls, t.ms / 1e3
+    if nuts_tree.launches != 0 or res.x_final.dtype != torch.float64:
+        raise AssertionError(f"(b) lv_rk45: {nuts_tree.launches} kernel launches, "
+                             f"{res.x_final.dtype}")
+    print(f"(b) lv_rk45 eager float64, 1 x {LV_EAGER_N} x K={LV_EAGER_K}, depth "
+          f"{LV_EAGER_DEPTH}, step {cfg.step_size}, started around the generating values: "
+          f"wall {wall_s:.1f} s (CUDA events), "
+          f"no kernel launch, mean tree depth {float(res.tree_depth[:, :-1].mean()):.2f}, "
+          f"acceptance {float(res.acceptance_rate[:, :-1].mean()):.3f}, {calls} model calls "
+          f"in the trees ({calls / LV_EAGER_K:.1f} an iteration; at depth 6 up to 128), "
+          f"final means {[round(float(v), 4) for v in res.mean_estimate[0, -1]]} "
+          f"({smi})")
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    x = (torch.tensor(LV_TRUTH, dtype=torch.float64, device="cuda").log()
+         + 0.05 * torch.randn(LV_TIMED_N, 8, generator=gen, device="cuda",
+                              dtype=torch.float64))
+    phi = torch.ones(x.shape[0], dtype=x.dtype, device=x.device)
+    ode.solve_batched.steps = 0
+    with CudaTimer() as t:
+        m.logp_and_grad(x, phi)
+    steps = ode.solve_batched.steps / x.shape[0]
+    lp, g = m.logp_and_grad(x[:LV_CHECK_N], phi[:LV_CHECK_N])
+    m_cpu = solver_model(name).to("cpu")
+    lp_c, g_c = m_cpu.logp_and_grad(x[:LV_CHECK_N].cpu(), phi[:LV_CHECK_N].cpu())
+    if not (torch.allclose(lp.cpu(), lp_c, rtol=1e-10, atol=0)
+            and torch.allclose(g.cpu(), g_c, rtol=1e-10, atol=1e-12)):
+        raise AssertionError(f"(b) lv_rk45: the card's logp and gradient differ from the "
+                             f"CPU's beyond rtol 1e-10: {float((lp.cpu() - lp_c).abs().max())}")
+    print(f"(b) lv_rk45: a logp_and_grad call at {x.shape[0]} particles around the data's "
+          f"generating values {t.ms / 1e3:.2f} s (CUDA events), {steps:.1f} RK steps a "
+          f"particle (the solve and its adjoint's 20 intervals, accepted and rejected); at "
+          f"{LV_CHECK_N} of them logp and gradient equal the CPU's float64 values at rtol "
+          f"1e-10 ({smi})")
+
+
+def special_cloud(name, dev):
+    """RUNS x N points around a special program's generating values."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    truth = torch.tensor(SPECIAL_TRUTH[name], device=dev)
+    noise = torch.randn((RUNS, N, truth.numel()), generator=g, device=dev)
+    return (truth + SPECIAL_SPREAD.get(name, 0.3) * noise).contiguous()
+
+
+def solver_kernel_case(label, name, m, x, smi):
+    """A generated program's kernel against its plain version on x (RUNS x
+    N) at depth MAX_DEPTH, zero bits and Philox, to the bit; the plain
+    program replayed as a CUDA graph (`GeneratedModel._replay`) equal to
+    the program run op by op; the kernel's device time and the plain
+    version's at that shape, and the kernel's bound. Returns its row of the
+    kernels line (launches added later)."""
+    from smcnuts_torch.ops.draws import PHILOX, ZERO_BITS
+    from smcnuts_torch.ops.nuts_cuda import nuts_tree, nuts_tree_plain
+    from smcnuts_torch.utils.timing import CudaTimer
+
+    step = STAN_PROGRAMS[name]["step"]
+    ones = torch.ones(x.shape[-1], device=x.device)
+    seeds = torch.arange(RUNS, dtype=torch.int32, device=x.device)
+    worst, plain_ms = 0.0, {}
+    for source in (ZERO_BITS, PHILOX):
+        args = (x, seeds, step, 1.0, ones, MAX_DEPTH, source)
+        out_k = nuts_tree(m, *args)
+        with CudaTimer() as t:
+            out_p = nuts_tree_plain(m, *args)
+        plain_ms[source] = t.ms
+        worst = max(worst, check_outputs(
+            f"{label} [{source}] kernel vs plain, {RUNS} x {N} x depth {MAX_DEPTH}, plain "
+            f"{t.ms:.1f} ms", out_k, out_p, nan_lanes=True, bitwise=True))
+    gm, flat = m.tile_model, x.reshape(-1, x.shape[-1])
+    phi = torch.full((flat.shape[0],), 0.5, device=x.device)
+    gm.logp_and_grad(flat, phi)  # op by op if the lane count is new
+    replayed = gm.logp_and_grad(flat, phi)
+    if not all(torch.equal(u.view(torch.int32), v.view(torch.int32))
+               for u, v in zip(replayed, gm.graph(flat, phi))):
+        raise AssertionError(f"{label}: the plain program replayed as a CUDA graph differs "
+                             f"from the program run op by op")
+    times = kernel_times(lambda: nuts_tree(m, *args))
+    bound = tree_roofline("generated", nuts_tree(m, *args), model=m.tile_model)
+    print(f"{label} time, {RUNS} x {N} x depth {MAX_DEPTH}, step {step} [philox]: "
+          f"{times_text(times)}; plain {plain_ms[PHILOX]:.1f} ms (its program replayed as a "
+          f"CUDA graph, equal to the program op by op); {bound_text(bound)} "
+          f"({m.tile_model.n_ops} operations x the kernel's leapfrogs; {smi})")
+    return {"max_abs_err": worst, **times, "plain_ms": plain_ms[PHILOX], **bound}
+
+
+def float32_patterns(lo, hi):
+    """The bit patterns, as int64 ranges (first, last), of every float32 in
+    [lo, hi] (lo <= 0 <= hi): +0 up to hi, and -0 down to lo."""
+    def bits(v):
+        return int(torch.tensor([v], dtype=torch.float32).view(torch.int32).item())
+
+    parts = [(0, bits(hi))]
+    if lo < 0.0:
+        parts.append((1 << 31, (1 << 31) + bits(-lo)))
+    return parts
+
+
+def libdevice_phase(smi):
+    """(d) the libdevice calls the generated models emit for cos, sin, erf,
+    erfc and lgamma (`ops.generated.libdevice_unary`, csrc/libdevice_sweep.cu)
+    against ATen's CUDA op on every float32 of LIBDEVICE_RANGES, to the bit;
+    then timed at 2^26 inputs beside torch's op, the plain version and the
+    library call at once. Returns its row, a measurement entry."""
+    from smcnuts_torch.ops.generated import libdevice_unary
+    from smcnuts_torch.utils.timing import device_ms
+
+    dev = torch.device("cuda")
+    chunk = 1 << 27
+    for op, (lo, hi) in LIBDEVICE_RANGES.items():
+        fn, count = getattr(torch, op), 0
+        for first, last in float32_patterns(lo, hi):
+            for start in range(first, last + 1, chunk):
+                bits = torch.arange(start, min(start + chunk, last + 1), device=dev,
+                                    dtype=torch.int64)
+                x = bits.to(torch.int32).view(torch.float32)
+                got, want = libdevice_unary(op, x).view(torch.int32), fn(x).view(torch.int32)
+                if not torch.equal(got, want):
+                    raise AssertionError(f"(d) libdevice {op}: {int((got != want).sum())} "
+                                         f"inputs differ from torch.{op} on the card")
+                count += x.numel()
+        print(f"(d) libdevice {op}: equal to torch.{op} on the card on every float32 in "
+              f"[{lo}, {hi}], {count} values ({smi})")
+    x = torch.linspace(-50.0, 50.0, 1 << 26, device=dev)
+    times = kernel_times(lambda: libdevice_unary("cos", x))
+    torch_ms = device_ms(lambda: torch.cos(x), repeats=DEVICE_REPEATS)
+    bound = roofline(0.0, 8.0 * x.numel())
+    print(f"time libdevice cos, {x.numel()} values: {times_text(times)}, torch.cos "
+          f"{torch_ms:.4f} ms (device alone); {bound_text(bound)} (its bytes; {smi})")
+    return {"launches": 0, "measurement_entry": True, "max_abs_err": 0.0, **times,
+            "plain_ms": torch_ms, "library_ms": torch_ms, **bound}
+
+
+def solvers_phase(smi, prep):
+    """Phase `solvers`: (a) float64 arma on the eager tree; (b) lv_rk45 eager
+    in float64; (c) lv_rk4 through the generated kernel (K7r): a run at RUNS x
+    N x K=K (K dispatches, no plain call), then the kernel against its plain
+    version on the population it ended with; (d) the five special-function
+    programs, each kernel against its plain version on a cloud around its
+    generating values and a short run (their launches), and the libdevice
+    sweep. Returns the kernels-line rows."""
+    from smcnuts_torch import SMCConfig
+    from smcnuts_torch.ops.generated import peak_live
+
+    phase("solvers. float64 on the card, the Stan solvers, the special functions (K7r)")
+    started = time.perf_counter()
+    dev = torch.device("cuda")
+    clock = [started]
+
+    def part_took(what):
+        now = time.perf_counter()
+        print(f"solvers: {what} took {now - clock[0]:.1f} s (host clock)")
+        clock[0] = now
+
+    float64_eager_phase(smi)
+    part_took("(a) float64 arma")
+    lv_rk45_phase(smi)
+    part_took("(b) lv_rk45")
+    rows = {}
+    for name in SOLVER_TILE:
+        gm, trace_s, lib = prep["builds"][name].result()
+        print(f"(a) {name}: {gm.autodiff} mode, {gm.n_ops} operations a leapfrog, "
+              f"{gm.data.numel()} data floats, at most {peak_live(gm.program)} values live "
+              f"at once; traced in {trace_s:.1f} s (a worker process), nvcc {lib.build_seconds:.1f}"
+              f" s; its result read {time.perf_counter() - prep['started']:.0f} s after (a) "
+              f"began ({smi})")
+        for line in lib.log.splitlines():
+            if "registers" in line or "spill" in line or "stack frame" in line:
+                print("  ptxas:", line.strip())
+        m = solver_model(name, gm)
+        if gm.autodiff != STAN_PROGRAMS[name]["mode"]:
+            raise AssertionError(f"(a) {name}: tile_autodiff='auto' chose {gm.autodiff}")
+        step = STAN_PROGRAMS[name]["step"]
+        k = K if name == "lv_rk4" else SPECIAL_K
+        cfg = SMCConfig(n_particles=N, n_iterations=k, step_size=step, max_tree_depth=MAX_DEPTH)
+        label = f"({'c' if name == 'lv_rk4' else 'd'}) {name}"
+        res, launches, _ = strategy_run(f"{label}, forwards, step {step}", "generated", m, cfg,
+                                        smi)
+        x = res.x_final.contiguous() if name == "lv_rk4" else special_cloud(name, dev)
+        rows[name] = {**solver_kernel_case(label, name, m, x, smi), "launches": launches}
+        part_took(label)
+    prep["threads"].shutdown()
+    prep["procs"].shutdown()
+    rows["libdevice"] = libdevice_phase(smi)
+    part_took("(d) the libdevice sweep")
+    print(f"phase solvers took {time.perf_counter() - started:.1f} s (host clock; its "
+          f"budget is 120 s; {smi})")
+    return rows
+
+
+def partial_run(only, smi, stan_prep, solvers_prep):
     """The phases named in `only` (after device and build), for development:
     no kernels line and no "ok" line, so it cannot pass for the whole run."""
     phases = {"arma": arma_kernel_phase, "prmwcd": prmwcd_kernel_phase,
@@ -3237,7 +3874,8 @@ def partial_run(only, smi, stan_prep):
               "fused_kernel": arma_fused_kernel_phase, "eager": eager_arma_phase,
               "unfused": unfused_kernel_phase, "wide_eager": wide_eager_phase,
               "generated": generated_phase, "runner": runner_phase,
-              "stan": lambda smi: stan_phase(smi, stan_prep)}
+              "stan": lambda smi: stan_phase(smi, stan_prep),
+              "solvers": lambda smi: solvers_phase(smi, solvers_prep)}
     for key in only:
         phases[key](smi)
     print(f"\nchip_smoke: partial run of {only} passed; no result line")
@@ -3251,8 +3889,10 @@ def main():
     stan_prep = stan_prepare(smi) if only is None or "stan" in only else None
     build_phase()
     k8 = peak_phase(smi)
+    # After phase 2's build (its minute), beside the phases that follow.
+    solvers_prep = solvers_prepare(smi) if only is None or "solvers" in only else None
     if only is not None:
-        return partial_run(only, smi, stan_prep)
+        return partial_run(only, smi, stan_prep, solvers_prep)
     arma, arma_staged, arma_w1 = arma_kernel_phase(smi)
     prmwcd, prmwcd_staged, prmwcd_w1 = prmwcd_kernel_phase(smi)
     arma_launches = main_path_phase(smi)
@@ -3266,9 +3906,11 @@ def main():
     k7f, k7r, k7f_witnesses, k7r_w2 = generated_phase(smi)
     tally = runner_phase(smi)
     stan, stan_witnesses = stan_phase(smi, stan_prep)
+    solvers = solvers_phase(smi, solvers_prep)
     source = "smcnuts_torch/csrc/nuts_tree.cuh"
     # No single PyTorch call builds a NUTS tree, computes the fused ARMA
-    # value and gradient or runs FMA chains, so no kernel has a library time.
+    # value and gradient or runs FMA chains, so no kernel but libdevice_unary
+    # (torch's op) has a library time.
     kernels = [
         # K2, inlined into the K1 instantiation this entry launches.
         dict(name="nuts_tree_arma", route="cuda", source="smcnuts_torch/csrc/arma_model.cuh",
@@ -3369,13 +4011,26 @@ def main():
              replaces=STAN_PROGRAMS[prog]["replaces"], **row)
         for prog, row in stan_witnesses.items()
     ]
+    # Phase `solvers`: lv_rk4 and the special-function programs through the
+    # Stan frontend, each its generated model inlined into the K1 template,
+    # one library each; and the check of the libdevice calls they emit, a
+    # measurement entry whose library call is torch's op.
+    kernels += [
+        dict(name=f"nuts_tree_generated_stan_{prog}_{STAN_PROGRAMS[prog]['mode']}",
+             route="cuda", source="smcnuts_torch/ops/generated.py",
+             replaces=STAN_PROGRAMS[prog]["replaces"], **solvers[prog])
+        for prog in SOLVER_TILE
+    ]
+    kernels.append(dict(name="libdevice_unary", route="cuda",
+                        source="smcnuts_torch/csrc/libdevice_sweep.cu", replaces=K7R,
+                        **solvers["libdevice"]))
     kernels += [
         # K8: the FP32 peak, through its own entry point (ops/peak.peak_table).
         dict(name="fma_peak", route="cuda", source="smcnuts_torch/csrc/fma_peak.cu",
              replaces="experiments/bench_vpu_peak.py:38", **k8),
     ]
     for kernel in kernels:
-        kernel["library_ms"] = None
+        kernel.setdefault("library_ms", None)
         if kernel["launches"] < 1 and not kernel.get("measurement_entry"):
             raise AssertionError(f"{kernel['name']}: the main path never launched it")
         print(f"{kernel['name']}: {kernel['ms']:.4f} ms on the device alone (a call "

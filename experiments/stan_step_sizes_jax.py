@@ -26,7 +26,7 @@ sys.path.insert(0, os.path.join(ROOT, "experiments"))
 
 from stan_step_sizes_torch import STEPS, summary_line  # noqa: E402
 
-from chip_smoke import STAN_PROGRAMS, stan_source  # noqa: E402
+from chip_smoke import STAN_PHASE13, STAN_PROGRAMS, stan_source  # noqa: E402
 from smcnuts_tpu import SMCConfig, run_smc  # noqa: E402
 from smcnuts_tpu.stan import compile_stan_program  # noqa: E402
 
@@ -34,7 +34,7 @@ from smcnuts_tpu.stan import compile_stan_program  # noqa: E402
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
-    p.add_argument("--programs", nargs="+", default=list(STAN_PROGRAMS),
+    p.add_argument("--programs", nargs="+", default=list(STAN_PHASE13),
                    choices=list(STAN_PROGRAMS))
     p.add_argument("--steps", nargs="+", type=float, default=list(STEPS))
     p.add_argument("--runs", type=int, default=1)

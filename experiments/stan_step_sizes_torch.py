@@ -5,9 +5,10 @@ ones its source names.
     python experiments/stan_step_sizes_torch.py             # on the card
     python experiments/stan_step_sizes_torch.py --device cpu --runs 1 -N 128 -K 20
 
-The programs and data are chip_smoke.py's STAN_PROGRAMS (radon_intercepts,
-irt_ar, and the AR(1)-error recurrence of tests/test_stan_frontend.py at
-T=200), compiled with tile=True. Each program runs once a step through
+The programs and data are chip_smoke.py's STAN_PROGRAMS that run on the
+kernel (radon_intercepts, irt_ar, the AR(1)-error recurrence of
+tests/test_stan_frontend.py at T=200, lv_rk4 and the five programs of the
+special functions), compiled with tile=True. Each program runs once a step through
 `run_smc_batched` (--runs runs, seeds 0, 1, ...; forwards L-kernel without
 tempering, max depth 10): on the card through the generated NUTS kernel, on
 the CPU through its plain version. Steps: 0.05, 0.1, 0.2 (radon's README,
@@ -59,8 +60,8 @@ def summary_line(name, step, acceptance, depth, leapfrogs, ess, last_mean, where
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
-    p.add_argument("--programs", nargs="+", default=list(STAN_PROGRAMS),
-                   choices=list(STAN_PROGRAMS))
+    tile = [n for n, prog in STAN_PROGRAMS.items() if prog["mode"] is not None]
+    p.add_argument("--programs", nargs="+", default=tile, choices=tile)
     p.add_argument("--steps", nargs="+", type=float, default=list(STEPS))
     p.add_argument("--runs", type=int, default=25)
     p.add_argument("--particles", "-N", type=int, default=512)

@@ -79,12 +79,16 @@ peak of `ops/peak.py`, what the -fmad=false build can reach); in a split
 model also the tree control, which every lane of a group repeats.
 
 Supported ATen ops: add, sub, rsub, mul, div, neg, exp, expm1, log, log1p,
-sqrt, rsqrt, reciprocal, pow by a constant, tanh, sigmoid, abs, sign,
-lgamma (of constants or in a value that is not differentiated:
-its derivative, digamma, has no CUDA counterpart), where, the six
-comparisons, sum, dot, mv, mm, select and slice by constants,
-stack, cat, unbind, the backward ops that autograd emits for these, the
-constructors of constant tensors, and the shape-only ops. Any other raises
+sqrt, rsqrt, reciprocal, pow by a constant, tanh, sigmoid, abs, sign, sgn,
+cos, sin, erf, erfc (Phi traces as erf), lgamma, special_i0e, special_i1e,
+digamma, where, the six comparisons, sum, dot, mv, mm, select and slice by
+constants, stack, cat, unbind, the backward ops that autograd emits for
+these, the constructors of constant tensors, and the shape-only ops;
+torch.special.log_ndtr is replaced while a density is traced (`log_ndtr`).
+cos, sin, erf, erfc and lgamma are libdevice calls in the kernel;
+i0e, i1e, digamma and log_ndtr are built from the program's own ops (the
+section "Special functions" below says why). The derivative of digamma
+(trigamma, polygamma) is not lowered. Any other op raises
 NotImplementedError naming the ATen op and the model.
 """
 
@@ -167,7 +171,8 @@ _UNARY = {
     "neg": torch.neg, "exp": torch.exp, "log": torch.log, "log1p": torch.log1p,
     "expm1": torch.expm1, "sqrt": torch.sqrt, "tanh": torch.tanh,
     "abs": torch.abs, "lgamma": torch.lgamma, "recip": torch.reciprocal,
-    "sign": torch.sign,
+    "sign": torch.sign, "cos": torch.cos, "sin": torch.sin, "erf": torch.erf,
+    "erfc": torch.erfc,
 }
 
 
@@ -219,6 +224,10 @@ class _Scalars:
         self.reductions = []
         self.plan = plan or {}
         self.grouped = []  # the sums built at a width: `_Grouped`
+        # The value node of a special function built from the program's ops
+        # (`_special`) -> (its kind, its argument): forward mode takes the
+        # function's own derivative there, not that of the composition.
+        self.rules = {}
 
     # -- leaves and nodes ---------------------------------------------------
     def _append(self, op):
@@ -444,6 +453,11 @@ class _Scalars:
 
 def _tangent(b: _Scalars, i: int, op: str, args: tuple, tan: dict):
     """The tangent of node i = op(args), or None where it is zero."""
+    rule = b.rules.get(i)
+    if rule is not None:
+        kind, x = rule
+        tx = tan.get(x) if type(x) is int else None
+        return None if tx is None else b.mul(tx, _SPECIAL_DERIVATIVES[kind](b, x, i))
     if op in ("x", "phi", "data", "sign") or op in _CMP:
         return None
     ts = [tan.get(a) if type(a) is int else None for a in args]
@@ -481,10 +495,236 @@ def _tangent(b: _Scalars, i: int, op: str, args: tuple, tan: dict):
         return b.mul(e, b.mul(t[0], b.pow(args[0], _f32(e - 1.0))))
     if op == "where":
         return b.where(args[0], t[1], t[2])
+    if op == "cos":
+        return b.mul(-1.0, b.mul(t[0], b.unary("sin", args[0])))
+    if op == "sin":
+        return b.mul(t[0], b.unary("cos", args[0]))
+    if op in ("erf", "erfc"):
+        c = _TWO_OVER_SQRT_PI if op == "erf" else -_TWO_OVER_SQRT_PI
+        return b.mul(t[0], b.mul(c, b.unary("exp", b.mul(-1.0, b.mul(args[0], args[0])))))
+    if op == "lgamma":
+        return b.mul(t[0], _digamma(b, args[0]))
+    raise NotImplementedError(f"forward mode through {op} of a parameter: its derivative "
+                              "is not written")
+
+
+# ---------------------------------------------------------------------------
+# Special functions as compositions of the program's own ops.
+# ---------------------------------------------------------------------------
+#
+# ATen computes i0e, i1e and digamma in its own code (`ATen/native/Math.h`),
+# which a kernel built with -fmad=false could not round alike, so the
+# lowering builds each from the program's ops (add, mul, div, sqrt, log,
+# where and the comparisons; range splits through `where`), mirroring ATen's
+# float code step for step: the kernel and its plain version then compute
+# the same ops and agree to the bit by construction, and the CPU tests hold
+# the composition to torch.special and JAX. cos, sin, erf, erfc and lgamma
+# stay single ops, emitted as libdevice calls (`_CALL`): on an H100 each
+# equals ATen's CUDA op on every float32 of the range the densities use
+# (`libdevice_unary`, chip_smoke.py phase `solvers`). log_ndtr is replaced in
+# the traced density itself (`_SpecialFunctions`); Phi traces as erf.
+
+_SQRT1_2 = 0.7071067811865476
+_TWO_OVER_SQRT_PI = 1.1283791670955126
+_LOG_SQRT_2PI = 0.9189385332046728
+_INV_SQRT_2PI = 0.3989422804014327
+# Terms of log_ndtr's continued fraction below -3.
+LOG_NDTR_TERMS = 16
+# Chebyshev coefficients of exp(-x) I0(x) on [0, 8] and of exp(-x) sqrt(x)
+# I0(x) on [8, inf) (Cephes, as `chebyshev_coefficients_i0e_A/B`).
+_I0E_A = (
+    -4.41534164647933937950e-18, 3.33079451882223809783e-17, -2.43127984654795469359e-16,
+    1.71539128555513303061e-15, -1.16853328779934516808e-14, 7.67618549860493561688e-14,
+    -4.85644678311192946090e-13, 2.95505266312963983461e-12, -1.72682629144155570723e-11,
+    9.67580903537323691224e-11, -5.18979560163526290666e-10, 2.65982372468238665035e-9,
+    -1.30002500998624804212e-8, 6.04699502254191894932e-8, -2.67079385394061173391e-7,
+    1.11738753912010371815e-6, -4.41673835845875056359e-6, 1.64484480707288970893e-5,
+    -5.75419501008210370398e-5, 1.88502885095841655729e-4, -5.76375574538582365885e-4,
+    1.63947561694133579842e-3, -4.32430999505057594430e-3, 1.05464603945949983183e-2,
+    -2.37374148058994688156e-2, 4.93052842396707084878e-2, -9.49010970480476444210e-2,
+    1.71620901522208775349e-1, -3.04682672343198398683e-1, 6.76795274409476084995e-1)
+_I0E_B = (
+    -7.23318048787475395456e-18, -4.83050448594418207126e-18, 4.46562142029675999901e-17,
+    3.46122286769746109310e-17, -2.82762398051658348494e-16, -3.42548561967721913462e-16,
+    1.77256013305652638360e-15, 3.81168066935262242075e-15, -9.55484669882830764870e-15,
+    -4.15056934728722208663e-14, 1.54008621752140982691e-14, 3.85277838274214270114e-13,
+    7.18012445138366623367e-13, -1.79417853150680611778e-12, -1.32158118404477131188e-11,
+    -3.14991652796324136454e-11, 1.18891471078464383424e-11, 4.94060238822496958910e-10,
+    3.39623202570838634515e-9, 2.26666899049817806459e-8, 2.04891858946906374183e-7,
+    2.89137052083475648297e-6, 6.88975834691682398426e-5, 3.36911647825569408990e-3,
+    8.04490411014108831608e-1)
+# The same for I1, ATen's float tables (`chebyshev_coefficients_i1e_A/B<float>`).
+_I1E_A = (
+    9.38153738649577178388e-9, -4.44505912879632808065e-8, 2.00329475355213526229e-7,
+    -8.56872026469545474066e-7, 3.47025130813767847674e-6, -1.32731636560394358279e-5,
+    4.78156510755005422638e-5, -1.61760815825896745588e-4, 5.12285956168575772895e-4,
+    -1.51357245063125314899e-3, 4.15642294431288815669e-3, -1.05640848946261981558e-2,
+    2.47264490306265168283e-2, -5.29459812080949914269e-2, 1.02643658689847095384e-1,
+    -1.76416518357834055153e-1, 2.52587186443633654823e-1)
+_I1E_B = (
+    -3.83538038596423702205e-9, -2.63146884688951950684e-8, -2.51223623787020892529e-7,
+    -3.88256480887769039346e-6, -1.10588938762623716291e-4, -9.76109749136146840777e-3,
+    7.78576235018280120474e-1)
+# digamma's asymptotic series and its value at 10 (ATen's float calc_digamma).
+_DIGAMMA_A = (
+    8.33333333333333333333e-2, -2.10927960927960927961e-2, 7.57575757575757575758e-3,
+    -4.16666666666666666667e-3, 3.96825396825396825397e-3, -8.33333333333333333333e-3,
+    8.33333333333333333333e-2)
+_PSI_10 = 2.25175258906672110764
+# i1e's derivative below this |x| is its limit, 1/2 (torch's i1e backward).
+_I1E_EPS = 1.1920928955078125e-07
+
+
+def _chbevl(b, y, coeffs):
+    """Cephes' chbevl: the Chebyshev series of `coeffs` at y, Clenshaw's
+    recurrence b0 <- y * b1 - b2 + c in ATen's order."""
+    b0, b1, b2 = _f32(coeffs[0]), 0.0, 0.0
+    for c in coeffs[1:]:
+        b2, b1 = b1, b0
+        b0 = b.add(b.sub(b.mul(y, b1), b2), _f32(c))
+    return b.mul(0.5, b.sub(b0, b2))
+
+
+def _bessel_e(b, x, small_coeffs, large_coeffs, times_x):
+    """exp(-|x|) I(|x|) by ATen's two Chebyshev series: on |x| <= 8 at
+    |x|/2 - 2 (times |x| for I1), beyond at 32/|x| - 2 over sqrt(|x|)."""
+    a = b.unary("abs", x)
+    small = _chbevl(b, b.sub(b.mul(0.5, a), 2.0), small_coeffs)
+    if times_x:
+        small = b.mul(small, a)
+    large = b.div(_chbevl(b, b.sub(b.div(32.0, a), 2.0), large_coeffs), b.unary("sqrt", a))
+    return b.where(b.node("le", a, 8.0), small, large)
+
+
+def _i0e(b, x):
+    return _bessel_e(b, x, _I0E_A, _I0E_B, False)
+
+
+def _i1e(b, x):
+    out = _bessel_e(b, x, _I1E_A, _I1E_B, True)
+    return b.where(b.node("lt", x, 0.0), b.mul(-1.0, out), out)
+
+
+def _digamma(b, x):
+    """ATen's float calc_digamma for x >= 0: the recurrence up to 10 (its
+    `while (x < 10)` as ten selected steps, enough for any x > 0), the value
+    at 10, else the asymptotic series. x < 0 (ATen's reflection) gives NaN:
+    the densities take lgamma of positive shapes."""
+    res, z = 0.0, x
+    for _ in range(10):
+        below = b.node("lt", z, 10.0)
+        res = b.where(below, b.sub(res, b.div(1.0, z)), res)
+        z = b.where(below, b.add(z, 1.0), z)
+    w = b.div(1.0, b.mul(z, z))
+    poly = _f32(_DIGAMMA_A[0])
+    for c in _DIGAMMA_A[1:]:
+        poly = b.add(b.mul(poly, w), _f32(c))
+    series = b.sub(b.sub(b.add(res, b.unary("log", z)), b.div(0.5, z)), b.mul(w, poly))
+    out = b.where(b.node("eq", z, 10.0), b.add(res, _f32(_PSI_10)), series)
+    return b.where(b.node("lt", x, 0.0), math.nan, out)
+
+
+def _i0e_derivative(b, x, value):
+    return b.sub(_i1e(b, x), b.mul(b.unary("sign", x), value))
+
+
+def _i1e_derivative(b, x, value):
+    """torch's i1e backward: i0e(x) - i1e(x) (sign(x) + 1/x), 1/2 near 0."""
+    big = b.node("gt", b.unary("abs", x), _I1E_EPS)
+    xs = b.where(big, x, _I1E_EPS)
+    d = b.sub(_i0e(b, xs), b.mul(value, b.add(b.unary("sign", xs), b.div(1.0, xs))))
+    return b.where(big, d, 0.5)
+
+
+def _no_trigamma(b, x, value):
     raise NotImplementedError(
-        f"forward mode through {op} of a parameter: its derivative "
-        + ("(digamma) has no CUDA counterpart" if op == "lgamma" else "is not written")
-    )
+        "forward mode through digamma of a parameter: its derivative, trigamma, "
+        "is not lowered")
+
+
+_SPECIAL = {"i0e": _i0e, "i1e": _i1e, "digamma": _digamma}
+_SPECIAL_DERIVATIVES = {"i0e": _i0e_derivative, "i1e": _i1e_derivative,
+                        "digamma": _no_trigamma}
+
+
+def _special(b, kind, x):
+    """Special function `kind` of x from the program's ops; its value node
+    is differentiated in forward mode by the function's own derivative
+    (`_Scalars.rules`). In reverse mode autograd's backward is traced: i0e's
+    emits i1e and sgn, i1e's i0e, lgamma's digamma, digamma's polygamma
+    (which raises)."""
+    x = b.mat(x)
+    v = b.mat(_SPECIAL[kind](b, x))
+    if type(x) is int and type(v) is int:
+        b.rules[v] = (kind, x)
+    return v
+
+
+class _LogNdtr(torch.autograd.Function):
+    """(log Phi(x), its derivative phi(x) / Phi(x)) in torch ops the lowering
+    has; the backward multiplies by the derivative, so autograd traces one
+    op, not the composition's reverse. On x >= -3, with e = erfc(|x| /
+    sqrt 2): log1p(-e / 2) for x >= 0 (ATen's form) and log(e / 2) below,
+    where erfc keeps its relative precision; the derivative exp(-x^2/2) /
+    (sqrt(2 pi) Phi(x)). Below -3: the continued fraction f = z + 1/(z +
+    2/(z + ...)) at z = -x to LOG_NDTR_TERMS terms, Phi / phi = 1 / f (below
+    1e-9 of log Phi from z = 3 on): log Phi = -x^2/2 - log sqrt(2 pi) - log
+    f, and the derivative f itself. Autograd's formula for
+    torch.special.log_ndtr, exp(-(log_ndtr(x) + x^2/2)) / sqrt(2 pi), would
+    lose the rounding of x^2/2 there (~1e-4 relative at x = -40 in
+    float32). Each segment reads its input clamped into its own range."""
+
+    @staticmethod
+    def forward(x):
+        low = x < -3.0
+        xh = torch.where(low, -3.0, x)
+        up = xh >= 0.0
+        t = xh * _SQRT1_2
+        e = torch.erfc(torch.where(up, t, -t))
+        phi_cdf = torch.where(up, 1.0 - 0.5 * e, 0.5 * e)
+        high = torch.where(up, torch.log1p(-0.5 * e), torch.log(0.5 * e))
+        high_d = torch.exp(-(t * t)) * _INV_SQRT_2PI / phi_cdf
+        z = -torch.where(low, x, -3.0)
+        f = z
+        for k in range(LOG_NDTR_TERMS, 0, -1):
+            f = z + k / f
+        lower = -0.5 * (z * z) - _LOG_SQRT_2PI - torch.log(f)
+        return torch.where(low, lower, high), torch.where(low, f, high_d)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.mark_non_differentiable(output[1])
+        ctx.save_for_backward(output[1])
+
+    @staticmethod
+    def backward(ctx, g, _):
+        return g * ctx.saved_tensors[0]
+
+
+def log_ndtr(x):
+    """log Phi(x) for a traced density: `_LogNdtr`'s value."""
+    return _LogNdtr.apply(x)[0]
+
+
+def trace_fx(fn, *inputs) -> torch.fx.GraphModule:
+    """make_fx(fn)(*inputs) with one fake mode for the metadata of every
+    node: make_fx builds a FakeTensorMode for each value it records, which
+    is half of a long trace's time; the graph is the same."""
+    from torch._guards import TracingContext, tracing
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.fx.experimental.proxy_tensor import make_fx
+
+    with tracing(TracingContext(FakeTensorMode(allow_fallback_kernels=True))):
+        return make_fx(fn)(*inputs)
+
+
+class _SpecialFunctions(torch.overrides.TorchFunctionMode):
+    """While a density is traced: torch.special.log_ndtr as `log_ndtr`."""
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        if func is torch.special.log_ndtr:
+            return log_ndtr(*args)
+        return func(*args, **(kwargs or {}))
 
 
 # ---------------------------------------------------------------------------
@@ -693,8 +933,13 @@ _HANDLERS = {
     "rsub": _binary(lambda b, u, v: b.sub(v, u)),
     "mul": _binary(_Scalars.mul), "div": _binary(_Scalars.div),
     **{op: _unary(op) for op in ("neg", "exp", "log", "log1p", "expm1", "sqrt",
-                                 "tanh", "abs", "lgamma", "sign")},
+                                 "tanh", "abs", "lgamma", "sign", "cos", "sin",
+                                 "erf", "erfc")},
+    "sgn": _unary("sign"),
     "reciprocal": _unary("recip"),
+    **{name: (lambda kind: lambda b, node, a: _ew(lambda u: _special(b, kind, u), a))(kind)
+       for name, kind in (("special_i0e", "i0e"), ("special_i1e", "i1e"),
+                          ("digamma", "digamma"))},
     "rsqrt": lambda b, node, a: _ew(lambda u: b.div(1.0, b.unary("sqrt", u)), a),
     "sigmoid": lambda b, node, a: _ew(
         lambda u: b.div(1.0, b.add(1.0, b.unary("exp", b.mul(-1.0, u)))), a),
@@ -1917,7 +2162,39 @@ def _check_unrolled(prog: Program, k: int):
 _INFIX = {"add": "+", "sub": "-", "mul": "*", "div": "/", **{
     k: v for k, v in zip(_CMP, ("<", "<=", ">", ">=", "==", "!="))}}
 _CALL = {"exp": "expf", "log": "logf", "log1p": "log1pf", "expm1": "expm1f",
-         "sqrt": "sqrtf", "tanh": "tanhf", "abs": "fabsf", "lgamma": "lgammaf"}
+         "sqrt": "sqrtf", "tanh": "tanhf", "abs": "fabsf", "lgamma": "lgammaf",
+         "cos": "cosf", "sin": "sinf", "erf": "erff", "erfc": "erfcf"}
+# The libdevice calls that `libdevice_unary` holds to ATen's CUDA ops, by
+# their op in the program (the kernel's code of each, `csrc/libdevice_sweep.cu`).
+LIBDEVICE_SWEEP = {"cos": 0, "sin": 1, "erf": 2, "erfc": 3, "lgamma": 4}
+
+
+def libdevice_unary(op: str, x: torch.Tensor) -> torch.Tensor:
+    """The libdevice call the kernel emits for `op` (cos, sin, erf, erfc,
+    lgamma) on x, float32: the kernel of `csrc/libdevice_sweep.cu` for a
+    CUDA tensor (built with the NUTS kernels' flags), torch's op, the
+    program's plain version, for a CPU tensor."""
+    if op not in LIBDEVICE_SWEEP:
+        raise ValueError(f"op must be one of {tuple(LIBDEVICE_SWEEP)}, got {op!r}")
+    if x.device.type == "cpu":
+        return _UNARY[op](x)
+    if x.device.type != "cuda":
+        raise ValueError(f"libdevice_unary runs on cpu or cuda tensors, got {x.device}")
+    if x.dtype != torch.float32 or not x.is_contiguous() or x.numel() < 1:
+        raise ValueError("x must be a non-empty contiguous float32 tensor")
+    from .nuts_cuda import build_library
+
+    out = torch.empty_like(x)
+    err = build_library().lib.smcnuts_libdevice_unary(
+        LIBDEVICE_SWEEP[op], x.data_ptr(), out.data_ptr(), x.numel(),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"libdevice_unary kernel launch failed: CUDA error {err}")
+    libdevice_unary.launches += 1
+    return out
+
+
+libdevice_unary.launches = 0  # kernel launches, and nothing else
 
 
 def _c_literal(v: float) -> str:
@@ -2313,6 +2590,11 @@ def _fx_graph(prog: Program) -> torch.fx.GraphModule:
     return torch.fx.GraphModule(nn.Module(), g)
 
 
+# The lane counts whose CUDA graph a generated model keeps (`_replay`).
+REPLAY_GRAPHS = 4
+_SEEN = object()
+
+
 class GeneratedModel(nn.Module):
     """The counterpart of the JAX `TileModel` (`nuts_pallas.py:57`) for a
     generated model: `dim`, `autodiff` ("forward" or "reverse"), the
@@ -2334,19 +2616,54 @@ class GeneratedModel(nn.Module):
         self.group = prog.group
         self.n_ops = count_ops(prog)
         self.graph = _fx_graph(prog)
+        self._graphs = {}  # (device, lanes) -> _SEEN or (CUDA graph, inputs, outputs)
         self.register_buffer("data", torch.tensor(prog.data, dtype=torch.float32))
         self.source, self.struct_name = _cuda_source(prog, name, autodiff)
         self.hash = hashlib.sha256(self.source.encode()).hexdigest()[:16]
 
     def logp_and_grad(self, x, phi=1.0):
         """The plain version of the kernel's model: (logp (P,), grad (P, D))
-        of float32 x (P, D), op for op as the kernel computes them."""
+        of float32 x (P, D), op for op as the kernel computes them; on the
+        card through `_replay`."""
         if x.dtype != torch.float32:
             raise NotImplementedError(
                 f"the generated model computes in float32 (as its kernel), got {x.dtype}")
         if not isinstance(phi, torch.Tensor) or phi.dim() == 0:
             phi = torch.full((x.shape[0],), float(phi), dtype=x.dtype, device=x.device)
-        return self.graph(x, phi.to(x.dtype))
+        phi = phi.to(x.dtype)
+        if x.is_cuda and x.shape[0] > 0:
+            return self._replay(x, phi)
+        return self.graph(x, phi)
+
+    def _replay(self, x, phi):
+        """The graph on the card: op by op at the first call of a lane count,
+        captured into a CUDA graph at its second and replayed from then on.
+        A replay launches the same ATen kernels on the same values, so its
+        bits are those of the graph run op by op, without a host dispatch
+        an operation (a leaf of a large program is tens of thousands). The
+        REPLAY_GRAPHS lane counts used last keep their graphs."""
+        key = (x.device, x.shape[0])
+        entry = self._graphs.pop(key, None)
+        if entry is None:
+            out, entry = self.graph(x, phi), _SEEN
+        else:
+            if entry is _SEEN:
+                static = (x.clone(), phi.clone())
+                graph = torch.cuda.CUDAGraph()
+                # thread_local: threads that build kernels meanwhile may call
+                # the CUDA runtime.
+                with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                    result = self.graph(*static)
+                entry = (graph, static, result)
+            else:
+                entry[1][0].copy_(x)
+                entry[1][1].copy_(phi)
+            entry[0].replay()
+            out = tuple(v.clone() for v in entry[2])
+        self._graphs[key] = entry
+        while len(self._graphs) > REPLAY_GRAPHS:
+            self._graphs.pop(next(iter(self._graphs)))
+        return out
 
 
 def tile_model_from_logp(logp_fn, dim, name="generated", group=None) -> GeneratedModel:
@@ -2363,8 +2680,6 @@ def tile_model_from_logp(logp_fn, dim, name="generated", group=None) -> Generate
     sum's lane partial folded in index order and butterflied, the program's
     other nodes straight-line in every lane. It raises ValueError where the
     program cannot be split over W."""
-    from torch.fx.experimental.proxy_tensor import make_fx
-
     if group is None:
         group = DEFAULT_GROUP
     if group not in (1, 2, 4, 8, 16, 32):
@@ -2373,7 +2688,8 @@ def tile_model_from_logp(logp_fn, dim, name="generated", group=None) -> Generate
     def vg(theta, phi):
         return torch.func.grad_and_value(logp_fn)(theta, phi)
 
-    gm = make_fx(vg)(torch.zeros(dim), torch.zeros(()))
+    with _SpecialFunctions():
+        gm = trace_fx(vg, torch.zeros(dim), torch.zeros(()))
 
     def lower(plan):
         b = _Scalars(plan)
@@ -2419,8 +2735,6 @@ def tile_model_from_logp_fwd(logp_seq_fn, dim, name="generated",
     the whole primal before the first pass: the same operations on the same
     operands, with more values live at once (phase 11's witness of the
     order)."""
-    from torch.fx.experimental.proxy_tensor import make_fx
-
     if order not in ("primal", "built"):
         raise ValueError(f"order must be 'primal' or 'built', got {order!r}")
     if not 1 <= dim <= MAX_FORWARD_DIM:
@@ -2429,7 +2743,8 @@ def tile_model_from_logp_fwd(logp_seq_fn, dim, name="generated",
     def primal(*args):
         return logp_seq_fn(tuple(args[:dim]), args[dim])
 
-    gm = make_fx(primal)(*[torch.zeros(()) for _ in range(dim + 1)])
+    with _SpecialFunctions():
+        gm = trace_fx(primal, *[torch.zeros(()) for _ in range(dim + 1)])
     b = _Scalars()
     inputs = []
     for d in range(dim):

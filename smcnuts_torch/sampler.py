@@ -143,11 +143,15 @@ def resolve_backend(cfg: SMCConfig, device: torch.device, model=None) -> str:
     "auto" picks cuda on a CUDA device and eager on the CPU, and eager for a
     `CallableModel` without a generated in-kernel model, which "cuda" refuses
     (as the JAX package's pallas backend refuses a model without a
-    tile_model, `smcnuts_tpu/sampler.py:246-250`)."""
+    tile_model, `smcnuts_tpu/sampler.py:246-250`). The kernels compute in
+    float32, as the JAX package's Pallas kernels do, so a float64 run takes
+    the eager tree on any device (the JAX package's float64 path is its XLA
+    backend) and "cuda" refuses it."""
     no_kernel = isinstance(model, CallableModel) and model.tile_model is None
     backend = cfg.nuts_backend
     if backend == "auto":
-        backend = "cuda" if device.type == "cuda" and not no_kernel else "eager"
+        backend = ("cuda" if device.type == "cuda" and not no_kernel
+                   and cfg.dtype == "float32" else "eager")
     if backend == "cuda" and device.type != "cuda":
         raise ValueError(f"nuts_backend='cuda' needs a CUDA device, got {device}")
     if backend == "cuda" and no_kernel:
@@ -155,10 +159,10 @@ def resolve_backend(cfg: SMCConfig, device: torch.device, model=None) -> str:
             f"model '{model.name}' has no tile_model; the cuda NUTS backend is "
             "unavailable for it: run it on nuts_backend='eager' (autograd), or "
             "give it a generated tile_model (ops.generated.tile_model_from_logp)")
-    if cfg.dtype == "float64" and device.type == "cuda":
+    if backend == "cuda" and cfg.dtype == "float64":
         raise NotImplementedError(
-            "float64 on CUDA is not ported to smcnuts_torch yet "
-            "(ROADMAP Queue 2 item 1)"
+            "the CUDA NUTS kernels run float32 only; float64 runs on "
+            "nuts_backend='eager' (float64 kernels: ROADMAP Queue 2 item 1)"
         )
     return backend
 

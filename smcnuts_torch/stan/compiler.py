@@ -33,12 +33,23 @@ Semantics (those of the JAX frontend):
   the value itself: a tensor depends on the parameters, data never become
   tensors on their own.
 
+- The solvers are the JAX frontend's: every ODE interface (`ode_*`,
+  `ode_*_tol`, the old `integrate_ode_*`) is adaptive Dormand-Prince with
+  its continuous adjoint (`ops/ode.odeint_dopri5`, a port of
+  `jax.experimental.ode.odeint` batched over the particles of a vmap), and
+  `ode_rk4` the fixed-step RK4 extension (`ops/ode.odeint_rk4`);
+  `integrate_1d` a 30-point Gauss-Legendre rule with Stan's maps for
+  infinite bounds; the algebra solvers 16 Newton steps with a `jacfwd`
+  jacobian. A bound of `integrate_1d` that depends on the parameters and is
+  infinite at run time takes its map lane by lane (the JAX frontend takes a
+  traced bound as finite, `smcnuts_tpu/stan/compiler.py:1081-1094`). Under
+  the generated in-kernel model (`tile=True`) an adaptive ODE solver raises
+  NotImplementedError naming it: its step loop depends on the data.
+
 Not ported: the JAX frontend lowers loops of `scan_threshold` or more
 iterations to `lax.scan` for XLA's compile time and states that lowering
 bit-identical to the unrolled interpretation; here every loop unrolls, the
-semantics, and `scan_threshold` is accepted and ignored. The ODE solvers,
-`integrate_1d` and the algebra solvers raise StanCompileError (ROADMAP
-Queue 1 item 11b).
+semantics, and `scan_threshold` is accepted and ignored.
 """
 
 from __future__ import annotations
@@ -46,6 +57,7 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import json
+import math
 import os
 from typing import Any
 
@@ -53,6 +65,7 @@ import numpy as np
 import torch
 
 from ..models.base import CallableModel
+from ..ops.ode import MXSTEP, odeint_dopri5, odeint_rk4
 from . import math as smath
 from .math import (
     DISTRIBUTIONS,
@@ -96,10 +109,6 @@ from .parser import (
     While,
     parse,
 )
-
-# What a program that reaches a construct this slice leaves out is told.
-NOT_PORTED = "is not ported to smcnuts_torch yet (ROADMAP Queue 1 item 11b)"
-
 
 class StanCompileError(Exception):
     pass
@@ -356,14 +365,34 @@ _ELEMENTWISE_FNS = frozenset(
      "log1p_exp", "log1m_exp", "log_inv_logit", "log1m_inv_logit")
 )
 
-# Stan interfaces this slice does not port (ROADMAP Queue 1 item 11b).
-_NOT_PORTED_FNS = frozenset({
+# Stan's ODE interfaces (the JAX frontend's `_ODE_SOLVERS`): all but
+# `ode_rk4` are the adaptive solver.
+_ODE_SOLVERS = frozenset({
     "ode_rk45", "ode_rk45_tol", "ode_bdf", "ode_bdf_tol",
     "ode_adams", "ode_adams_tol", "ode_ckrk", "ode_ckrk_tol",
     "integrate_ode_rk45", "integrate_ode_bdf", "integrate_ode_adams",
-    "integrate_ode", "ode_rk4", "integrate_1d",
+    "integrate_ode", "ode_rk4",
+})
+_ADAPTIVE_SOLVERS = _ODE_SOLVERS - {"ode_rk4"}
+_ALGEBRA_SOLVERS = frozenset({
     "algebra_solver", "algebra_solver_newton", "solve_newton", "solve_powell",
 })
+# 30-point Gauss-Legendre nodes and weights on [-1, 1] for integrate_1d.
+_GL_NODES, _GL_WEIGHTS = np.polynomial.legendre.leggauss(30)
+
+
+def _minimum(a, b):
+    if is_tensor(a) or is_tensor(b):
+        return torch.minimum(to_tensor(a), to_tensor(b))
+    return min(a, b)
+
+
+def _is_inf(v, sign):
+    """v == sign * inf: a Python bool for data, a bool tensor for a value of
+    the parameters."""
+    if is_tensor(v):
+        return v == sign * math.inf
+    return float(v) == sign * math.inf
 
 
 class _Interp:
@@ -467,6 +496,16 @@ class _Interp:
             out = self._index_read(base.data, idxs)
             return RowVector(out) if _ndim(out) == 1 and not isinstance(out, _LocalArray) else out
         if isinstance(base, _LocalArray):
+            if len(idxs) == 1 and len(base.dims) == 1 and isinstance(idxs[0], np.ndarray):
+                # A data int array index on a vector of scalars (the forward
+                # generated model's parameters): the selected elements.
+                iv = idxs[0].astype(np.int64)
+                if iv.ndim != 1 or not (1 <= iv.min() and iv.max() <= base.dims[0]):
+                    raise StanCompileError(
+                        f"multi-index {iv.tolist()} out of bounds for dimension {base.dims[0]}")
+                out = _LocalArray([int(iv.size)])
+                out.data = [base.data[j - 1] for j in iv]
+                return out
             if not any(is_range(i) for i in idxs):
                 return base.get([_require_int(i, "index") for i in idxs])
             if len(idxs) == 1 and len(base.dims) == 1:
@@ -790,10 +829,180 @@ class _Interp:
                 f"{node.name} requires a user-defined {what} function name as its first argument")
         return fns[node.args[0].name]
 
+    def _solver_fn(self, fd: FuncDef, n_lead: int, extra):
+        """A user function under a solver, as a function of tensors:
+        fn(*lead, *tensors) calls fd on the n_lead leading arguments and
+        then `extra`, whose tensor entries (the values of the parameters)
+        are replaced by `tensors`, so a solver can pass them explicitly (a
+        `torch.autograd.Function` must). It runs in the evaluation it was
+        made in (a solver's backward runs after the evaluation returned)
+        and leaves `target` as it found it: a solver's function is pure
+        (the JAX frontend saves and restores it too), and the caller's
+        target, a value of another vmap level inside a solver's batch rule,
+        is set aside while it runs. Returns (fn, the tensors of extra)."""
+        extra = [_as_value(v) for v in extra]
+        slots = [k for k, v in enumerate(extra) if is_tensor(v)]
+        ev = smath._ev()
+
+        def fn(*vals):
+            args = list(extra)
+            for k, t in zip(slots, vals[n_lead:]):
+                args[k] = t
+            saved, self.target = self.target, 0.0
+            try:
+                with smath.evaluation(ev.dtype, ev.device, ev.cache):
+                    return _as_value(self._call_user_fn(fd, list(vals[:n_lead]) + args))
+            finally:
+                self.target = saved
+
+        return fn, [extra[k] for k in slots]
+
+    def _ode_solve(self, node: Call):
+        """Stan's ODE interfaces (the JAX frontend's `_ode_solve`, its
+        argument rules): ode_X(f, y0, t0, ts, ...args) with f(t, y, ...args);
+        `_tol` adds (rel_tol, abs_tol, max_num_steps) before the args; the
+        old integrate_ode_X(f, y0, t0, ts, theta, x_r, x_i[, rel_tol,
+        abs_tol[, max_steps]]) with f(t, y, theta, x_r, x_i); ode_rk4(f, y0,
+        t0, ts, steps_per_interval, ...args). Returns the (len(ts), n)
+        solution, row i the state at ts[i]. Every adaptive interface is
+        `odeint_dopri5`, tolerances 1e-6 by default (Stan's rk45)."""
+        name = node.name
+        fd = self._user_fn(node, "ODE right-hand-side")
+        rest = [self.ev(a) for a in node.args[1:]]
+        if len(rest) < 3:
+            raise StanCompileError(f"{name}(f, y0, t0, ts, ...) takes at least 4 arguments")
+        rtol = atol = 1e-6
+        mxstep = MXSTEP
+        if name.endswith("_tol"):
+            if len(rest) < 6:
+                raise StanCompileError(f"{name} needs rel_tol, abs_tol, max_num_steps after ts")
+            rtol = float(_as_value(rest[3]))
+            atol = float(_as_value(rest[4]))
+            mxstep = int(_as_value(rest[5]))
+            extra = rest[6:]
+        elif name.startswith("integrate_ode") and len(rest) >= 8:
+            extra = rest[3:6]
+            rtol = float(_as_value(rest[6]))
+            atol = float(_as_value(rest[7]))
+            if len(rest) >= 9:
+                mxstep = int(_as_value(rest[8]))
+        elif name == "ode_rk4":
+            if len(rest) < 4:
+                raise StanCompileError(
+                    "ode_rk4(f, y0, t0, ts, steps_per_interval, ...) takes at least 5 arguments")
+            steps = _require_int(_as_value(rest[3]), "ode_rk4 steps_per_interval")
+            extra = rest[4:]
+        else:
+            extra = rest[3:]
+        if name != "ode_rk4" and self.scalarize:
+            raise NotImplementedError(
+                f"{name} under the generated in-kernel model: its step loop depends on "
+                "the data (use ode_rk4, or the eager model)")
+        f, tensors = self._solver_fn(fd, 2, extra)
+        y0 = to_tensor(_as_value(rest[0])).reshape(-1)
+        times = torch.cat([to_tensor(_as_value(rest[1])).reshape(1),
+                           to_tensor(_as_value(rest[2])).reshape(-1)])
+
+        def rhs(y, t, *a):
+            return to_tensor(f(t, y, *a)).reshape(y.shape)
+
+        if name == "ode_rk4":
+            return odeint_rk4(rhs, y0, times, tensors, steps)
+        return odeint_dopri5(rhs, y0, times, tensors, rtol, atol, mxstep)[1:]
+
+    def _integrate_1d(self, node: Call):
+        """Stan's integrate_1d(f, a, b, theta, x_r, x_i[, rel_tol]) with the
+        integrand f(x, xc, theta, x_r, x_i): the JAX frontend's 30-point
+        Gauss-Legendre rule (rel_tol accepted and ignored), the affine map of
+        [-1, 1] onto finite bounds (which may be parameters: the gradient
+        takes the boundary terms through the nodes), and Stan math's maps
+        for infinite ones: (a, inf) x = a + t/(1-t), (-inf, b) x = b -
+        t/(1-t), t in (0, 1), dx = dt/(1-t)^2; (-inf, inf) x = t/(1-t^2), dx
+        = (1+t^2)/(1-t^2)^2 dt, t in (-1, 1); xc is 0 there. A bound that
+        is data is infinite or not once; one that depends on the parameters
+        is tested lane by lane, each map reading the bounds with the
+        infinite ones set to 0."""
+        fd = self._user_fn(node, "integrand")
+        if len(node.args) < 6:
+            raise StanCompileError(
+                "integrate_1d(f, a, b, theta, x_r, x_i[, rel_tol]) takes at least 6 arguments")
+        a = _as_value(self.ev(node.args[1]))
+        b = _as_value(self.ev(node.args[2]))
+        rest = [_as_value(self.ev(node.args[k])) for k in (3, 4)] + [self.ev(node.args[5])]
+        if not is_tensor(a) and _is_inf(a, 1) or not is_tensor(b) and _is_inf(b, -1):
+            raise StanCompileError(
+                "integrate_1d: bounds must satisfy a < b (got a = +inf or b = -inf)")
+        a_inf, b_inf = _is_inf(a, -1), _is_inf(b, 1)
+        a_fin, b_fin = smath._where(a_inf, 0.0, a), smath._where(b_inf, 0.0, b)
+
+        def rule(lo_inf, hi_inf):
+            total = None
+            for xi, wi in zip(_GL_NODES, _GL_WEIGHTS):
+                xi, wi = float(xi), float(wi)
+                if not lo_inf and not hi_inf:
+                    half = (b_fin - a_fin) * 0.5
+                    x = (b_fin + a_fin) * 0.5 + half * xi
+                    xc = _minimum(x - a_fin, b_fin - x)
+                    jac = half * wi
+                elif not lo_inf:
+                    t = 0.5 + 0.5 * xi
+                    x, xc, jac = a_fin + t / (1.0 - t), 0.0, 0.5 * wi / (1.0 - t) ** 2
+                elif not hi_inf:
+                    t = 0.5 + 0.5 * xi
+                    x, xc, jac = b_fin - t / (1.0 - t), 0.0, 0.5 * wi / (1.0 - t) ** 2
+                else:
+                    x, xc = xi / (1.0 - xi * xi), 0.0
+                    jac = wi * (1.0 + xi * xi) / (1.0 - xi * xi) ** 2
+                term = jac * _as_value(self._call_user_fn(fd, [x, xc] + rest))
+                total = term if total is None else total + term
+            return total
+
+        def over_b(lo_inf):
+            if isinstance(b_inf, bool):
+                return rule(lo_inf, b_inf)
+            return smath._where(b_inf, rule(lo_inf, True), rule(lo_inf, False))
+
+        if isinstance(a_inf, bool):
+            return over_b(a_inf)
+        return smath._where(a_inf, over_b(True), over_b(False))
+
+    def _algebra_solve(self, node: Call):
+        """Stan's nonlinear systems (the JAX frontend's `_algebra_solve`):
+        algebra_solver / algebra_solver_newton(f, y_guess, theta, x_r, x_i[,
+        ...]) with f(y, theta, x_r, x_i), solve_newton / solve_powell(f,
+        y_guess, ...args) with f(y, ...args); all 16 Newton steps from the
+        guess, y <- y - (J + 1e-10 I)^-1 f(y), J by `torch.func.jacfwd`.
+        The gradient is that of the unrolled steps, the implicit function
+        theorem's at convergence."""
+        fd = self._user_fn(node, "system")
+        y = to_tensor(_as_value(self.ev(node.args[1]))).reshape(-1)
+        if node.name in ("algebra_solver", "algebra_solver_newton"):
+            if len(node.args) < 5:
+                raise StanCompileError(
+                    f"{node.name}(f, y_guess, theta, x_r, x_i) takes at least 5 arguments")
+            extra = [self.ev(a) for a in node.args[2:5]]
+        else:
+            extra = [self.ev(a) for a in node.args[2:]]
+        f, tensors = self._solver_fn(fd, 1, extra)
+
+        def system(yy):
+            return to_tensor(f(yy, *tensors)).reshape(-1)
+
+        eye = torch.eye(y.shape[0], dtype=y.dtype, device=y.device)
+        for _ in range(16):
+            fy = system(y)
+            jac = torch.func.jacfwd(system)(y)
+            y = y - torch.linalg.solve(jac + 1e-10 * eye, fy)
+        return y
+
     def _call(self, node: Call):
         name = node.name
-        if name in _NOT_PORTED_FNS:
-            raise StanCompileError(f"{name} {NOT_PORTED}")
+        if name in _ODE_SOLVERS:
+            return self._ode_solve(node)
+        if name == "integrate_1d":
+            return self._integrate_1d(node)
+        if name in _ALGEBRA_SOLVERS:
+            return self._algebra_solve(node)
         if name == "map_rect":
             # Stan's multi-process map: f(phi, theta_j, x_r_j, x_i_j) per job,
             # outputs concatenated; the jobs run one after another here.
@@ -1607,6 +1816,10 @@ class StanModel(CallableModel):
     program every call costs the host ~14 ms for radon at 512 particles on
     an H100's host, against a negligible device time (PERF.md, §5);
     `CallableModel.logp_and_grad(model, x, phi)` is the interpretation.
+    A program that reaches an adaptive ODE solver (`has_adaptive_solver`,
+    as `has_rng` marks one that draws) is interpreted every call: its step
+    loop depends on the data, and a graph would replay the traced inputs'
+    steps.
 
     `constrain` runs under `vmap(randomness="different")` inside a forked
     RNG state, so generated quantities that draw (`*_rng`) are deterministic
@@ -1616,21 +1829,24 @@ class StanModel(CallableModel):
     # dropped beyond.
     MAX_GRAPHS = 8
 
-    def __init__(self, *args, has_rng=False, **kw):
+    def __init__(self, *args, has_rng=False, has_adaptive_solver=False, **kw):
         super().__init__(*args, **kw)
         self.has_rng = has_rng
+        self.has_adaptive_solver = has_adaptive_solver
         self._graphs: dict = {}
 
     def logp_and_grad(self, x, phi=1.0):
+        if self.has_adaptive_solver:
+            return super().logp_and_grad(x, phi)
         if not (isinstance(phi, torch.Tensor) and phi.dim() > 0):
             phi = torch.as_tensor(phi, dtype=x.dtype, device=x.device).expand(x.shape[0])
         key = (tuple(x.shape), x.dtype, x.device, phi.dtype)
         graph = self._graphs.get(key)
         if graph is None:
-            from torch.fx.experimental.proxy_tensor import make_fx
+            from ..ops.generated import trace_fx
 
             interpreted = super().logp_and_grad
-            graph = make_fx(lambda xx, pp: interpreted(xx, pp))(x, phi.contiguous())
+            graph = trace_fx(lambda xx, pp: interpreted(xx, pp), x, phi.contiguous())
             if len(self._graphs) >= self.MAX_GRAPHS:
                 self._graphs.pop(next(iter(self._graphs)))
             self._graphs[key] = graph
@@ -1645,11 +1861,16 @@ class StanModel(CallableModel):
 
 
 def _uses_rng(stmts) -> bool:
+    return _calls(stmts, lambda name: name.endswith("_rng"))
+
+
+def _calls(stmts, pred) -> bool:
+    """Does a call whose name satisfies pred occur in stmts?"""
     found = False
 
     def visit(node):
         nonlocal found
-        if isinstance(node, Call) and node.name.endswith("_rng"):
+        if isinstance(node, Call) and pred(node.name):
             found = True
         if isinstance(node, (list, tuple)):
             for x in node:
@@ -1835,6 +2056,9 @@ def compile_stan_program(source: str, data: dict, name: str = "stan",
     for s in specs:
         param_names.extend(s.names())
     has_rng = _uses_rng(gq_block)
+    # Every block, the functions' bodies included.
+    has_adaptive_solver = _calls(list(prog.blocks.values()),
+                                 lambda name: name in _ADAPTIVE_SOLVERS)
     with torch.no_grad(), torch.random.fork_rng(devices=[]):
         n_tp_all = int(constrain(probe, include_gq=False).shape[0])
         n_all = int(constrain(probe).shape[0])
@@ -1878,6 +2102,7 @@ def compile_stan_program(source: str, data: dict, name: str = "stan",
     return StanModel(
         name, dim, logprior, loglik, constrain=constrain, constrained_dim=n_all,
         param_names=tuple(param_names), tile_model=tile_model, has_rng=has_rng,
+        has_adaptive_solver=has_adaptive_solver,
     )
 
 

@@ -179,10 +179,14 @@ def test_backend_resolution():
                          nuts_backend="cuda")
     with pytest.raises(ValueError, match="CUDA device"):
         resolve_backend(cuda_cfg, torch.device("cpu"))
+    # float64 runs the eager tree on the card; the kernels stay float32.
     f64 = SMCConfig(n_particles=8, n_iterations=1, step_size=0.01,
                     dtype="float64")
-    with pytest.raises(NotImplementedError, match="float64 on CUDA"):
-        resolve_backend(f64, torch.device("cuda"))
+    assert resolve_backend(f64, torch.device("cuda")) == "eager"
+    f64_cuda = SMCConfig(n_particles=8, n_iterations=1, step_size=0.01,
+                         dtype="float64", nuts_backend="cuda")
+    with pytest.raises(NotImplementedError, match="float32 only"):
+        resolve_backend(f64_cuda, torch.device("cuda"))
 
 
 def test_float64_eager_run_cpu():
