@@ -6,7 +6,7 @@
     (phase keys: arma, prmwcd, main, batched, staged_times, cli, autodiff,
     gaussian, logistic, eightschools (phase 8 for one model alone),
     strategies, fused_kernel, eager, unfused, wide_eager, generated, runner,
-    stan, solvers; device, build and peak always run first)
+    stan, solvers, mesh; device, build and peak always run first)
 
 Phases, each printing its own lines; any failure raises (non-zero exit):
 
@@ -286,6 +286,27 @@ solvers. float64 on the card, the rest of the Stan frontend, the special
    libdevice calls they emit (cos, sin, erf, erfc, lgamma) equal to torch's op on every float32 of the range the
    densities use (`ops.generated.libdevice_unary`), timed beside torch's
    op (a measurement entry).
+
+mesh. the particle and run axes over torch.distributed process groups
+   (`smcnuts_torch/parallel/`; the ranks load the libraries phase 2 built).
+   (a) `python -m torch.distributed.run --standalone --nproc-per-node 1 -m
+   smcnuts_torch --mesh` arma at N=512, K=100, depth 10 on NCCL: its JSON
+   equal to the run without --mesh. If the card's compute mode keeps a
+   second process off it, (b)-(d) are not run and the phase says so. (b)
+   arma forwards at N = 1,048,576 (the multihost entry's default), K=20,
+   depth 10, over 2 and then 4 rank processes sharing the card (gloo on
+   CUDA tensors; `parallel/gang.py`'s `wide` job): every field equal to
+   the unsharded run on the card to the bit, K dispatches a rank, each
+   rank's kernel on its final shard (device alone, one rank at a time),
+   the collectives' calls, bytes and milliseconds an iteration, the walls
+   beside the unsharded run's (one card: overhead, not scaling). (c)
+   PRMwCD at 25 x 512 x K=100 over 2 ranks: each rank's "auto" stages its
+   6,400 lanes; equal to the unsharded run to the bit. (d) `Supervisor`
+   over 2 ranks of the multihost entry at (b)'s size, K=10 in chunks of 5,
+   rank 1 exiting after chunk 1 (its recovery drill): the restarted gang
+   resumes from the checkpoint, equal to the unsharded K=10 run and to (b)'s
+   first 10 iterations to the bit. The ranks' dispatches count on the arma
+   and PRMwCD rows of the kernels line.
 
 The line before the last two repeats the card's name and power limit, the
 second-to-last line is a JSON object describing the kernels (for each: the
@@ -3503,12 +3524,13 @@ def stan_witness(name, model, witness, build, x, step, row, smi):
 # 10, on an NVIDIA H100 80GB HBM3 at 700 W; PERF.md).
 F64_RUNS, F64_N, F64_K, F64_DEPTH = 5, 256, 10, 5
 # lv_rk45 on the eager backend in float64: reduced from the main path's 25 x
-# 512 x K=100 at depth 10 to one run of 64 x K=2 at depth 3, started around
+# 512 x K=100 at depth 10 to one run of 64 x K=2 at depth 2, started around
 # the data's generating values. Each logp_and_grad call solves the ODE and
 # its adjoint under a host loop a step, so a call costs seconds whatever the
 # lanes: 1 x 256 x K=2 at depth 3 took 208 s, 16 calls an iteration at 6.5 s
-# each (NVIDIA H100 80GB HBM3, 700 W; PERF.md).
-LV_EAGER_N, LV_EAGER_K, LV_EAGER_DEPTH, LV_CHECK_N, LV_TIMED_N = 64, 2, 3, 64, 256
+# each, and 1 x 64 x K=2 at depth 3 140 s (NVIDIA H100 80GB HBM3, 700 W;
+# PERF.md); depth 2 makes room for phase mesh in the script's time limit.
+LV_EAGER_N, LV_EAGER_K, LV_EAGER_DEPTH, LV_CHECK_N, LV_TIMED_N = 64, 2, 2, 64, 256
 SPECIAL_K = 10  # the short main-path run of each special-function program
 # The float32 inputs each libdevice call is swept over, every one of them:
 # the ranges the densities use.
@@ -3861,6 +3883,231 @@ def solvers_phase(smi, prep):
     return rows
 
 
+# ---- phase mesh: the particle and run axes over a process group.
+
+# (b): arma forwards at the multihost entry's default N (full width), K=20,
+# depth 10, one run, over 2 and 4 rank processes sharing the card (gloo);
+# without the saved history, as the multihost entry runs it.
+MESH_WIDE = dict(n_particles=1 << 20, n_iterations=20, step_size=STEP,
+                 max_tree_depth=MAX_DEPTH, save_history=False)
+MESH_RANKS = (2, 4)
+# (d): the elastic gang at (b)'s size, K=10 in chunks of 5.
+MESH_ELASTIC_K, MESH_ELASTIC_CHUNK = 10, 5
+
+
+def mesh_npz_diff(path, want):
+    """Fields of an SMCResult `want` in which the .npz at path differs in
+    any bit (or is missing)."""
+    import numpy as np
+
+    got = np.load(path)
+    diff = []
+    for name, v in want._asdict().items():
+        if v is None:
+            continue
+        w = v.detach().cpu().numpy()
+        g = got[name] if name in got.files else None
+        if (g is None or g.shape != w.shape or g.dtype != w.dtype
+                or not np.array_equal(np.atleast_1d(g).view(np.uint8),
+                                      np.atleast_1d(w).view(np.uint8))):
+            diff.append(name)
+    return diff
+
+
+def mesh_rank_lines(label, infos, k):
+    """Each rank's line of a gang's run (gang.py's `wide` job), and checks
+    that every rank launched its kernel once an iteration."""
+    for info in infos:
+        if info["launches"] != k:
+            raise AssertionError(f"{label}: rank {info['rank']} dispatched "
+                                 f"{info['launches']} times, not {k}")
+        print(f"  rank {info['rank']} of {info['size']}: {info['lanes']} lanes, "
+              f"{info['launches']} dispatches in {info['stage_launches']} kernel launches "
+              f"(splits {info['splits']}), {info['resampled']} run-iterations resampled, "
+              f"wall {1e3 * info['wall_s']:.1f} ms; its kernel "
+              f"on its final shard {info['kernel_ms']:.4f} ms (device alone, one rank at a "
+              f"time); collectives {info['collective_calls'] / k:.1f} calls, "
+              f"{info['collective_bytes_in'] / k / 2**20:.3f} MiB in and "
+              f"{1e3 * info['collective_s'] / k:.2f} ms an iteration (gloo, device "
+              f"synchronised around each)")
+
+
+def mesh_phase(smi):
+    """Phase mesh: the particle and run axes over torch.distributed process
+    groups (`smcnuts_torch/parallel/`). (a) `python -m torch.distributed.run
+    --standalone --nproc-per-node 1 -m smcnuts_torch --mesh` arma at N=512,
+    K=100, depth 10 (NCCL, world size 1): its JSON equal to the run without
+    --mesh. The card's compute mode must let processes share it for the
+    rest: (b) arma forwards at N = 1,048,576, K=20, depth 10, over 2 and 4
+    rank processes sharing the card (gloo on CUDA tensors): every field equal
+    to the unsharded run on the card to the bit, K dispatches a rank, each
+    rank's kernel time and collectives, the walls against the unsharded run;
+    (c) PRMwCD at 25 x 512 x K=100 over 2 ranks (in (b)'s gang of 2), each
+    rank's "auto" staging its 6,400 lanes: equal to the unsharded run to the
+    bit; (d) `Supervisor` over 2 ranks of the multihost entry at (b)'s size,
+    K=10 in chunks of 5, rank 1 exiting after chunk 1, the gang restarted
+    from the checkpoint: equal to the unsharded K=10 run and to (b)'s first
+    iterations to the bit. The libraries are built (phase 2) before any rank
+    starts. Returns the NUTS dispatches and continuation launches of the
+    phase, this process's and the ranks', per model."""
+    import tempfile
+
+    from smcnuts_torch import SMCConfig, run_smc, run_smc_batched
+    from smcnuts_torch.models import get_model
+    from smcnuts_torch.parallel import Supervisor, gang
+    from smcnuts_torch.utils.timing import CudaTimer
+
+    phase("mesh. the particle and run axes over a process group")
+    started = time.perf_counter()
+    repo = os.path.dirname(os.path.abspath(__file__))
+    counts = PhaseCounts()
+    ranks = {"launches": {}, "cont": {}}
+    tmp = tempfile.TemporaryDirectory()
+
+    # (a) torchrun, NCCL, world size 1, through the CLI.
+    argv = ["--model", "arma", "-N", str(N), "-K", str(K), "--max-tree-depth", str(MAX_DEPTH)]
+    t0 = time.perf_counter()
+    # torchrun's worker does not put the working directory on its path.
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (repo, os.environ.get("PYTHONPATH")) if p))
+    run = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
+         "1", "-m", "smcnuts_torch", "--mesh", *argv],
+        cwd=repo, env=env, capture_output=True, text=True, timeout=600)
+    if run.returncode != 0:
+        raise AssertionError(f"(a) torchrun --mesh failed ({run.returncode}):\n"
+                             f"{run.stdout[-3000:]}\n{run.stderr[-3000:]}")
+    printed = json.loads(run.stdout[run.stdout.index("{"):run.stdout.rindex("}") + 1])
+    wall_a = time.perf_counter() - t0
+    plain, launched, plain_calls, _ = counts.run(lambda: quiet_cli(argv))
+    if printed != plain or launched["arma"] != K or plain_calls:
+        raise AssertionError(f"(a) the --mesh JSON differs from the run without it, or "
+                             f"the run dispatched {launched['arma']} times: {printed} "
+                             f"against {plain}")
+    print(f"(a) torchrun --standalone --nproc-per-node 1 -m smcnuts_torch --mesh (NCCL, "
+          f"world size 1) arma N={N} K={K} depth {MAX_DEPTH}: its JSON equals the run "
+          f"without --mesh; {wall_a:.1f} s with the launcher and the process's start")
+
+    mode = subprocess.run(["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60).stdout.strip()
+    print(f"compute mode: {mode}")
+    if mode.splitlines()[0] != "Default":
+        print(f"(b)-(d) not run: the compute mode {mode!r} keeps a second process off the "
+              f"card ({smi})")
+        tmp.cleanup()
+        return counts, ranks
+
+    def add_ranks(model, infos):
+        ranks["launches"][model] = ranks["launches"].get(model, 0) + sum(
+            i["launches"] for i in infos)
+        ranks["cont"][model] = ranks["cont"].get(model, 0) + sum(
+            i["stage_launches"] - i["launches"] for i in infos)
+
+    # (b) and (c): the unsharded runs on the card, then the gangs.
+    arma, prmwcd = get_model("arma").to("cuda"), get_model("prmwcd").to("cuda")
+    cfg_b = SMCConfig(**MESH_WIDE)
+    cfg_c = SMCConfig(n_particles=N, n_iterations=K, step_size=STEP, max_tree_depth=MAX_DEPTH)
+
+    def timed(fn):
+        with CudaTimer() as t:
+            res = fn()
+            res.mean_estimate.cpu()
+        return res, t.ms
+
+    (ref_b, wall_b), _, _, _ = counts.run(lambda: timed(
+        lambda: run_smc_batched(arma, cfg_b, [0], "cuda")))
+    (ref_c, wall_c), _, _, _ = counts.run(lambda: timed(
+        lambda: run_smc_batched(prmwcd, cfg_c, SEEDS, "cuda")))
+    check_series("(b) unsharded", ref_b, cfg_b.n_iterations)
+    check_series("(c) unsharded", ref_c, K)
+    runs = [{"name": "arma", "model": "arma", "seeds": [0], "config": MESH_WIDE},
+            {"name": "prmwcd", "model": "prmwcd", "seeds": SEEDS,
+             "config": dict(n_particles=N, n_iterations=K, step_size=STEP,
+                            max_tree_depth=MAX_DEPTH)}]
+    for size in MESH_RANKS:
+        out = os.path.join(tmp.name, f"gang{size}")
+        os.makedirs(out)
+        t0 = time.perf_counter()
+        gang.launch(out, size, ["wide"], {"runs": runs if size == 2 else runs[:1]},
+                    backend="gloo", device="cuda", timeout=900)
+        gang_s = time.perf_counter() - t0
+        for name, ref, wall, k in (("arma", ref_b, wall_b, cfg_b.n_iterations),
+                                   ("prmwcd", ref_c, wall_c, K)):
+            stem = os.path.join(out, f"wide_{name}_P{size}")
+            if not os.path.exists(stem + ".npz"):
+                continue
+            diff = mesh_npz_diff(stem + ".npz", ref)
+            if diff:
+                raise AssertionError(f"{'(b)' if name == 'arma' else '(c)'} {name} over "
+                                     f"{size} ranks differs from the unsharded run in {diff}")
+            with open(stem + ".json") as f:
+                infos = json.load(f)
+            label = (f"(b) arma N={cfg_b.n_particles} K={k}" if name == "arma" else
+                     f"(c) PRMwCD {RUNS} x {N} x K={K}")
+            if name == "prmwcd" and not all(i["splits"] and i["stage_launches"] > i["launches"]
+                                            for i in infos):
+                raise AssertionError(f"{label}: a rank did not stage its "
+                                     f"{infos[0]['lanes']} lanes: {infos}")
+            walls = ", ".join(f"{1e3 * i['wall_s']:.1f}" for i in infos)
+            print(f"{label} over {size} ranks sharing the card (gloo): every field equal to "
+                  f"the unsharded run on the card to the bit; walls {walls} ms against the "
+                  f"unsharded {wall:.1f} ms (CUDA events); one card, so this is the "
+                  f"collectives' and the processes' overhead, not scaling ({smi})")
+            mesh_rank_lines(label, infos, k)
+            add_ranks(name, infos)
+        print(f"  the gang of {size}: {gang_s:.1f} s with its processes' start")
+
+    # (d) the elastic gang.
+    ckpt, output = os.path.join(tmp.name, "elastic.npz"), os.path.join(tmp.name, "elastic_out.npz")
+
+    def make_cmd(pid, coordinator, attempt):
+        cmd = [sys.executable, "-m", "smcnuts_torch.parallel.multihost", "--backend", "gloo",
+               "--device", "cuda", "--model", "arma", "-N", str(MESH_WIDE["n_particles"]),
+               "-K", str(MESH_ELASTIC_K), "--max-tree-depth", str(MAX_DEPTH),
+               "--step-size", str(STEP), "--checkpoint", ckpt,
+               "--chunk-size", str(MESH_ELASTIC_CHUNK), "--output", output,
+               "--coordinator", coordinator, "--num-processes", "2", "--process-id", str(pid)]
+        return cmd + (["--crash-after-chunk", "1"] if pid == 1 and attempt == 0 else [])
+
+    t0 = time.perf_counter()
+    sup = Supervisor(make_cmd, 2, max_restarts=1, cwd=repo)
+    inc = sup.run(timeout=900)
+    elastic_s = time.perf_counter() - t0
+    first = sup.incarnations[0]
+    if (len(sup.incarnations) != 2 or 17 not in first.returncodes
+            or "resumed=True" not in inc.outputs[0]):
+        raise AssertionError(f"(d) the gang did not fail once and resume: "
+                             f"{[i.returncodes for i in sup.incarnations]}\n{inc.outputs[0][-2000:]}")
+    cfg_d = SMCConfig(**{**MESH_WIDE, "n_iterations": MESH_ELASTIC_K})
+    ref_d, _, _, _ = counts.run(lambda: run_smc(arma, cfg_d, 0, "cuda"))
+    diff = mesh_npz_diff(output, ref_d)
+    if diff:
+        raise AssertionError(f"(d) the resumed gang differs from the unsharded run in {diff}")
+    import numpy as np
+
+    got = np.load(output)
+    k = MESH_ELASTIC_K
+    prefix = [f for f in ("ess", "log_likelihood", "phi", "acceptance_rate", "resampled",
+                          "step_size", "tree_depth", "tree_leapfrogs", "accept_stat",
+                          "mean_estimate", "variance_estimate")
+              if not np.array_equal(got[f][:k], getattr(ref_b, f)[0, :k].cpu().numpy())]
+    prefix += [f for f in ("ess", "log_likelihood", "phi", "mean_estimate",
+                           "variance_estimate")
+               if not np.array_equal(got[f][k], getattr(ref_b, f)[0, k].cpu().numpy())]
+    if prefix:
+        raise AssertionError(f"(d) the resumed gang differs from (b)'s first {k} "
+                             f"iterations in {prefix}")
+    print(f"(d) Supervisor over 2 ranks of the multihost entry (gloo on the card), arma "
+          f"N={MESH_WIDE['n_particles']} K={k} in chunks of {MESH_ELASTIC_CHUNK}: rank 1 "
+          f"exited after chunk 1 (return codes {first.returncodes}), the gang restarted and "
+          f"resumed from the checkpoint; every field equal to the unsharded K={k} run, and "
+          f"its series to (b)'s first {k} iterations, to the bit; {elastic_s:.1f} s for both "
+          f"incarnations ({smi})")
+    tmp.cleanup()
+    print(f"phase mesh: {time.perf_counter() - started:.1f} s")
+    return counts, ranks
+
+
 def partial_run(only, smi, stan_prep, solvers_prep):
     """The phases named in `only` (after device and build), for development:
     no kernels line and no "ok" line, so it cannot pass for the whole run."""
@@ -3875,7 +4122,8 @@ def partial_run(only, smi, stan_prep, solvers_prep):
               "unfused": unfused_kernel_phase, "wide_eager": wide_eager_phase,
               "generated": generated_phase, "runner": runner_phase,
               "stan": lambda smi: stan_phase(smi, stan_prep),
-              "solvers": lambda smi: solvers_phase(smi, solvers_prep)}
+              "solvers": lambda smi: solvers_phase(smi, solvers_prep),
+              "mesh": mesh_phase}
     for key in only:
         phases[key](smi)
     print(f"\nchip_smoke: partial run of {only} passed; no result line")
@@ -3907,7 +4155,14 @@ def main():
     tally = runner_phase(smi)
     stan, stan_witnesses = stan_phase(smi, stan_prep)
     solvers = solvers_phase(smi, solvers_prep)
+    mesh_counts, mesh_ranks = mesh_phase(smi)
     source = "smcnuts_torch/csrc/nuts_tree.cuh"
+
+    def mesh_launches(kind, model):
+        """Phase mesh's launches of a model: this process's and its ranks'."""
+        own = mesh_counts.launches if kind == "launches" else mesh_counts.cont
+        return own.get(model, 0) + mesh_ranks[kind].get(model, 0)
+
     # No single PyTorch call builds a NUTS tree, computes the fused ARMA
     # value and gradient or runs FMA chains, so no kernel but libdevice_unary
     # (torch's op) has a library time.
@@ -3916,22 +4171,22 @@ def main():
         dict(name="nuts_tree_arma", route="cuda", source="smcnuts_torch/csrc/arma_model.cuh",
              replaces="smcnuts_tpu/ops/nuts_pallas.py:154",
              launches=arma_launches + batched["arma"] + strategies["arma"]
-             + tally.launches["arma"], **arma),
+             + tally.launches["arma"] + mesh_launches("launches", "arma"), **arma),
         # K3, inlined into the K1 instantiation this entry launches.
         dict(name="nuts_tree_prmwcd", route="cuda",
              source="smcnuts_torch/csrc/prmwcd_model.cuh",
              replaces="smcnuts_tpu/ops/nuts_pallas.py:1803",
              launches=batched["prmwcd"] + prm_cli + strategies["prmwcd"]
-             + tally.launches["prmwcd"], **prmwcd),
+             + tally.launches["prmwcd"] + mesh_launches("launches", "prmwcd"), **prmwcd),
         # K4: the continuation-stage instantiations of the staged dispatch.
         dict(name="nuts_tree_arma_staged", route="cuda", source=source,
              replaces="smcnuts_tpu/ops/nuts_pallas.py:794",
-             launches=cont["arma"] + strategies_cont["arma"] + tally.cont["arma"],
-             **arma_staged),
+             launches=cont["arma"] + strategies_cont["arma"] + tally.cont["arma"]
+             + mesh_launches("cont", "arma"), **arma_staged),
         dict(name="nuts_tree_prmwcd_staged", route="cuda", source=source,
              replaces="smcnuts_tpu/ops/nuts_pallas.py:794",
-             launches=cont["prmwcd"] + strategies_cont["prmwcd"] + tally.cont["prmwcd"],
-             **prmwcd_staged),
+             launches=cont["prmwcd"] + strategies_cont["prmwcd"] + tally.cont["prmwcd"]
+             + mesh_launches("cont", "prmwcd"), **prmwcd_staged),
         # The W = 1 witnesses of K1 + K2 and K1 + K3 (one thread a particle),
         # measurement entries that the main path never dispatches: 0
         # launches, and marked.

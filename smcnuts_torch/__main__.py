@@ -14,8 +14,17 @@ target in place of `--model`, with a default step size of 0.5, as that CLI
 does; it runs on the eager backend by autograd, and with `--stan-tile` the
 program also gets a generated in-kernel model, so that `--nuts-backend auto`
 on a card runs it inside the CUDA NUTS kernel. Without `--stan`, `--data`
-and `--stan-tile` change nothing, as in that CLI. `--mesh` is not ported
-yet and raises NotImplementedError naming its ROADMAP item.
+and `--stan-tile` change nothing, as in that CLI.
+
+`--mesh` shards the particles over a process group (`parallel/`): under
+torchrun, every rank it starts (one a card, NCCL, device cuda:{LOCAL_RANK};
+gloo with `--device cpu`),
+
+    torchrun --standalone --nproc-per-node 4 -m smcnuts_torch --mesh -N 1048576
+
+and without a launcher a group of one process. Rank 0 prints the JSON, which
+equals that of the same run without `--mesh`, to the bit; `--checkpoint`
+writes the global file from rank 0 and resumes at any number of ranks.
 """
 
 from __future__ import annotations
@@ -24,10 +33,6 @@ import argparse
 import json
 
 import numpy as np
-
-_NOT_PORTED = {  # flag attribute -> ROADMAP item
-    "mesh": "Queue 1 item 10",
-}
 
 
 def main(argv=None) -> dict:
@@ -64,21 +69,32 @@ def main(argv=None) -> dict:
     p.add_argument("--tempering", action="store_true")
     p.add_argument("--adapt-step-size", action="store_true")
     p.add_argument("--adapt-mass-matrix", action="store_true")
-    # Accepted so that it fails loudly, not as an unknown flag.
-    p.add_argument("--mesh", action="store_true")
+    p.add_argument("--mesh", action="store_true",
+                   help="shard the particles over the process group torchrun set "
+                        "up (NCCL on cuda, gloo on cpu), or a group of one")
     p.add_argument("--checkpoint", default=None,
                    help="checkpoint path (a chunked run that resumes from it)")
     p.add_argument("--chunk-size", type=int, default=10)
     p.add_argument("--output", default=None, help="save the results' .npz here")
     args = p.parse_args(argv)
+    if not args.mesh:
+        return _main(args)
 
-    for flag, item in _NOT_PORTED.items():
-        if getattr(args, flag) not in (None, False):
-            raise NotImplementedError(
-                f"--{flag.replace('_', '-')} is not ported to smcnuts_torch "
-                f"yet (ROADMAP {item})"
-            )
+    import torch
+    import torch.distributed as dist
 
+    from .parallel.multihost import initialize
+
+    owned = not dist.is_initialized()
+    initialize(backend="nccl" if torch.device(args.device).type == "cuda" else "gloo")
+    try:
+        return _main(args)
+    finally:
+        if owned:
+            dist.destroy_process_group()
+
+
+def _main(args) -> dict:
     from .config import SMCConfig
     from .models import default_step_size, get_model
     from .sampler import run_smc
@@ -107,14 +123,25 @@ def main(argv=None) -> dict:
         adapt_step_size=args.adapt_step_size,
         adapt_mass_matrix=args.adapt_mass_matrix,
     )
+    group, device = None, args.device
+    if args.mesh:
+        from .parallel.sharding import particle_group
+
+        # Under NCCL the rank's own card (cuda:{LOCAL_RANK}).
+        group = particle_group(device=None if device == "cuda" else device)
+        device = group.device
     if args.checkpoint:
         from .runner import ChunkedRunner
 
         result = ChunkedRunner(model, cfg, checkpoint_path=args.checkpoint,
                                chunk_size=args.chunk_size,
-                               device=args.device).run(args.seed)
+                               device=device, group=group).run(args.seed)
     else:
-        result = run_smc(model, cfg, args.seed, args.device)
+        result = run_smc(model, cfg, args.seed, device, group=group)
+    if group is not None:
+        from .parallel.sharding import gather_result
+
+        result = gather_result(result, group)
 
     summary = {
         "model": args.model,
@@ -127,6 +154,8 @@ def main(argv=None) -> dict:
         "log_likelihood": float(result.log_likelihood[-1]),
         "phi_schedule": [round(v, 4) for v in result.phi.tolist()],
     }
+    if group is not None and group.rank != 0:
+        return summary
     print(json.dumps(summary, indent=1))
     if args.output:
         np.savez(args.output, **{f: v.cpu().numpy() for f, v in result._asdict().items()

@@ -1,10 +1,11 @@
 // Draw sources of the NUTS kernel; the plain version is smcnuts_torch/ops/draws.py.
 //
 // A draw is addressed by its place in the tree, key (seed of the run's
-// iteration, 0) and counter (particle within its run, kind, doubling j, slot
-// l), so it depends neither on the block layout, nor on when a thread reaches
-// it, nor on the run's place in a batch. One Philox4x32-10 block
-// per draw; its first word is used.
+// iteration, 0) and counter (global particle index within its run, kind,
+// doubling j, slot l), so it depends neither on the block layout, nor on
+// when a thread reaches it, nor on the run's place in a batch, nor on which
+// rank holds the particle. One Philox4x32-10 block per draw; its first word
+// is used.
 #pragma once
 
 #include <cstdint>
@@ -39,7 +40,7 @@ __device__ __forceinline__ uint32_t philox4x32_10_word0(
 
 struct TreeDraws {
   uint32_t key0;      // seed of the run's iteration
-  uint32_t particle;  // particle index within the run
+  uint32_t particle;  // global particle index within the run
   bool zero_bits;     // every word 0: every uniform is 2^-24
 
   // u = ((w >> 8) + 1) * 2^-24 in (0, 1]; exact in float.

@@ -87,7 +87,8 @@
 // (group_floats). Random numbers are addressed by their place in the tree and
 // keyed by the run's seed alone (draws.cuh), so run b of a batch draws what
 // it would draw alone, and a lane draws the same bits whichever stage and
-// slot it is in.
+// slot it is in; a shard of the particles (p_offset, p_stride) draws what
+// its particles draw in the unsharded launch.
 //
 // Staging (the answer to warp divergence and to the block's tail): a stage
 // runs doublings start_depth..stop_depth. A group whose tree ends inside the
@@ -144,6 +145,8 @@ struct TreeArgs {
   const float* eps;       // (n_runs,)
   const float* inv_mass;  // (n_runs, D)
   int n_per_run;
+  int p_offset;           // the particle map of a shard: local particle j of a
+  int p_stride;           // run draws as global particle p_offset + p_stride j
   int total;              // P = n_runs * n_per_run
   int max_depth;
   bool zero_bits;
@@ -480,7 +483,8 @@ __device__ __forceinline__ void nuts_tree_body(const TreeArgs a) {
 #pragma unroll
   for (int d = 0; d < D; ++d) im[d] = a.inv_mass[run * D + d];
   const TreeDraws draws{static_cast<uint32_t>(a.seed[run]),
-                        static_cast<uint32_t>(p - run * a.n_per_run), a.zero_bits};
+                        static_cast<uint32_t>(a.p_offset + a.p_stride * (p - run * a.n_per_run)),
+                        a.zero_bits};
 
   // The group's shared memory; every lane of the group stores the same
   // values there, and a __syncwarp after each batch of stores orders them
@@ -731,12 +735,14 @@ int blocks_per_sm(int n_data) {
 template <class Model, int kBlock = kThreads>
 int launch(const float* x, const float* r, const float* data, int n_data, const float* scalars,
            int n_scalars, const int32_t* seed, const float* phi, const float* eps,
-           const float* inv_mass, int n_runs, int n_per_run, int max_depth, int zero_bits,
-           int acc_rej, int start_depth, int stop_depth, const float* cont_in, const int* n_in,
-           float* cont_out, int* n_out, float* x_out, float* r_out, float* stats, void* stream) {
+           const float* inv_mass, int n_runs, int n_per_run, int p_offset, int p_stride,
+           int max_depth, int zero_bits, int acc_rej, int start_depth, int stop_depth,
+           const float* cont_in, const int* n_in, float* cont_out, int* n_out, float* x_out,
+           float* r_out, float* stats, void* stream) {
   const bool cont = cont_in != nullptr;
   const bool last = stop_depth == max_depth;
   if (max_depth < 0 || max_depth > kMaxDepth || n_runs < 1 || n_per_run < 1 ||
+      p_offset < 0 || p_stride < 1 || p_offset >= p_stride ||
       n_scalars < 0 || n_scalars > kMaxScalars || !Model::accepts(n_data, n_scalars) ||
       start_depth < 0 || start_depth > stop_depth || stop_depth > max_depth ||
       cont != (start_depth > 0) || cont != (n_in != nullptr) ||
@@ -746,8 +752,8 @@ int launch(const float* x, const float* r, const float* data, int n_data, const 
   ModelScalars s{};
   for (int i = 0; i < n_scalars; ++i) s.v[i] = scalars[i];
   const TreeArgs args{x, r, data, n_data, s, seed, phi, eps, inv_mass, n_per_run,
-                      n_runs * n_per_run, max_depth, zero_bits != 0, acc_rej != 0,
-                      start_depth, stop_depth, cont_in, n_in, cont_out, n_out,
+                      p_offset, p_stride, n_runs * n_per_run, max_depth, zero_bits != 0,
+                      acc_rej != 0, start_depth, stop_depth, cont_in, n_in, cont_out, n_out,
                       x_out, r_out, stats};
   // A continuation stage is launched over every lane too: the count of its
   // lanes stays on the device.
@@ -773,18 +779,21 @@ int launch(const float* x, const float* r, const float* data, int n_data, const 
 // the caller owns every buffer. `scalars` is a host array of n_scalars
 // floats. A stage with start_depth > 0 reads its lanes from cont_in / n_in; a
 // stage with stop_depth < max_depth fills cont_out / n_out (n_out zeroed by
-// the caller); the pointers a stage does not use are null.
+// the caller); the pointers a stage does not use are null. Local particle j
+// of a run draws as global particle p_offset + p_stride j (0 and 1 unsharded;
+// a shard's rank and rank count, parallel/sharding.py).
 // SMCNUTS_ENTRY(NAME, MODEL) launches blocks of kThreads threads,
 // SMCNUTS_ENTRY(NAME, MODEL, THREADS) blocks of THREADS.
 #define SMCNUTS_ENTRY(NAME, ...)                                                                \
   int NAME(const float* x, const float* r, const float* data, int n_data, const float* scalars, \
            int n_scalars, const int32_t* seed, const float* phi, const float* eps,              \
-           const float* inv_mass, int n_runs, int n_per_run, int max_depth, int zero_bits,      \
-           int acc_rej, int start_depth, int stop_depth, const float* cont_in,                  \
-           const int* n_in, float* cont_out, int* n_out, float* x_out, float* r_out,            \
-           float* stats, void* stream) {                                                        \
+           const float* inv_mass, int n_runs, int n_per_run, int p_offset, int p_stride,        \
+           int max_depth, int zero_bits, int acc_rej, int start_depth, int stop_depth,          \
+           const float* cont_in, const int* n_in, float* cont_out, int* n_out, float* x_out,    \
+           float* r_out, float* stats, void* stream) {                                          \
     return smcnuts::launch<__VA_ARGS__>(x, r, data, n_data, scalars, n_scalars, seed, phi,    \
-                                        eps, inv_mass, n_runs, n_per_run, max_depth,          \
-                                        zero_bits, acc_rej, start_depth, stop_depth, cont_in, \
-                                        n_in, cont_out, n_out, x_out, r_out, stats, stream);  \
+                                        eps, inv_mass, n_runs, n_per_run, p_offset, p_stride, \
+                                        max_depth, zero_bits, acc_rej, start_depth,           \
+                                        stop_depth, cont_in, n_in, cont_out, n_out, x_out,    \
+                                        r_out, stats, stream);                                \
   }

@@ -13,7 +13,7 @@
 
 Every field and argument has a leading run axis: (B,) scalars, (B, N, D)
 particles, (B, D) inverse masses. Sums over particles take the fixed order
-of `ops.reduce`.
+of `ops.reduce`, over the ranks of a particle group where one is given.
 """
 
 from __future__ import annotations
@@ -62,12 +62,13 @@ def da_update(state: DualAveragingState, accept_stat, target=0.8,
     )
 
 
-def mass_matrix_from_particles(x, wn, inv_mass_old, floor=1e-6, damping=0.5):
+def mass_matrix_from_particles(x, wn, inv_mass_old, floor=1e-6, damping=0.5,
+                               group=None):
     """Diagonal inverse mass from the weighted particle variance, smoothed
     geometrically against the previous estimate (raw importance-weighted
     variances from a mismatched initial proposal can be wildly off; damping
     keeps the feedback loop stable)."""
-    _, var = weighted_moments(x, wn)
+    _, var = weighted_moments(x, wn, group)
     var = torch.clamp(var, min=floor)
     return torch.exp(
         damping * torch.log(var) + (1.0 - damping) * torch.log(inv_mass_old)

@@ -27,6 +27,11 @@ momenta drawn outside the tree (Box-Muller of the uniforms at counters
 accept-reject made outside it (counter (i, ACCEPT_UNIFORM, k, 0)).
 `run_draws`, `recycle_draws`, `momentum_draws` and `accept_draws` compute
 them for many iterations at once, so the SMC loop adds no launches for them.
+Every counter holds the particle's global index: a rank that holds a shard
+of the particles (`parallel.sharding`) passes its global indices (`index`)
+and draws what the unsharded run draws at those particles, and the tree's
+draws take the shard's particle map (`TreeDraws`' particle tensor; the
+kernel's offset and stride).
 
 Two sources:
 - PHILOX: Philox4x32-10 (Salmon et al., SC'11), the stream of the real runs.
@@ -107,8 +112,8 @@ class TreeDraws:
     """The draws of a batch of particles' trees.
 
     seed: (B,) integer tensor, the key word of each run's tree; run/particle:
-    (P,) int64 run index and particle index within the run of each flat
-    lane."""
+    (P,) int64 run index and global particle index within the run of each
+    flat lane."""
 
     def __init__(self, source, seed, run, particle, dtype=torch.float32):
         if source not in SOURCES:
@@ -146,26 +151,37 @@ class TreeDraws:
         return uniform_from_words(w, self.dtype)
 
 
-def run_draws(seeds, iterations, n, dtype=torch.float32):
+def run_draws(seeds, iterations, n, dtype=torch.float32, index=None):
     """The resampling uniforms and tree seeds of B runs for a range of
     iterations, from each run's own stream.
 
     seeds: (B,) int64 tensor of run seeds in [0, 2^63); iterations: a range
-    of iteration indices (K of them). Returns uniforms (K, B, n) in [0, 1),
-    the map (w >> 8) * 2^-24, and tree seeds (K, B) int32 in [0, 2^31)."""
+    of iteration indices (K of them); index: the global indices (n,) of the
+    particles drawn for, None for 0..n-1. Returns uniforms (K, B, n) in
+    [0, 1), the map (w >> 8) * 2^-24, and tree seeds (K, B) int32 in
+    [0, 2^31)."""
     k = torch.as_tensor(list(iterations), dtype=torch.int64, device=seeds.device)
-    uniforms = _run_uniforms(seeds, RESAMPLE, iterations, n, dtype)
+    uniforms = _run_uniforms(seeds, RESAMPLE, iterations, n, dtype, index)
     s = philox4x32_10(0, TREE_SEED, k[:, None], 0, (seeds & _MASK32)[None, :],
                       (seeds >> 32)[None, :])[0]
     return uniforms, (s & 0x7FFFFFFF).to(torch.int32)
 
 
-def _run_uniforms(seeds, kind, iterations, n, dtype):
+def _particles(n, index, device):
+    if index is None:
+        return torch.arange(n, dtype=torch.int64, device=device)
+    if index.shape != (n,):
+        raise ValueError(f"index must hold {n} particle indices, got {tuple(index.shape)}")
+    return index.to(device=device, dtype=torch.int64)
+
+
+def _run_uniforms(seeds, kind, iterations, n, dtype, index=None):
     """(K, B, n) uniforms in [0, 1), the map (w >> 8) * 2^-24, from each
-    run's own stream at counters (i, kind, k, 0)."""
+    run's own stream at counters (i, kind, k, 0), i the particles' global
+    indices."""
     dev = seeds.device
     k = torch.as_tensor(list(iterations), dtype=torch.int64, device=dev)
-    i = torch.arange(n, dtype=torch.int64, device=dev)
+    i = _particles(n, index, dev)
     w = philox4x32_10(
         i[None, None, :], kind, k[:, None, None], 0,
         (seeds & _MASK32)[None, :, None], (seeds >> 32)[None, :, None],
@@ -173,19 +189,19 @@ def _run_uniforms(seeds, kind, iterations, n, dtype):
     return (w >> 8).to(dtype) * _INV_2_24
 
 
-def recycle_draws(seeds, iterations, n, dtype=torch.float32):
+def recycle_draws(seeds, iterations, n, dtype=torch.float32, index=None):
     """The uniforms (K, B, n) in [0, 1) of the tempered-recycling estimates at
     the given estimate indices, from each run's own stream."""
-    return _run_uniforms(seeds, RECYCLE, iterations, n, dtype)
+    return _run_uniforms(seeds, RECYCLE, iterations, n, dtype, index)
 
 
-def momentum_draws(seeds, iterations, n, dim, dtype=torch.float32):
+def momentum_draws(seeds, iterations, n, dim, dtype=torch.float32, index=None):
     """The standard normals (K, B, n, dim) of the momenta that the unfused
     proposal path draws outside the tree, from each run's own stream: the
     cosine branch of Box-Muller on two uniforms in (0, 1] a coordinate."""
     dev = seeds.device
     k = torch.as_tensor(list(iterations), dtype=torch.int64, device=dev)
-    i = torch.arange(n, dtype=torch.int64, device=dev)
+    i = _particles(n, index, dev)
     slot = torch.arange(2 * dim, dtype=torch.int64, device=dev)
     w = philox4x32_10(
         i[None, None, :, None], MOMENTUM, k[:, None, None, None],
@@ -196,7 +212,7 @@ def momentum_draws(seeds, iterations, n, dim, dtype=torch.float32):
     return box_muller(u[..., 0::2], u[..., 1::2])
 
 
-def accept_draws(seeds, iterations, n, dtype=torch.float32):
+def accept_draws(seeds, iterations, n, dtype=torch.float32, index=None):
     """The uniforms (K, B, n) in [0, 1) of the accept-reject that the unfused
     proposal path makes outside the tree, from each run's own stream."""
-    return _run_uniforms(seeds, ACCEPT_UNIFORM, iterations, n, dtype)
+    return _run_uniforms(seeds, ACCEPT_UNIFORM, iterations, n, dtype, index)

@@ -13,10 +13,17 @@ Every function is per run: r_new and x_new are (N, D) for one run or
 bit for bit. The population moments therefore take the fixed-order sums of
 `ops.reduce`, the small (D, D) products are summed in sequence over the
 contraction index (a library matmul picks its algorithm, TF32 or split-K
-included, from the shape), and the three small factorisations (pseudo-inverse,
-Cholesky, triangular solve), which are library calls, are made once per run on
-that run's own matrices: a batched factorisation routine is another algorithm
-than the single-matrix one.
+included, from the shape), the two small factorisations (pseudo-inverse,
+Cholesky), which are library calls, are made once per run on that run's own
+matrices (a batched factorisation routine is another algorithm than the
+single-matrix one), and the whitening of the N residuals is a forward
+substitution summed in sequence, each particle's on its own (a library
+triangular solve picks its blocking from the number of right-hand sides).
+
+With a particle group (`parallel.sharding`) r_new and x_new hold the rank's
+shard: the population's mean and (2D x 2D) moments are summed over the
+ranks by the group's fold, every rank factorises the same matrices, and each
+particle's log-density is the unsharded one to the bit.
 """
 
 from __future__ import annotations
@@ -58,7 +65,34 @@ def _cholesky(a):
     return torch.where(info == 0, chol, torch.full_like(chol, float("nan")))
 
 
-def gaussian_lkernel_logpdf(r_new, x_new):
+def _forward_substitution(chol, b):
+    """z with chol z = b for the lower-triangular chol (..., D, D) and
+    b (..., D, N), a column of chol at a time: z_j = b_j / chol_jj, then
+    chol_ij z_j taken off every later row i. Row i thus subtracts its terms
+    in the order j = 0, 1, ..., each particle on its own, in 3 D - 1 ops."""
+    z = b.clone()
+    D = chol.shape[-1]
+    for j in range(D):
+        z[..., j, :] /= chol[..., j, j, None]
+        if j + 1 < D:
+            z[..., j + 1:, :] -= chol[..., j + 1:, j, None] * z[..., j, None, :]
+    return z
+
+
+def population_moments(r_new, x_new, group=None):
+    """The mean (..., 2D) and covariance (..., 2D, 2D; ddof = 1, as np.cov)
+    of X = [-r_new, x_new] over the population, and the centred X^T
+    (..., 2D, N); with a group, over every rank's particles (the sums by the
+    group's fold), the centred rows the rank's own."""
+    N = x_new.shape[-2] * (1 if group is None else group.size)
+    Xt = torch.cat([-r_new, x_new], dim=-1).transpose(-1, -2)  # (..., 2D, N)
+    mu_X = row_sum(Xt, group) / N
+    Xc = Xt - mu_X[..., None]
+    cov_X = row_sum(Xc[..., :, None, :] * Xc[..., None, :, :], group) / (N - 1)
+    return mu_X, cov_X, Xc
+
+
+def gaussian_lkernel_logpdf(r_new, x_new, group=None):
     """Gaussian approximation of the optimal L-kernel.
 
     Stacks X = [-r_new, x_new] (N, 2D); estimates the joint mean and
@@ -66,12 +100,9 @@ def gaussian_lkernel_logpdf(r_new, x_new):
     Gaussian on x_new by the block decomposition, with a pseudo-inverse and a
     1e-6 ridge on the conditional covariance (gaussian_lkernel.py:45-68);
     returns log N(-r_new_i | mu_i, cov) for every particle."""
-    N, D = x_new.shape[-2:]
+    D = x_new.shape[-1]
     dtype = x_new.dtype
-    Xt = torch.cat([-r_new, x_new], dim=-1).transpose(-1, -2)  # (..., 2D, N)
-    mu_X = row_sum(Xt) / N  # (..., 2D)
-    Xc = Xt - mu_X[..., None]
-    cov_X = row_sum(Xc[..., :, None, :] * Xc[..., None, :, :]) / (N - 1)
+    mu_X, cov_X, Xc = population_moments(r_new, x_new, group)
 
     mu_r, mu_x = mu_X[..., :D], mu_X[..., D:]
     c_rr = cov_X[..., :D, :D]
@@ -87,10 +118,7 @@ def gaussian_lkernel_logpdf(r_new, x_new):
     resid_t = -r_new.transpose(-1, -2) - (
         mu_r[..., None] + _matmul(gain, Xc[..., D:, :]))  # (..., D, N)
     chol = _per_run(_cholesky, cov)
-    z = _per_run(
-        lambda c, rt: torch.linalg.solve_triangular(c, rt, upper=False),
-        chol, resid_t,
-    )  # (..., D, N) whitened residuals
+    z = _forward_substitution(chol, resid_t)  # (..., D, N) whitened residuals
     maha = z[..., 0, :] * z[..., 0, :]
     log_diag = torch.log(chol[..., 0, 0])
     for d in range(1, D):

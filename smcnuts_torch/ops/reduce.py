@@ -16,9 +16,12 @@ import torch
 import torch.nn.functional as F
 
 
-def row_sum(v):
+def row_sum(v, group=None):
     """Sum over the last axis by a pairwise tree: zero-padded to a power of
-    two, then halves added until one element is left."""
+    two, then halves added until one element is left. With a group
+    (`parallel.sharding.ParticleGroup`, rank i holding the particles i,
+    i + P, ...), the sum over the global particle axis of which v holds this
+    rank's shard: the ranks' partials, gathered in rank order, folded on."""
     n = v.shape[-1]
     width = 1 << max(n - 1, 0).bit_length()
     if width != n:
@@ -26,11 +29,13 @@ def row_sum(v):
     while v.shape[-1] > 1:
         half = v.shape[-1] // 2
         v = v[..., :half] + v[..., half:]
-    return v[..., 0]
+    if group is None or group.size == 1:
+        return v[..., 0]
+    return row_sum(torch.stack(group.all_gather(v[..., 0]), dim=-1))
 
 
-def row_mean(v):
-    return row_sum(v) / v.shape[-1]
+def row_mean(v, group=None):
+    return row_sum(v, group) / (v.shape[-1] * (1 if group is None else group.size))
 
 
 def row_cumsum(v):

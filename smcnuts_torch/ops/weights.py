@@ -14,7 +14,7 @@ import torch
 from .reduce import row_sum
 
 
-def normalise_weights(logw):
+def normalise_weights(logw, group=None):
     """Return (wn, log_likelihood), per run.
 
     wn: normalised weights, exactly 0 where logw = -inf (or NaN).
@@ -25,9 +25,12 @@ def normalise_weights(logw):
     neg_inf = torch.full_like(logw, float("-inf"))
     masked = torch.where(finite, logw, neg_inf)
     m = torch.amax(masked, dim=-1, keepdim=True)
+    if group is not None:
+        m = group.max(m)
     m_safe = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
     sumexp = row_sum(
-        torch.where(finite, torch.exp(masked - m_safe), torch.zeros_like(logw))
+        torch.where(finite, torch.exp(masked - m_safe), torch.zeros_like(logw)),
+        group,
     )[..., None]
     log_likelihood = torch.where(torch.isfinite(m), m_safe + torch.log(sumexp), m)
     wn = torch.where(
@@ -36,7 +39,7 @@ def normalise_weights(logw):
     return wn, log_likelihood[..., 0]
 
 
-def ess(wn):
+def ess(wn, group=None):
     """Effective sample size 1 / sum(wn^2) per run; +inf when every weight
     is 0."""
-    return 1.0 / row_sum(torch.square(wn))
+    return 1.0 / row_sum(torch.square(wn), group)

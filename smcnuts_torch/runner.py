@@ -10,6 +10,11 @@ its tempering bisection. The chunks run by absolute iteration index, since
 every draw (the resampling uniforms, the trees' seeds, the recycling
 uniforms of the asymptotic strategy) is addressed by it: the result equals
 the uninterrupted run's to the bit, resumed or not.
+
+With a particle group (`parallel.sharding`) every rank runs the same chunks
+on its shard; the checkpoint is the global file rank 0 writes (the one an
+unsharded run writes), and a resume at any number of ranks takes its shard
+of it (`utils.checkpoint`).
 """
 
 from __future__ import annotations
@@ -29,11 +34,14 @@ class ChunkedRunner:
     """`run(seed)` is `run_smc` (no run axis), `run([seeds])`
     `run_smc_batched` (every field leads with the run axis), in chunks of
     `chunk_size` iterations, checkpointed to `checkpoint_path` when one is
-    given. The device defaults to the card, as everywhere in the package."""
+    given. The device defaults to the card, as everywhere in the package;
+    `group` shards the particles (every rank of it calls `run` alike)."""
 
     def __init__(self, model, cfg: SMCConfig, checkpoint_path=None, chunk_size=10,
-                 sample_proposal=None, momentum_proposal=None, device="cuda"):
+                 sample_proposal=None, momentum_proposal=None, device="cuda",
+                 group=None):
         self.model = model
+        self.group = group
         self.cfg = cfg
         self.checkpoint_path = checkpoint_path
         self.chunk_size = max(1, int(chunk_size))
@@ -48,7 +56,8 @@ class ChunkedRunner:
         resumed run."""
         single = isinstance(seed, numbers.Integral)
         seeds = [int(seed)] if single else [int(s) for s in seed]
-        run = SMCRun(self.model, self.cfg, seeds, self.device, self.momentum_proposal)
+        run = SMCRun(self.model, self.cfg, seeds, self.device, self.momentum_proposal,
+                     group=self.group)
         K = self.cfg.n_iterations
         path = self.checkpoint_path
         if path and os.path.exists(path):
@@ -65,7 +74,7 @@ class ChunkedRunner:
                     history = {name: torch.stack(seq, dim=1)
                                for name, seq in state.history.items()}
                 save_checkpoint(path, state.carry, state.k_done,
-                                _stacked(state.diags), history, seeds)
+                                _stacked(state.diags), history, seeds, self.group)
             if progress is not None:
                 progress(state.k_done, K)
         result = run.finalize(state)
@@ -91,7 +100,7 @@ class ChunkedRunner:
                   else like(B, dtype=torch.bool) if name == "resampled" else like(B)
                   for name in _SERIES}
         carry, k_done, diags, history, seeds = load_checkpoint(path, carry_t, diag_t,
-                                                               run.device)
+                                                               run.device, self.group)
         if seeds != run.seeds:
             raise ValueError(f"checkpoint {path!r} holds the runs of seeds {seeds}, "
                              f"not {run.seeds}")

@@ -56,8 +56,19 @@ for the same reason. The K loop does no host sync: the resample decision and
 the temperature bisection's short-circuit are `torch.where`s, the guard of
 the recovered log-likelihood evaluates both sides and selects per run, and
 the diagnostics stay on the device until `finalize`. (The Gaussian
-L-kernel's three small factorisations are library calls, made per run;
+L-kernel's two small factorisations are library calls, made per run;
 `torch.linalg.pinv` checks its status on the host.)
+
+Sharding: every entry takes `group`, a `parallel.sharding.ParticleGroup`
+(the JAX package's `mesh=`). Each rank then holds the particles rank,
+rank + P, ... of every run: init_state draws each run's global x0 from its
+generator and keeps the rank's rows, the per-iteration draws are the global
+ones at the rank's particles, the trees take the shard's particle map, the
+sums over particles continue over the ranks in a fixed order, and
+resampling exchanges ancestors (`ops.resampling`). Every diagnostic is the
+same on every rank and the run equals the unsharded run to the bit; the
+result's per-particle fields hold the rank's shard
+(`parallel.sharding.gather_result` assembles them).
 """
 
 from __future__ import annotations
@@ -230,28 +241,34 @@ def uses_fused_path(cfg: SMCConfig, momentum_proposal=None) -> bool:
         cfg.adapt_mass_matrix or _is_standard_momentum(momentum_proposal))
 
 
-def _acceptance_metric(x_new, x_old):
+def _acceptance_metric(x_new, x_old, group=None):
     """Per run, the share of particles whose position changed in EVERY
     dimension (reference smc_sampler.py:97)."""
-    return row_mean(torch.all(x_new != x_old, dim=-1).to(x_new.dtype))
+    return row_mean(torch.all(x_new != x_old, dim=-1).to(x_new.dtype), group)
 
 
 def iteration_draws(cfg: SMCConfig, seeds, iterations, n, dim, dtype,
-                    fused=True) -> dict:
+                    fused=True, index=None) -> dict:
     """The per-iteration draws of B runs for a range of iterations, from each
     run's own stream, keyed by the `smc_step` argument each feeds, every
     value leading with the iteration axis: the resampling uniforms, the tree
     seeds, with the asymptotic strategy's streaming estimates the recycling
     uniforms, and on the unfused path the momenta's standard normals and
-    (asymptotic strategy) the accept-reject uniforms. seeds: (B,) int64."""
-    uniforms, tree_seed = run_draws(seeds, iterations, n, dtype)
+    (asymptotic strategy) the accept-reject uniforms. seeds: (B,) int64.
+    index: the global indices (n,) of a shard's particles (None: 0..n-1);
+    a shard's systematic resampling also gets the shared uniform, the draw
+    of global particle 0."""
+    uniforms, tree_seed = run_draws(seeds, iterations, n, dtype, index)
     out = {"uniforms": uniforms, "tree_seed": tree_seed}
+    if index is not None and cfg.resampling == "systematic":
+        first = torch.zeros(1, dtype=torch.int64, device=seeds.device)
+        out["shared_uniform"] = run_draws(seeds, iterations, 1, dtype, first)[0][..., 0]
     if cfg.is_asymptotic and not cfg.save_history:
-        out["recycle_uniforms"] = recycle_draws(seeds, iterations, n, dtype)
+        out["recycle_uniforms"] = recycle_draws(seeds, iterations, n, dtype, index)
     if not fused:
-        out["momentum_normals"] = momentum_draws(seeds, iterations, n, dim, dtype)
+        out["momentum_normals"] = momentum_draws(seeds, iterations, n, dim, dtype, index)
         if cfg.is_asymptotic:
-            out["accept_uniforms"] = accept_draws(seeds, iterations, n, dtype)
+            out["accept_uniforms"] = accept_draws(seeds, iterations, n, dtype, index)
     return out
 
 
@@ -282,39 +299,43 @@ def _recover_loglik(model, phi, logp_at_phi, logprior, positions, min_phi):
     return torch.where((phi < min_phi)[:, None], direct, cached)
 
 
-def _recycled_estimate(model, uniforms, x, logw, loglik, phi_k):
+def _recycled_estimate(model, uniforms, x, logw, loglik, phi_k, group=None):
     """One tempered-recycling estimate per run (reference
     estimate_from_tempered.py:24-55): a fresh multinomial resample by the
     weights, which target pi_{phi_k}, then the importance correction to pi by
     (1 - phi_k) loglik. x (..., N, D); uniforms, logw and loglik (..., N);
     phi_k (...). The loop and the saved-history pass share it."""
-    wn, _ = normalise_weights(logw)
-    x_r, loglik_r = multinomial_take_rows(wn, uniforms, [x, loglik])
-    wn_corr, _ = normalise_weights((1.0 - phi_k)[..., None] * loglik_r)
-    return constrained_estimate(model, x_r, wn_corr)
+    wn, _ = normalise_weights(logw, group)
+    x_r, loglik_r = multinomial_take_rows(wn, uniforms, [x, loglik], group)
+    wn_corr, _ = normalise_weights((1.0 - phi_k)[..., None] * loglik_r, group)
+    return constrained_estimate(model, x_r, wn_corr, group)
 
 
 def init_state(model, cfg: SMCConfig, seeds, device,
-               sample_proposal=None) -> SMCCarry:
+               sample_proposal=None, group=None) -> SMCCarry:
     """x0 ~ sample proposal; phi0 = 1, or with tempering a full ESS bisection
     on the prior draws from phi_old = 0 (reference samples.py:82);
     logw0 = logp(x0, phi0) - q0(x0) (samples.py:63-88); one run per seed.
     Each run draws from a generator seeded with its own seed and its
     densities are evaluated alone, so it does not depend on the runs beside
-    it; the bisection is one call in which every run has its own interval."""
+    it; the bisection is one call in which every run has its own interval.
+    With a group each run still draws its N global particles, and the rank
+    keeps its shard of them."""
     dtype = getattr(torch, cfg.dtype)
     device = torch.device(device)
     if sample_proposal is None:
         sample_proposal = DiagNormalProposal(model.dim)
     generators = [torch.Generator(device=device).manual_seed(int(s)) for s in seeds]
     xs = [sample_proposal.rvs(g, cfg.n_particles, dtype=dtype) for g in generators]
+    if group is not None:
+        xs = [group.take_shard(x0, dim=0) for x0 in xs]
     loglik = None
     if cfg.tempering or cfg.is_asymptotic:
         loglik = torch.stack([model.loglik(x0).to(dtype) for x0 in xs])
     if cfg.tempering:
         # One bisection for all runs: each run's interval is its own.
         phi = next_temperature(loglik, 0.0, cfg.n_particles,
-                               alpha=cfg.tempering_alpha)
+                               alpha=cfg.tempering_alpha, group=group)
     else:
         phi = torch.ones(len(xs), dtype=dtype, device=device)
     logws = [(model.logp(x0, phi[b]) - sample_proposal.logpdf(x0)).to(dtype)
@@ -335,7 +356,7 @@ def init_state(model, cfg: SMCConfig, seeds, device,
 def smc_step(model, cfg: SMCConfig, carry: SMCCarry, uniforms, tree_seed,
              backend: str, draws: str = PHILOX, recycle_uniforms=None,
              momentum_proposal=None, momentum_normals=None,
-             accept_uniforms=None):
+             accept_uniforms=None, group=None, shared_uniform=None):
     """One SMC iteration of B runs; returns (next carry, diagnostics of this
     one, each with a leading run axis).
 
@@ -349,22 +370,25 @@ def smc_step(model, cfg: SMCConfig, carry: SMCCarry, uniforms, tree_seed,
     normals of the momenta and accept_uniforms (B, N) in [0, 1) those of the
     asymptotic strategy's accept-reject (`iteration_draws`; a test hands in
     the JAX package's k_mom and k_acc draws); momentum_proposal None is the
-    standard normal."""
+    standard normal. With a particle group every per-particle argument holds
+    the rank's shard (the draws at its particles' global indices), and the
+    systematic scheme takes shared_uniform (B,), the draw of global particle
+    0 (`iteration_draws`)."""
     phi = carry.phi
-    n = carry.x.shape[1]
+    n = carry.x.shape[1] * (1 if group is None else group.size)
     asymptotic = cfg.is_asymptotic
-    wn, log_likelihood = normalise_weights(carry.logw)
+    wn, log_likelihood = normalise_weights(carry.logw, group)
     if asymptotic and not cfg.save_history:
         # The entering (x, logw, loglik, phi) are what the saved-history pass
         # reads at index k, and the uniforms are those it draws there.
         mean_k, var_k = _recycled_estimate(
-            model, recycle_uniforms, carry.x, carry.logw, carry.loglik, phi)
+            model, recycle_uniforms, carry.x, carry.logw, carry.loglik, phi, group)
     else:
-        mean_k, var_k = constrained_estimate(model, carry.x, wn)
-    ess_k = compute_ess(wn)
+        mean_k, var_k = constrained_estimate(model, carry.x, wn, group)
+    ess_k = compute_ess(wn, group)
     x_r, logw_r, did_resample = resample_if_required(
         uniforms, carry.x, carry.logw, wn, log_likelihood, ess_k,
-        cfg.ess_threshold_frac, cfg.resampling,
+        cfg.ess_threshold_frac, cfg.resampling, group, shared_uniform,
     )
 
     # With acc_rej the kernel's epilogue ran the asymptotic strategy's
@@ -388,10 +412,13 @@ def smc_step(model, cfg: SMCConfig, carry: SMCCarry, uniforms, tree_seed,
                 return _per_run(proposal.logpdf, rr)
     tree_args = (model, x_r, tree_seed, carry.step_size, phi, carry.inv_mass,
                  cfg.max_tree_depth, draws)
+    particle_map = (0, 1) if group is None else group.particle_map
     if backend == "cuda":
+        # "auto" decides at this rank's own lane count.
         x_new, r_new, st = nuts_tree(
             *tree_args, r=r, acc_rej=asymptotic and fused,
-            compaction=resolve_compaction(cfg, model, x_r.shape[0] * x_r.shape[1]))
+            compaction=resolve_compaction(cfg, model, x_r.shape[0] * x_r.shape[1]),
+            particle_map=particle_map)
     else:
         # "auto" is the kernel's choice, measured on its dispatch; the eager
         # tree stages only at splits the caller names, as the JAX package's
@@ -399,7 +426,7 @@ def smc_step(model, cfg: SMCConfig, carry: SMCCarry, uniforms, tree_seed,
         x_new, r_new, st = nuts_tree_plain(
             *tree_args, r=r, acc_rej=asymptotic and fused,
             compaction=() if cfg.compaction == "auto" else cfg.compaction,
-            block_size=cfg.eager_block_size)
+            block_size=cfg.eager_block_size, particle_map=particle_map)
     logp_prop = st["logp_prop"]
     if asymptotic and not fused:
         # The accept-reject that makes the move pi_phi-invariant, on the
@@ -421,7 +448,8 @@ def smc_step(model, cfg: SMCConfig, carry: SMCCarry, uniforms, tree_seed,
         loglik_new = _recover_loglik(model, phi, logp_prop, logprior_new,
                                      x_new, guard)
     if cfg.tempering:
-        phi_next = next_temperature(loglik_new, phi, n, alpha=cfg.tempering_alpha)
+        phi_next = next_temperature(loglik_new, phi, n, alpha=cfg.tempering_alpha,
+                                    group=group)
     else:
         phi_next = torch.ones_like(phi)
 
@@ -438,7 +466,7 @@ def smc_step(model, cfg: SMCConfig, carry: SMCCarry, uniforms, tree_seed,
             if cfg.lkernel == "forwardsLKernel":
                 lk = forward_lkernel_logpdf(momentum_logpdf, r_new)
             else:
-                lk = gaussian_lkernel_logpdf(r_new, x_new)
+                lk = gaussian_lkernel_logpdf(r_new, x_new, group)
             lk_minus_q = lk - momentum_logpdf(r)
         elif cfg.lkernel == "forwardsLKernel":
             # From the fused outputs: the N(0, M) constants cancel and
@@ -449,7 +477,7 @@ def smc_step(model, cfg: SMCConfig, carry: SMCCarry, uniforms, tree_seed,
             q_r = (-st["ke0"]
                    + (0.5 * row_sum(torch.log(carry.inv_mass)))[:, None]
                    - model.dim * LOG_SQRT_2PI)
-            lk_minus_q = gaussian_lkernel_logpdf(r_new, x_new) - q_r
+            lk_minus_q = gaussian_lkernel_logpdf(r_new, x_new, group) - q_r
         if not cfg.tempering:
             # phi is 1, so the tree's cached endpoint densities are the
             # phi = 1 values (forwards, fused: the increment collapses to delta_h).
@@ -462,7 +490,7 @@ def smc_step(model, cfg: SMCConfig, carry: SMCCarry, uniforms, tree_seed,
 
     # Adaptation (JAX sampler.py:489-517). The warmup freeze uses da.count
     # as the iteration counter, as the JAX package does.
-    accept_stat = row_mean(st["accept_stat"])
+    accept_stat = row_mean(st["accept_stat"], group)
     step_size, da = carry.step_size, carry.da
     if cfg.adapt_step_size:
         warmup_iters = max(1, round(cfg.adapt_warmup_frac * cfg.n_iterations))
@@ -476,8 +504,8 @@ def smc_step(model, cfg: SMCConfig, carry: SMCCarry, uniforms, tree_seed,
         )
     inv_mass = carry.inv_mass
     if cfg.adapt_mass_matrix:
-        wn_new, _ = normalise_weights(logw_new)
-        inv_mass = mass_matrix_from_particles(x_new, wn_new, carry.inv_mass)
+        wn_new, _ = normalise_weights(logw_new, group)
+        inv_mass = mass_matrix_from_particles(x_new, wn_new, carry.inv_mass, group=group)
 
     diag = {
         "phi": phi,
@@ -485,12 +513,12 @@ def smc_step(model, cfg: SMCConfig, carry: SMCCarry, uniforms, tree_seed,
         "ess": ess_k,
         # The tree's "moved" is the same flag, but before an accept-reject
         # made outside it.
-        "acceptance": (_acceptance_metric(x_new, x_r) if asymptotic and not fused
-                       else row_mean(st["moved"])),
+        "acceptance": (_acceptance_metric(x_new, x_r, group) if asymptotic and not fused
+                       else row_mean(st["moved"], group)),
         "resampled": did_resample,
         "step_size": step_size,
-        "tree_depth": row_mean(st["depth"]),
-        "tree_leapfrogs": row_mean(st["leapfrogs"]),
+        "tree_depth": row_mean(st["depth"], group),
+        "tree_leapfrogs": row_mean(st["leapfrogs"], group),
         "accept_stat": accept_stat,
         "mean": mean_k,
         "var": var_k,
@@ -505,7 +533,7 @@ def smc_step(model, cfg: SMCConfig, carry: SMCCarry, uniforms, tree_seed,
 
 def finalize(model, cfg: SMCConfig, carry: SMCCarry, diags: list,
              x_hist=None, logw_hist=None, loglik_hist=None,
-             recycle_uniforms=None) -> SMCResult:
+             recycle_uniforms=None, group=None) -> SMCResult:
     """Append the final half-iteration at index K (smc_sampler.py:143-149);
     every series is (B, K+1, ...).
 
@@ -516,7 +544,7 @@ def finalize(model, cfg: SMCConfig, carry: SMCCarry, diags: list,
     the loop made those of 0..K-1 and only index K, the final state, is made
     here, from recycle_uniforms (B, N). The uniforms of index k are the same
     either way (`ops.draws.recycle_draws`), and so are the estimates."""
-    wn_f, loglik_f = normalise_weights(carry.logw)
+    wn_f, loglik_f = normalise_weights(carry.logw, group)
     s = {k: torch.stack([d[k] for d in diags], dim=1) for k in _SERIES}
 
     def cat(seq, last):
@@ -527,21 +555,21 @@ def finalize(model, cfg: SMCConfig, carry: SMCCarry, diags: list,
         mean_est, var_est = _recycled_estimate(
             model, recycle_uniforms, torch.stack(x_hist, dim=1),
             torch.stack(logw_hist, dim=1), torch.stack(loglik_hist, dim=1),
-            phi_series,
+            phi_series, group,
         )
     else:
         if cfg.is_asymptotic:
             mean_f, var_f = _recycled_estimate(
                 model, recycle_uniforms, carry.x, carry.logw, carry.loglik,
-                carry.phi)
+                carry.phi, group)
         else:
-            mean_f, var_f = constrained_estimate(model, carry.x, wn_f)
+            mean_f, var_f = constrained_estimate(model, carry.x, wn_f, group)
         mean_est, var_est = cat(s["mean"], mean_f), cat(s["var"], var_f)
 
     return SMCResult(
         mean_estimate=mean_est,
         variance_estimate=var_est,
-        ess=cat(s["ess"], compute_ess(wn_f)),
+        ess=cat(s["ess"], compute_ess(wn_f, group)),
         log_likelihood=cat(s["log_likelihood"], loglik_f),
         phi=phi_series,
         acceptance_rate=cat(s["acceptance"], torch.zeros_like(s["acceptance"][:, 0])),
@@ -577,11 +605,15 @@ class SMCRun:
     `run_smc_batched` chains and `runner.ChunkedRunner` calls a chunk at a
     time: `init` (init_state), `iterate` (iterations [k_done, k1) of the
     loop, by absolute index) and `finalize`. Resolves the device and the
-    backend and moves the model to the device, as `run_smc_batched` does."""
+    backend and moves the model to the device, as `run_smc_batched` does.
+    With a particle group this rank's shard of every run's particles."""
 
     def __init__(self, model, cfg: SMCConfig, seeds, device="cuda",
-                 momentum_proposal=None, draws: str = PHILOX):
+                 momentum_proposal=None, draws: str = PHILOX, group=None):
         device = resolve_device(device)
+        if group is not None and device.type != group.device.type:
+            raise ValueError(f"the run's device {device} is not its particle "
+                             f"group's ({group.device})")
         self.backend = resolve_backend(cfg, device, model)
         self.model = model.to(device)
         seeds = [int(s) for s in seeds]
@@ -590,16 +622,21 @@ class SMCRun:
         self.cfg, self.device, self.seeds = cfg, device, seeds
         self.seeds_t = torch.tensor(seeds, dtype=torch.int64, device=device)
         self.momentum_proposal, self.draws = momentum_proposal, draws
+        self.group = group
+        # The particles of a run this rank holds, and their global indices.
+        self.n_local = cfg.n_particles if group is None else group.local_count(cfg.n_particles)
+        self.index = None if group is None else group.local_indices(cfg.n_particles, device)
         self.dtype = getattr(torch, cfg.dtype)
         self.fused = uses_fused_path(cfg, momentum_proposal)
-        per_iteration = (len(seeds) * (cfg.n_particles + 1)
+        per_iteration = (len(seeds) * (self.n_local + 1)
                          * (1 if self.fused else 2 * model.dim + 2))
         # Iterations whose draws are made in one call. The draws are
         # addressed by iteration, so where a block starts changes no value.
         self.block = max(1, _DRAW_BLOCK // per_iteration)
 
     def init(self, sample_proposal=None) -> RunState:
-        carry = init_state(self.model, self.cfg, self.seeds, self.device, sample_proposal)
+        carry = init_state(self.model, self.cfg, self.seeds, self.device, sample_proposal,
+                           self.group)
         history = None
         if self.cfg.save_history:
             history = {"x": [carry.x], "logw": [carry.logw]}
@@ -610,15 +647,16 @@ class SMCRun:
     def iterate(self, state: RunState, k1: int) -> RunState:
         """Iterations state.k_done .. k1 - 1, each drawing what its absolute
         index addresses; appends their diagnostics and histories to state."""
-        cfg, N, D = self.cfg, self.cfg.n_particles, self.model.dim
+        cfg, N, D = self.cfg, self.n_local, self.model.dim
         for k0 in range(state.k_done, k1, self.block):
             iterations = range(k0, min(k0 + self.block, k1))
             step_draws = iteration_draws(cfg, self.seeds_t, iterations, N, D,
-                                         self.dtype, self.fused)
+                                         self.dtype, self.fused, self.index)
             for i in range(len(iterations)):
                 state.carry, diag = smc_step(
                     self.model, cfg, state.carry, backend=self.backend,
                     draws=self.draws, momentum_proposal=self.momentum_proposal,
+                    group=self.group,
                     **{name: v[i] for name, v in step_draws.items()})
                 state.diags.append(diag)
                 if state.history is not None:
@@ -630,43 +668,46 @@ class SMCRun:
     def finalize(self, state: RunState) -> SMCResult:
         """`finalize` of the K iterations of state, with the recycling
         uniforms the asymptotic strategy's estimates at the end need."""
-        cfg, K, N = self.cfg, self.cfg.n_iterations, self.cfg.n_particles
+        cfg, K, N = self.cfg, self.cfg.n_iterations, self.n_local
         if state.k_done != K:
             raise ValueError(f"{state.k_done} of {K} iterations done")
         recycle = None
         if cfg.is_asymptotic and not cfg.save_history:
-            recycle = recycle_draws(self.seeds_t, [K], N, self.dtype)[0]
+            recycle = recycle_draws(self.seeds_t, [K], N, self.dtype, self.index)[0]
         elif cfg.is_asymptotic:
             recycle = torch.cat([
                 recycle_draws(self.seeds_t, range(k, min(k + self.block, K + 1)), N,
-                              self.dtype)
+                              self.dtype, self.index)
                 for k in range(0, K + 1, self.block)
             ]).transpose(0, 1)
         hist = state.history or {}
         return finalize(self.model, cfg, state.carry, state.diags, hist.get("x"),
-                        hist.get("logw"), hist.get("loglik"), recycle)
+                        hist.get("logw"), hist.get("loglik"), recycle, self.group)
 
 
 def run_smc_batched(model, cfg: SMCConfig, seeds, device="cuda",
                     sample_proposal=None, momentum_proposal=None,
-                    draws: str = PHILOX) -> SMCResult:
+                    draws: str = PHILOX, group=None) -> SMCResult:
     """Run B = len(seeds) independent SMC runs of K iterations on `device`:
     init_state, K calls of smc_step (one NUTS launch each), finalize
     (`SMCRun`). Every field of the result leads with B, and run b equals
     `run_smc` with seed seeds[b]. Seeds are integers in [0, 2^63). Moves the
     model to the device. The device defaults to the card and is never
     replaced by the CPU: without a CUDA device the call raises unless "cpu"
-    is asked for."""
-    run = SMCRun(model, cfg, seeds, device, momentum_proposal, draws)
+    is asked for. With a particle group (`parallel.sharding.particle_group`)
+    every rank of it calls this alike and holds its shard of the particles;
+    the result equals the unsharded one to the bit (its per-particle fields
+    the rank's rows)."""
+    run = SMCRun(model, cfg, seeds, device, momentum_proposal, draws, group)
     return run.finalize(run.iterate(run.init(sample_proposal), cfg.n_iterations))
 
 
 def run_smc(model, cfg: SMCConfig, seed: int = 0, device="cuda",
             sample_proposal=None, momentum_proposal=None,
-            draws: str = PHILOX) -> SMCResult:
+            draws: str = PHILOX, group=None) -> SMCResult:
     """One run: `run_smc_batched` with B = 1, its run axis dropped."""
     result = run_smc_batched(model, cfg, [seed], device, sample_proposal,
-                             momentum_proposal, draws)
+                             momentum_proposal, draws, group)
     return SMCResult(*(None if v is None else v[0] for v in result))
 
 
@@ -677,7 +718,7 @@ class SMCSampler:
     def __init__(self, K, N, target, step_size, sample_proposal=None,
                  momentum_proposal=None, lkernel="forwardsLKernel",
                  tempering=False, seed=0, config: SMCConfig | None = None,
-                 device="cuda"):
+                 device="cuda", group=None):
         if config is None:
             config = SMCConfig(
                 n_particles=N, n_iterations=K, step_size=step_size,
@@ -688,6 +729,7 @@ class SMCSampler:
         self.K, self.N = config.n_iterations, config.n_particles
         self.seed = seed
         self.device = torch.device(device)
+        self.group = group
         self._sample_proposal = sample_proposal
         self._momentum_proposal = momentum_proposal
         self.result: SMCResult | None = None
@@ -708,7 +750,7 @@ class SMCSampler:
             result = run_smc(
                 self.target, self.cfg, seed, self.device,
                 sample_proposal=self._sample_proposal,
-                momentum_proposal=self._momentum_proposal,
+                momentum_proposal=self._momentum_proposal, group=self.group,
             )
         host = {
             k: None if v is None else v.cpu().numpy()
@@ -735,6 +777,7 @@ class SMCSampler:
             self.target, self.cfg, chunk_size=-(-self.cfg.n_iterations // 20),
             sample_proposal=self._sample_proposal,
             momentum_proposal=self._momentum_proposal, device=self.device,
+            group=self.group,
         )
         # tqdm is imported alone: an ImportError raised by the run itself must
         # not be taken for a missing tqdm.

@@ -464,7 +464,16 @@ def _poisson_log(y, log_lam):
 
 
 def _bernoulli(y, p):
-    return _where(_gt(y, 0.5), _log(p), _log1p(-p))
+    # log(p) where y = 1 and log1p(-p) where y = 0, each on the probability
+    # selected first: the untaken branch sees 1/2, so where float32 p rounds
+    # to 1 (probit's Phi(eta) at eta above ~5.4) the untaken log1p(-p) is not
+    # -inf and the select's gradient stays finite. The taken values are those
+    # of log(p) and log1p(-p) themselves.
+    yv = _concrete_scalar(y)
+    if yv is not None:
+        return _log(p) if yv > 0.5 else _log1p(-p)
+    one = _gt(y, 0.5)
+    return _where(one, _log(_where(one, p, 0.5)), _log1p(-_where(one, 0.5, p)))
 
 
 def _bernoulli_logit(y, alpha):

@@ -517,13 +517,12 @@ def test_forward_dimension_is_capped():
 
 def test_cli_chunk_size_names_its_roadmap_item():
     """Queue 1 item 9 ported --chunk-size: it runs (without --checkpoint it
-    changes nothing); beside it a flag still outside the port names its
-    item."""
+    changes nothing); so does --mesh (Queue 1 item 10), which without a
+    launcher shards over a group of one process and prints the same run."""
     argv = ["--chunk-size", "5", "--device", "cpu", "-N", "8", "-K", "1",
             "--max-tree-depth", "1"]
     assert torch_main(argv) == torch_main(argv[2:])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        torch_main(argv + ["--mesh"])
+    assert torch_main(argv + ["--mesh"]) == torch_main(argv[2:])
 
 
 def test_products_over_the_data_axis_run_as_sequential_sums():

@@ -27,7 +27,10 @@ _MODULES = (
     "smcnuts_torch.models.arma", "smcnuts_torch.runner", "smcnuts_torch.utils.checkpoint",
     "smcnuts_torch.utils.io", "smcnuts_torch.utils.profiling",
     "smcnuts_torch.stan", "smcnuts_torch.stan.parser", "smcnuts_torch.stan.math",
-    "smcnuts_torch.stan.compiler",
+    "smcnuts_torch.stan.compiler", "smcnuts_torch.parallel",
+    "smcnuts_torch.parallel.sharding", "smcnuts_torch.parallel.runs",
+    "smcnuts_torch.parallel.multihost", "smcnuts_torch.parallel.elastic",
+    "smcnuts_torch.parallel.gang",
 )
 
 

@@ -6,7 +6,7 @@ asymptotic (history saved and streaming) and adapted configurations; a
 checkpoint of another version, seeds or strategy is refused; a checkpoint at
 k_done == K runs nothing; `SMCSampler.sample(show_progress=True)` equals the
 plain run; `utils.profiling.phase_timings` times every phase. (The mesh case
-of the JAX file belongs to the multi-GPU slice.)"""
+of the JAX file: tests/test_torch_multihost.py.)"""
 
 import os
 import sys

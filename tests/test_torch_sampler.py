@@ -142,18 +142,20 @@ def test_cli_end_to_end_cpu(capsys):
     assert '"phi_schedule"' in capsys.readouterr().out
 
 
-# What the JAX CLI (smcnuts_tpu/__main__.py) does with each argv: --mesh is
-# the one flag still outside the port (NotImplementedError naming its
-# ROADMAP item); --stan compiles the file, so a missing one raises
-# FileNotFoundError, as open() does in the JAX CLI; without --stan, --data
-# and --stan-tile change nothing and the model runs. (--checkpoint,
-# --chunk-size and --output run: tests/test_torch_io_cli.py; a Stan program
-# through the CLI: tests/test_torch_stan_tile.py.)
+# What the JAX CLI (smcnuts_tpu/__main__.py) does with each argv: --mesh
+# shards the particles over a process group, without a launcher a group of
+# one process, and prints the JSON of the same run without it; --stan
+# compiles the file, so a missing one raises FileNotFoundError, as open()
+# does in the JAX CLI; without --stan, --data and --stan-tile change nothing
+# and the model runs. (--checkpoint, --chunk-size and --output run:
+# tests/test_torch_io_cli.py; a Stan program through the CLI:
+# tests/test_torch_stan_tile.py; --mesh over 2 and 4 ranks:
+# tests/test_torch_sharding.py.)
 _JAX_CLI_OUTCOME = {
-    ("--lkernel", "asymptoticLKernel", "--mesh"): (NotImplementedError, "Queue 1 item 10"),
+    ("--lkernel", "asymptoticLKernel", "--mesh"): "unsharded",
     ("--resampling", "systematic", "--stan", "m.stan"): (FileNotFoundError, "m.stan"),
     ("--stan-tile",): None,
-    ("--mesh",): (NotImplementedError, "Queue 1 item 10"),
+    ("--mesh",): "unsharded",
     ("--stan", "m.stan"): (FileNotFoundError, "m.stan"),
     ("--data", "d.json"): None,
 }
@@ -162,11 +164,16 @@ _JAX_CLI_OUTCOME = {
 @pytest.mark.parametrize("argv", [list(a) for a in _JAX_CLI_OUTCOME], ids=lambda a: a[0])
 def test_cli_flags_outside_slice_raise(argv, capsys):
     outcome = _JAX_CLI_OUTCOME[tuple(argv)]
-    run = lambda: torch_main(["-N", "8", "-K", "1", "--device", "cpu"] + argv)  # noqa: E731
+    base = ["-N", "8", "-K", "1", "--device", "cpu"]
+    run = lambda: torch_main(base + argv)  # noqa: E731
     if outcome is None:
         summary = run()
         assert summary["model"] == "arma" and summary["phi_schedule"] == [1.0, 1.0]
         assert '"phi_schedule"' in capsys.readouterr().out
+    elif outcome == "unsharded":
+        summary = run()
+        assert '"phi_schedule"' in capsys.readouterr().out
+        assert summary == torch_main(base + [a for a in argv if a != "--mesh"])
     else:
         with pytest.raises(outcome[0], match=outcome[1]):
             run()

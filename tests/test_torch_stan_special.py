@@ -137,9 +137,10 @@ SPREAD = {"probit": 0.1}
 # to 2e-3 in x. Probit's
 # points (the generating values) lie where its N = 24 posterior's gradient
 # is large: at 0.05 its trees reach an eta where float32 Phi is 1, where
-# the JAX tile model's gradient (and autograd's of the port's eager
-# bernoulli) is NaN from the untaken branch of its select and the trees
-# part; at 0.01 eight leapfrogs still take float32 rounding past 1e-4.
+# the JAX tile model's gradient is NaN from the untaken branch of its select
+# (the port's bernoulli selects the probability first and stays finite:
+# tests/test_torch_stan_bernoulli.py) and the trees part; at 0.01 eight
+# leapfrogs still take float32 rounding past 1e-4.
 TREE_STEP = {"exp_mod_normal": 0.01, "probit": 0.002}
 
 
