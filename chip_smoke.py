@@ -6,7 +6,8 @@
     (phase keys: arma, prmwcd, main, batched, staged_times, cli, autodiff,
     gaussian, logistic, eightschools (phase 8 for one model alone),
     strategies, fused_kernel, eager, unfused, wide_eager, generated, runner,
-    stan, solvers, mesh; device, build and peak always run first)
+    stan, solvers, lv_rk45 (phase solvers (b) alone), mesh; device, build and
+    peak always run first)
 
 Phases, each printing its own lines; any failure raises (non-zero exit):
 
@@ -269,12 +270,19 @@ solvers. float64 on the card, the rest of the Stan frontend, the special
    tempering): float64 throughout, no NUTS kernel and no K5 launch, finite
    series, the float32 kernel run's moments inside the float64 runs' Monte
    Carlo spread, the float64 draws on the card equal to the CPU's; (b)
-   lv_rk45 (the adaptive solver and its adjoint) eager in float64, one run
-   at LV_EAGER_N x K=LV_EAGER_K, depth LV_EAGER_DEPTH, started around the
-   data's generating values: finite, no kernel launch, the model calls an
-   iteration; logp and gradient at LV_CHECK_N particles equal to the CPU's
-   float64 values at rtol 1e-10, RK steps a particle and seconds a
-   logp_and_grad call at LV_TIMED_N; (c) lv_rk4 (ode_rk4 at LV_RK4_STEPS
+   lv_rk45 (the adaptive solver and its adjoint) in float64 through the
+   ODE kernel (csrc/ode_dopri5.cuh, one launch a solve, its right-hand side
+   generated): its call site on the kernel route; a run at 25 x 512 x
+   K=LV_K, depth 10 on the eager tree, started around the data's generating
+   values: finite, both ODE kernels launched, no NUTS kernel, the model
+   calls an iteration; the solve and its adjoint held to their plain
+   version (`solve_batched` / `_adjoint` over the same generated code) to
+   the bit, step counts included, at LV_CHECK_N lanes and at LV_BLOCK lanes
+   of the run's population, where both are timed, with ptxas's lines; a
+   logp_and_grad call at LV_TIMED_N particles on the kernel route
+   (replayed) and on the host loop (interpreted) side by side, both equal
+   to the CPU's float64 values at rtol 1e-10, with the RK steps a particle;
+   (c) lv_rk4 (ode_rk4 at LV_RK4_STEPS
    steps a year, K7r) at 25 x 512 x K=100: K dispatches, no plain call,
    runs 0 and 24 equal their single runs; then on the population it ended
    with, the kernel against its plain version at 25 x 512 x depth 10, zero
@@ -318,7 +326,10 @@ bound_unfused_ms, the same with the FMUL+FADD peak measured in phase 2b for
 the operations, what a build with -fmad=false can reach; no single PyTorch
 call builds a NUTS tree,
 computes the fused ARMA value and gradient or runs FMA chains, so there is no
-library time). Every "ms" is the device's time alone (utils/timing.device_ms);
+library time; nor does any solve an ODE: the two ODE rows, the counterpart
+of XLA's odeint loop and of no Pallas kernel, are float64 and bound by the
+data sheet's FP64 rate, 34 TFLOP/s, without bound_unfused_ms). Every "ms" is
+the device's time alone (utils/timing.device_ms);
 "host_call_ms" beside it is one call timed alone between two events, the
 host's launch included, as the rows were timed before. The witnesses' rows
 (the W = 1 NUTS kernels of arma, PRMwCD, logistic regression and eight
@@ -370,6 +381,7 @@ WIDE_SINGLES = {"arma": ((2,), (3,), (4,)), "prmwcd": ((6,), (7,), (8,)),
 # NVIDIA's data sheet for the H100 SXM at 700 W: FP32 outside the tensor
 # cores (a multiply-add counts as two) and device memory.
 PEAK_FP32, PEAK_BYTES = 67e12, 3.35e12
+PEAK_FP64 = 34e12  # the data sheet's non-tensor FP64 rate (an FMA counted as two)
 # Launches queued back to back behind a device-side wait for each device time
 # of the kernels line (utils/timing.py::device_ms).
 DEVICE_REPEATS = 20
@@ -545,6 +557,7 @@ def peak_phase(smi):
 def reset_counts():
     from smcnuts_torch.ops.arma_fused import arma_ll_vg, arma_ll_vg_plain
     from smcnuts_torch.ops.nuts_cuda import nuts_tree, nuts_tree_plain
+    from smcnuts_torch.ops.ode import dopri5, dopri5_adjoint
     from smcnuts_torch.ops.peak import fma_chains
 
     nuts_tree.launches = 0
@@ -558,6 +571,8 @@ def reset_counts():
     arma_ll_vg.launches = 0
     arma_ll_vg_plain.calls = 0
     fma_chains.launches = 0
+    dopri5.launches = 0
+    dopri5_adjoint.launches = 0
 
 
 def read_counts():
@@ -3523,14 +3538,17 @@ def stan_witness(name, model, witness, build, x, step, row, smi):
 # tree with the plain ARMA model took 3.4 s an iteration at 25 x 512, depth
 # 10, on an NVIDIA H100 80GB HBM3 at 700 W; PERF.md).
 F64_RUNS, F64_N, F64_K, F64_DEPTH = 5, 256, 10, 5
-# lv_rk45 on the eager backend in float64: reduced from the main path's 25 x
-# 512 x K=100 at depth 10 to one run of 64 x K=2 at depth 2, started around
-# the data's generating values. Each logp_and_grad call solves the ODE and
-# its adjoint under a host loop a step, so a call costs seconds whatever the
-# lanes: 1 x 256 x K=2 at depth 3 took 208 s, 16 calls an iteration at 6.5 s
-# each, and 1 x 64 x K=2 at depth 3 140 s (NVIDIA H100 80GB HBM3, 700 W;
-# PERF.md); depth 2 makes room for phase mesh in the script's time limit.
-LV_EAGER_N, LV_EAGER_K, LV_EAGER_DEPTH, LV_CHECK_N, LV_TIMED_N = 64, 2, 2, 64, 256
+# lv_rk45 on the eager backend in float64 through the ODE kernel
+# (csrc/ode_dopri5.cuh, one launch a solve and one an adjoint): the main
+# path's 25 x 512 at depth 10, started around the data's generating values,
+# K cut from 100 to LV_K to keep (b) near the 50-75 s its 1 x 64 x K=2 run at
+# depth 2 took on the host loop (PERF.md): the eager tree's ~286 replayed model
+# calls an iteration, not the solve, set its wall (K=20: 45.8 and 68.0 s on
+# two hosts, the whole script 1,142 s of its 1,200). The kernel is held to its
+# plain version at LV_CHECK_N lanes and timed at LV_BLOCK, the eager tree's
+# block (SMCConfig.eager_block_size); a logp_and_grad call is timed at
+# LV_TIMED_N particles, kernel route and host loop side by side.
+LV_K, LV_CHECK_N, LV_TIMED_N, LV_BLOCK = 10, 64, 256, 4096
 SPECIAL_K = 10  # the short main-path run of each special-function program
 # The float32 inputs each libdevice call is swept over, every one of them:
 # the ranges the densities use.
@@ -3665,24 +3683,73 @@ def float64_eager_phase(smi):
     print("(a) the float64 draws on the card equal the CPU's, bit for bit")
 
 
+def lv_ode_inputs(m, x):
+    """The ODE solve's inputs of lv_rk45 at unconstrained particles x (P,
+    8): y0 = z_init (P, 2), the arguments theta (P, 4) and the times (P,
+    21), as the program hands them to the solver."""
+    c = m.constrain(x)
+    ts = torch.tensor([0.0] + lv_data()["ts"], dtype=x.dtype, device=x.device)
+    return (c[:, 4:6].contiguous(), ts.expand(x.shape[0], ts.numel()).contiguous(),
+            c[:, :4].contiguous())
+
+
+def ode_row(label, kernel, plain, prog, inputs, adjoint, smi):
+    """The kernels-line row of the ODE solve or its adjoint: the kernel
+    against its plain version to the bit on `inputs` (every output and each
+    lane's steps), then both timed there, and the bound: this call's steps
+    times the operations of a step (`OdeProgram.step_ops`) over the data
+    sheet's FP64 rate."""
+    from smcnuts_torch.utils.timing import CudaTimer
+
+    out_k, steps_k = kernel(prog, *inputs)
+    with CudaTimer() as t:
+        out_p, steps_p = plain(prog, *inputs)
+    plain_ms = t.ms
+    out_k = out_k if adjoint else (out_k,)
+    out_p = out_p if adjoint else (out_p,)
+    def same_bits(u, v):
+        return u.shape == v.shape and torch.equal(u.contiguous().view(torch.uint8),
+                                                  v.contiguous().view(torch.uint8))
+
+    if not (all(same_bits(u, v) for u, v in zip(out_k, out_p))
+            and torch.equal(steps_k, steps_p)):
+        raise AssertionError(f"{label}: the kernel differs from its plain version")
+    times = kernel_times(lambda: kernel(prog, *inputs))
+    lanes, steps = int(steps_k.numel()), int(steps_k.sum())
+    ops = steps * prog.step_ops(adjoint)
+    bound = 1e3 * ops / PEAK_FP64
+    print(f"{label}, {lanes} lanes: equal to its plain version to the bit (every output, each "
+          f"lane's steps: mean {steps / lanes:.1f}, {int(steps_k.min())}-{int(steps_k.max())}); "
+          f"{times_text(times)}; plain {plain_ms:.1f} ms (its host loop); bound "
+          f"{bound:.5f} ms by operations ({steps} steps x {prog.step_ops(adjoint)} FP64 "
+          f"operations over {PEAK_FP64 / 1e12:.0f} TFLOP/s; {smi})")
+    return {"max_abs_err": 0.0, **times, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": "operations"}
+
+
 def lv_rk45_phase(smi):
-    """(b) lv_rk45 (the adaptive solver and its adjoint) on the eager
-    backend in float64: one run at LV_EAGER_N x K=LV_EAGER_K, depth
-    LV_EAGER_DEPTH; finite series, no kernel launch, its model calls; logp
-    and gradient at LV_CHECK_N particles equal to the CPU's float64 values
-    at rtol 1e-10; steps a solve and the seconds of a logp_and_grad call."""
+    """(b) lv_rk45 (the adaptive solver and its adjoint) in float64 through
+    the ODE kernel: its call site takes the kernel route; a run at 25 x 512 x
+    K=LV_K, depth 10 (the eager tree), counts set to 0 just before it: finite
+    series, both kernels launched, no NUTS kernel; the kernel and its
+    adjoint's held to their plain version to the bit at LV_CHECK_N lanes and
+    timed at LV_BLOCK lanes of the run's final population; a logp_and_grad
+    call at LV_TIMED_N particles timed on the kernel route (replayed) and on
+    the host loop (interpreted, as before the kernel), the two and the CPU's
+    float64 values equal at rtol 1e-10. Returns
+    the kernels-line rows of the solve and its adjoint."""
     from smcnuts_torch import DiagNormalProposal, SMCConfig, run_smc_batched
+    from smcnuts_torch.models.base import CallableModel
     from smcnuts_torch.ops import ode
     from smcnuts_torch.ops.nuts_cuda import nuts_tree, nuts_tree_plain
     from smcnuts_torch.utils.timing import CudaTimer
 
     name = "lv_rk45"
     m = solver_model(name)
-    if not m.has_adaptive_solver:
-        raise AssertionError("(b) lv_rk45 must be marked for interpretation at every call")
-    cfg = SMCConfig(n_particles=LV_EAGER_N, n_iterations=LV_EAGER_K,
-                    step_size=STAN_PROGRAMS[name]["step"], max_tree_depth=LV_EAGER_DEPTH,
-                    dtype="float64")
+    if list(m.ode_routes.values()) != [{"float32": ode.KERNEL, "float64": ode.KERNEL}]:
+        raise AssertionError(f"(b) lv_rk45 must take the kernel route: {m.ode_routes}")
+    cfg = SMCConfig(n_particles=N, n_iterations=LV_K, step_size=STAN_PROGRAMS[name]["step"],
+                    max_tree_depth=MAX_DEPTH, dtype="float64")
     # The initial particles around the data's generating values: the
     # default proposal, N(0, I) on the unconstrained scale, puts beta and
     # delta at ~1 (their prior's mean is 0.05), where the system is stiff
@@ -3692,42 +3759,82 @@ def lv_rk45_phase(smi):
     reset_counts()
     ode.solve_batched.steps = 0
     with CudaTimer() as t:
-        res = run_smc_batched(m, cfg, [0], "cuda", sample_proposal=start)
+        res = run_smc_batched(m, cfg, SEEDS, "cuda", sample_proposal=start)
         res.mean_estimate[:, -1].cpu()
-    check_series("(b) lv_rk45", res, LV_EAGER_K)
-    calls, wall_s = nuts_tree_plain.model_calls, t.ms / 1e3
-    if nuts_tree.launches != 0 or res.x_final.dtype != torch.float64:
-        raise AssertionError(f"(b) lv_rk45: {nuts_tree.launches} kernel launches, "
-                             f"{res.x_final.dtype}")
-    print(f"(b) lv_rk45 eager float64, 1 x {LV_EAGER_N} x K={LV_EAGER_K}, depth "
-          f"{LV_EAGER_DEPTH}, step {cfg.step_size}, started around the generating values: "
-          f"wall {wall_s:.1f} s (CUDA events), "
-          f"no kernel launch, mean tree depth {float(res.tree_depth[:, :-1].mean()):.2f}, "
-          f"acceptance {float(res.acceptance_rate[:, :-1].mean()):.3f}, {calls} model calls "
-          f"in the trees ({calls / LV_EAGER_K:.1f} an iteration; at depth 6 up to 128), "
-          f"final means {[round(float(v), 4) for v in res.mean_estimate[0, -1]]} "
-          f"({smi})")
+    launches = {"ode_dopri5": ode.dopri5.launches,
+                "ode_dopri5_adjoint": ode.dopri5_adjoint.launches}
+    calls, wall_s, run_steps = nuts_tree_plain.model_calls, t.ms / 1e3, ode.solve_batched.steps
+    check_series("(b) lv_rk45", res, LV_K)
+    if nuts_tree.launches != 0 or res.x_final.dtype != torch.float64 or min(launches.values()) < 1:
+        raise AssertionError(f"(b) lv_rk45: {nuts_tree.launches} NUTS kernel launches, "
+                             f"{res.x_final.dtype}, ODE kernel launches {launches}")
+    print(f"(b) lv_rk45 float64 through the ODE kernel, {RUNS} x {N} x K={LV_K}, depth "
+          f"{MAX_DEPTH}, step {cfg.step_size}, started around the generating values: wall "
+          f"{wall_s:.1f} s (CUDA events), ODE kernel launches {launches}, no NUTS kernel "
+          f"launch, {calls} model calls in the trees ({calls / LV_K:.1f} an iteration), "
+          f"{run_steps} RK steps ({run_steps / (RUNS * N * LV_K):.1f} a particle-iteration), "
+          f"mean tree depth {float(res.tree_depth[:, :-1].mean()):.2f}, acceptance "
+          f"{float(res.acceptance_rate[:, :-1].mean()):.3f}, final means of run 0 "
+          f"{[round(float(v), 4) for v in res.mean_estimate[0, -1]]} ({smi})")
+
+    # The kernel against its plain version: the solver's inputs at
+    # LV_CHECK_N particles near the generating values, then timed at an
+    # eager block of the run's final population.
+    site, = m._ode_sites.values()
     gen = torch.Generator(device="cuda").manual_seed(7)
     x = (torch.tensor(LV_TRUTH, dtype=torch.float64, device="cuda").log()
          + 0.05 * torch.randn(LV_TIMED_N, 8, generator=gen, device="cuda",
                               dtype=torch.float64))
+    rows = {}
+    for n_lanes, cloud, what in ((LV_CHECK_N, x[:LV_CHECK_N], "near the generating values"),
+                                 (LV_BLOCK, res.x_final.reshape(-1, 8)[:LV_BLOCK],
+                                  "of the run's final population")):
+        y0, ts, a = lv_ode_inputs(m, cloud)
+        prog = site.program(y0, [a])
+        ys, _ = ode.dopri5(prog, y0, ts, a)
+        g = torch.randn(ys.shape, generator=gen, device="cuda", dtype=torch.float64)
+        for key, kernel, plain, inputs, adjoint in (
+                ("ode_dopri5", ode.dopri5, ode.dopri5_plain, (y0, ts, a), False),
+                ("ode_dopri5_adjoint", ode.dopri5_adjoint, ode.dopri5_adjoint_plain,
+                 (ys, ts, g, a), True)):
+            row = ode_row(f"(b) {key} {what}", kernel, plain, prog, inputs, adjoint, smi)
+            if n_lanes == LV_BLOCK:
+                rows[key] = {**row, "launches": launches[key]}
+    for line in ode.build_ode(prog).log.splitlines():
+        if "registers" in line or "spill" in line or "stack frame" in line:
+            print("  ptxas:", line.strip())
+
+    # A logp_and_grad call at LV_TIMED_N particles: the kernel route, replayed
+    # (timed at its second call), beside the host loop as it ran before the
+    # kernel: a second compile of the program, its call site routed to the
+    # host loop, interpreted.
+    host = solver_model(name)
+    for other in host._ode_sites.values():
+        other.routes[torch.float64] = "host loop: the witness of chip_smoke.py (b)"
     phi = torch.ones(x.shape[0], dtype=x.dtype, device=x.device)
-    ode.solve_batched.steps = 0
-    with CudaTimer() as t:
-        m.logp_and_grad(x, phi)
-    steps = ode.solve_batched.steps / x.shape[0]
-    lp, g = m.logp_and_grad(x[:LV_CHECK_N], phi[:LV_CHECK_N])
+    timed = {}
+    m.logp_and_grad(x, phi)
+    for label, call in (("kernel", lambda: m.logp_and_grad(x, phi)),
+                        ("host loop", lambda: CallableModel.logp_and_grad(host, x, phi))):
+        ode.solve_batched.steps = 0
+        with CudaTimer() as t:
+            out = call()
+        timed[label] = (t.ms, ode.solve_batched.steps / x.shape[0], out)
     m_cpu = solver_model(name).to("cpu")
     lp_c, g_c = m_cpu.logp_and_grad(x[:LV_CHECK_N].cpu(), phi[:LV_CHECK_N].cpu())
-    if not (torch.allclose(lp.cpu(), lp_c, rtol=1e-10, atol=0)
-            and torch.allclose(g.cpu(), g_c, rtol=1e-10, atol=1e-12)):
-        raise AssertionError(f"(b) lv_rk45: the card's logp and gradient differ from the "
-                             f"CPU's beyond rtol 1e-10: {float((lp.cpu() - lp_c).abs().max())}")
+    for label, (_, _, (lp, gr)) in timed.items():
+        if not (torch.allclose(lp[:LV_CHECK_N].cpu(), lp_c, rtol=1e-10, atol=0)
+                and torch.allclose(gr[:LV_CHECK_N].cpu(), g_c, rtol=1e-10, atol=1e-12)):
+            raise AssertionError(f"(b) lv_rk45 {label}: the card's logp and gradient differ "
+                                 f"from the CPU's beyond rtol 1e-10: "
+                                 f"{float((lp[:LV_CHECK_N].cpu() - lp_c).abs().max())}")
     print(f"(b) lv_rk45: a logp_and_grad call at {x.shape[0]} particles around the data's "
-          f"generating values {t.ms / 1e3:.2f} s (CUDA events), {steps:.1f} RK steps a "
-          f"particle (the solve and its adjoint's 20 intervals, accepted and rejected); at "
-          f"{LV_CHECK_N} of them logp and gradient equal the CPU's float64 values at rtol "
-          f"1e-10 ({smi})")
+          f"generating values: kernel route (replayed) {timed['kernel'][0]:.2f} ms, host loop "
+          f"(interpreted) {timed['host loop'][0]:.2f} ms (CUDA events); {timed['kernel'][1]:.1f} and "
+          f"{timed['host loop'][1]:.1f} RK steps a particle (the solve and its adjoint's 20 "
+          f"intervals, accepted and rejected); at {LV_CHECK_N} of them both equal the CPU's "
+          f"float64 values at rtol 1e-10 ({smi})")
+    return rows
 
 
 def special_cloud(name, dev):
@@ -3849,9 +3956,8 @@ def solvers_phase(smi, prep):
 
     float64_eager_phase(smi)
     part_took("(a) float64 arma")
-    lv_rk45_phase(smi)
+    rows = lv_rk45_phase(smi)
     part_took("(b) lv_rk45")
-    rows = {}
     for name in SOLVER_TILE:
         gm, trace_s, lib = prep["builds"][name].result()
         print(f"(a) {name}: {gm.autodiff} mode, {gm.n_ops} operations a leapfrog, "
@@ -4123,6 +4229,7 @@ def partial_run(only, smi, stan_prep, solvers_prep):
               "generated": generated_phase, "runner": runner_phase,
               "stan": lambda smi: stan_phase(smi, stan_prep),
               "solvers": lambda smi: solvers_phase(smi, solvers_prep),
+              "lv_rk45": lv_rk45_phase,
               "mesh": mesh_phase}
     for key in only:
         phases[key](smi)
@@ -4279,6 +4386,15 @@ def main():
     kernels.append(dict(name="libdevice_unary", route="cuda",
                         source="smcnuts_torch/csrc/libdevice_sweep.cu", replaces=K7R,
                         **solvers["libdevice"]))
+    # The adaptive ODE solve and its adjoint (phase `solvers` (b)): no Pallas
+    # kernel's port, the counterpart of XLA's odeint loop, which the JAX
+    # frontend lowers every adaptive solver to; float64, bound by FP64
+    # operations (no bound_unfused_ms: phase 2b measures FP32).
+    kernels += [
+        dict(name=key, route="cuda", source="smcnuts_torch/csrc/ode_dopri5.cuh",
+             replaces="smcnuts_tpu/stan/compiler.py:1031", **solvers[key])
+        for key in ("ode_dopri5", "ode_dopri5_adjoint")
+    ]
     kernels += [
         # K8: the FP32 peak, through its own entry point (ops/peak.peak_table).
         dict(name="fma_peak", route="cuda", source="smcnuts_torch/csrc/fma_peak.cu",
@@ -4288,6 +4404,13 @@ def main():
         kernel.setdefault("library_ms", None)
         if kernel["launches"] < 1 and not kernel.get("measurement_entry"):
             raise AssertionError(f"{kernel['name']}: the main path never launched it")
+        if "bound_unfused_ms" not in kernel:  # float64: the FP64 rate
+            print(f"{kernel['name']}: {kernel['ms']:.4f} ms on the device alone (a call "
+                  f"timed alone {kernel['host_call_ms']:.4f} ms), bound "
+                  f"{kernel['bound_ms']:.5f} ms by {kernel['bound_by']}, "
+                  f"{kernel['bound_ms'] / kernel['ms']:.5f} of it at the data sheet's FP64 "
+                  f"{PEAK_FP64 / 1e12:.0f} TFLOP/s ({smi})")
+            continue
         print(f"{kernel['name']}: {kernel['ms']:.4f} ms on the device alone (a call "
               f"timed alone {kernel['host_call_ms']:.4f} ms), {bound_text(kernel)}, "
               f"{kernel['bound_ms'] / kernel['ms']:.3f} of it at the data sheet's "

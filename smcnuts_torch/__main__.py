@@ -13,8 +13,10 @@ to an .npz, as host numpy arrays.
 target in place of `--model`, with a default step size of 0.5, as that CLI
 does; it runs on the eager backend by autograd, and with `--stan-tile` the
 program also gets a generated in-kernel model, so that `--nuts-backend auto`
-on a card runs it inside the CUDA NUTS kernel. Without `--stan`, `--data`
-and `--stan-tile` change nothing, as in that CLI.
+on a card runs it inside the CUDA NUTS kernel. A program with an adaptive ODE
+solver prints each call site's route in float32 and float64 to stderr
+(`StanModel.ode_routes`: the ODE kernel, or the host loop). Without
+`--stan`, `--data` and `--stan-tile` change nothing, as in that CLI.
 
 `--mesh` shards the particles over a process group (`parallel/`): under
 torchrun, every rank it starts (one a card, NCCL, device cuda:{LOCAL_RANK};
@@ -31,6 +33,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import sys
 
 import numpy as np
 
@@ -104,6 +107,10 @@ def _main(args) -> dict:
 
         model = compile_stan_file(args.stan, data=args.data, tile=args.stan_tile)
         args.model = model.name
+        for site, routes in model.ode_routes.items():
+            print(f"ODE solver {site}: "
+                  + "; ".join(f"{dtype} {route}" for dtype, route in routes.items()),
+                  file=sys.stderr)
         if args.step_size is None:
             args.step_size = 0.5
     else:

@@ -68,6 +68,13 @@ version compute, so they round alike, op for op:
   `SMCNUTS_ENTRY` of `csrc/nuts_tree.cuh` (a first-stage and a continuation
   instantiation) with the flags of `ops/nuts_cuda.NVCC_FLAGS`.
 
+The same lowering takes a function of many outputs (`lower_function`,
+`Function`): an ODE right-hand side and its VJP (`ops/ode.OdeProgram`), in
+float32 or float64, its literals rounded, folded and printed in that type
+(`_real`); `function_graph` is its plain version, `function_lines` its body
+in CUDA C++ for `csrc/ode_dopri5.cuh`. The special functions built from the
+program's ops mirror ATen's float code and lower in float32 only.
+
 The program of a split model holds the lanes' partials and lane 0's
 butterfly adds as ordinary adds, so the plain version, `count_ops` and
 `peak_live` compute what the lanes compute.
@@ -106,6 +113,7 @@ import os
 import struct
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -129,15 +137,43 @@ GROUP_BLOCK = 64
 _aten = torch.ops.aten
 
 
-def _f32(v) -> float:
-    """v rounded to float32, as torch rounds a scalar operand of a float32
-    tensor op."""
+class _RealType(threading.local):
+    """The real type of the program being lowered, in this thread: float32
+    for every generated model; an ODE right-hand side (`lower_function`) is
+    also lowered in float64, its literals rounded, folded and keyed in
+    double (`_real`)."""
+
+    dtype, np, pack = torch.float32, np.float32, "<f"
+
+
+_REAL = _RealType()
+
+
+@contextlib.contextmanager
+def _real(dtype):
+    """Lower in `dtype` (float32 or float64) inside the block."""
+    if dtype not in (torch.float32, torch.float64):
+        raise NotImplementedError(f"a generated program computes in float32 or float64, "
+                                  f"not {dtype}")
+    saved = (_REAL.dtype, _REAL.np, _REAL.pack)
+    double = dtype == torch.float64
+    _REAL.dtype, _REAL.np, _REAL.pack = (
+        (dtype, np.float64, "<d") if double else (dtype, np.float32, "<f"))
+    try:
+        yield
+    finally:
+        _REAL.dtype, _REAL.np, _REAL.pack = saved
+
+
+def _rnd(v) -> float:
+    """v rounded to the program's real type (float32 unless `_real` says
+    otherwise), as torch rounds a scalar operand of a tensor op."""
     with np.errstate(over="ignore"):
-        return float(np.float32(v))
+        return float(_REAL.np(v))
 
 
 def _bits(v: float) -> bytes:
-    return struct.pack("<f", v)
+    return struct.pack(_REAL.pack, v)
 
 
 class _Scaled:
@@ -177,15 +213,17 @@ _UNARY = {
 
 
 def _fold(op, vals):
-    """The float32 value of op on constants (a bool for a comparison)."""
+    """The value of op on constants in the program's real type (a bool for
+    a comparison)."""
+    real = _REAL.np
     with np.errstate(all="ignore"):
         if op in _BINARY:
-            return float(_BINARY[op](np.float32(vals[0]), np.float32(vals[1])))
+            return float(_BINARY[op](real(vals[0]), real(vals[1])))
         if op in _CMP:
             return bool(_CMP[op](vals[0], vals[1]))
         if op == "where":
             return vals[1] if vals[0] else vals[2]
-        t = torch.tensor(vals[0], dtype=torch.float32)
+        t = torch.tensor(vals[0], dtype=_REAL.dtype)
         if op == "pow":
             return float(torch.pow(t, vals[1]))
         return float(_UNARY[op](t))
@@ -240,7 +278,7 @@ class _Scalars:
         return self._append((op,) + attrs)
 
     def datum(self, v) -> int:
-        v = _f32(v)
+        v = _rnd(v)
         key = ("data", _bits(v))
         hit = self.memo.get(key)
         if hit is None:
@@ -276,9 +314,9 @@ class _Scalars:
     @staticmethod
     def scaled(c, base):
         if type(base) is float:
-            return _f32(c * base)
+            return _rnd(c * base)
         if isinstance(base, _Scaled):
-            return _Scalars.scaled(_f32(c * base.c), base.base)
+            return _Scalars.scaled(_rnd(c * base.c), base.base)
         if c == 1.0:
             return base
         return _Scaled(c, base)
@@ -339,13 +377,13 @@ class _Scalars:
             if b == 1.0:
                 return a
             if isinstance(a, _Scaled):
-                return self.scaled(_f32(a.c * b), a.base)
+                return self.scaled(_rnd(a.c * b), a.base)
             if type(a) is int and a in self.known:
                 return self.node("mul", a, b)
             return _Scaled(b, a)
         sa, sb = isinstance(a, _Scaled), isinstance(b, _Scaled)
         if sa and sb:
-            return self.scaled(_f32(a.c * b.c), self.mul(a.base, b.base))
+            return self.scaled(_rnd(a.c * b.c), self.mul(a.base, b.base))
         if sa:
             return self.scaled(a.c, self.mul(a.base, b))
         if sb:
@@ -492,7 +530,7 @@ def _tangent(b: _Scalars, i: int, op: str, args: tuple, tan: dict):
         return b.mul(-1.0, b.mul(t[0], b.mul(i, i)))
     if op == "pow":
         e = args[1]
-        return b.mul(e, b.mul(t[0], b.pow(args[0], _f32(e - 1.0))))
+        return b.mul(e, b.mul(t[0], b.pow(args[0], _rnd(e - 1.0))))
     if op == "where":
         return b.where(args[0], t[1], t[2])
     if op == "cos":
@@ -578,10 +616,10 @@ _I1E_EPS = 1.1920928955078125e-07
 def _chbevl(b, y, coeffs):
     """Cephes' chbevl: the Chebyshev series of `coeffs` at y, Clenshaw's
     recurrence b0 <- y * b1 - b2 + c in ATen's order."""
-    b0, b1, b2 = _f32(coeffs[0]), 0.0, 0.0
+    b0, b1, b2 = _rnd(coeffs[0]), 0.0, 0.0
     for c in coeffs[1:]:
         b2, b1 = b1, b0
-        b0 = b.add(b.sub(b.mul(y, b1), b2), _f32(c))
+        b0 = b.add(b.sub(b.mul(y, b1), b2), _rnd(c))
     return b.mul(0.5, b.sub(b0, b2))
 
 
@@ -616,11 +654,11 @@ def _digamma(b, x):
         res = b.where(below, b.sub(res, b.div(1.0, z)), res)
         z = b.where(below, b.add(z, 1.0), z)
     w = b.div(1.0, b.mul(z, z))
-    poly = _f32(_DIGAMMA_A[0])
+    poly = _rnd(_DIGAMMA_A[0])
     for c in _DIGAMMA_A[1:]:
-        poly = b.add(b.mul(poly, w), _f32(c))
+        poly = b.add(b.mul(poly, w), _rnd(c))
     series = b.sub(b.sub(b.add(res, b.unary("log", z)), b.div(0.5, z)), b.mul(w, poly))
-    out = b.where(b.node("eq", z, 10.0), b.add(res, _f32(_PSI_10)), series)
+    out = b.where(b.node("eq", z, 10.0), b.add(res, _rnd(_PSI_10)), series)
     return b.where(b.node("lt", x, 0.0), math.nan, out)
 
 
@@ -652,7 +690,11 @@ def _special(b, kind, x):
     is differentiated in forward mode by the function's own derivative
     (`_Scalars.rules`). In reverse mode autograd's backward is traced: i0e's
     emits i1e and sgn, i1e's i0e, lgamma's digamma, digamma's polygamma
-    (which raises)."""
+    (which raises). They mirror ATen's float code, so a float64 program
+    does not lower them."""
+    if _REAL.dtype != torch.float32:
+        raise NotImplementedError(f"{kind} in a {_REAL.dtype} program: the lowering "
+                                  "mirrors ATen's float code only")
     x = b.mat(x)
     v = b.mat(_SPECIAL[kind](b, x))
     if type(x) is int and type(v) is int:
@@ -734,7 +776,7 @@ class _SpecialFunctions(torch.overrides.TorchFunctionMode):
 
 def _lit(v):
     """A Python number of the graph as a program literal."""
-    return v if type(v) is bool else _f32(v)
+    return v if type(v) is bool else _rnd(v)
 
 
 def _const_array(shape, value) -> np.ndarray:
@@ -791,10 +833,10 @@ def _reduce(b, a, dims, keepdim):
 
 
 def _check_float(dtype, what):
-    if dtype is not None and dtype != torch.float32:
+    if dtype is not None and dtype != _REAL.dtype:
         raise NotImplementedError(
-            f"{what}: the generated model computes in float32, the density "
-            f"asks for {dtype}")
+            f"{what}: the generated program computes in {_REAL.dtype}, the "
+            f"function asks for {dtype}")
 
 
 def _lower(gm: torch.fx.GraphModule, inputs: list, b: _Scalars, model: str):
@@ -844,7 +886,7 @@ def _binary(fn):
         if kw.get("rounding_mode") is not None:
             raise NotImplementedError(f"{node.target} with rounding_mode")
         if alpha != 1:
-            c = _ew(lambda v: b.mul(_f32(alpha), v), c)
+            c = _ew(lambda v: b.mul(_rnd(alpha), v), c)
         return _ew(lambda u, v: fn(b, u, v), a, c)
     return h
 
@@ -900,7 +942,7 @@ def _pow(b, node, a, e):
         return _ew(lambda u, v: b.pow(u, v), a, e)
     if isinstance(a, (int, float)) and not isinstance(a, bool):
         raise NotImplementedError(f"{node.target}: a constant raised to a tensor")
-    return _ew(lambda u: b.pow(u, _f32(e)), a)
+    return _ew(lambda u: b.pow(u, _rnd(e)), a)
 
 
 def _where(b, node, c, x, y):
@@ -1053,7 +1095,15 @@ def _finish(b: _Scalars, logp, grads, dim, order="built") -> Program:
 
 def _finish_map(b: _Scalars, logp, grads, dim, order="built"):
     """`_finish`, and the map from the builder's node ids to the program's."""
-    outs = [b.mat(logp)] + [b.mat(g) for g in grads]
+    ops, ren, data, new = _renumber(b, [logp] + list(grads), order)
+    return Program(ops, ren[0], tuple(ren[1:]), data, dim), new
+
+
+def _renumber(b: _Scalars, outs, order="built"):
+    """The live nodes of `outs` renumbered in emission order: (ops, the
+    outputs renumbered, the data block, the map from the `_Scalars` node
+    ids)."""
+    outs = [b.mat(o) for o in outs]
     live = _live(b, outs)
     order = _order(b.ops, live) if order == "built" else _primal_order(b.ops, live, b.keys)
     new = {old: k for k, old in enumerate(order)}
@@ -1070,7 +1120,7 @@ def _finish_map(b: _Scalars, logp, grads, dim, order="built"):
             ops.append((op, *(new[a] if type(a) is int else a for a in args)))
     ren = [new[o] if type(o) is int else o for o in outs]
     data = tuple(b.data[b.ops[i][1]] for i in data_ids)
-    return Program(tuple(ops), ren[0], tuple(ren[1:]), data, dim), new
+    return tuple(ops), ren, data, new
 
 
 def _order(ops, live) -> list:
@@ -2207,21 +2257,33 @@ def _c_literal(v: float) -> str:
     return f"({v.hex()}f)"
 
 
-def _c_rhs(op, a, ref) -> str:
-    """The C expression of op on operands a, each written by `ref`."""
+def _c_literal64(v: float) -> str:
+    """A float64 literal, bit-exact (hex float)."""
+    if math.isnan(v):
+        return "__longlong_as_double(0x7ff8000000000000LL)"
+    if math.isinf(v):
+        return f"__longlong_as_double({'0x7ff0' if v > 0 else '0xfff0'}000000000000LL)"
+    return f"({v.hex()})"
+
+
+def _c_rhs(op, a, ref, real="float") -> str:
+    """The C expression of op on operands a, each written by `ref`, in the
+    real type `real` ("float", or "double": the libdevice calls of double,
+    as ATen's CUDA ops of float64 make them)."""
+    f = "f" if real == "float" else ""
     if op in _INFIX:
         return f"{ref(a[0])} {_INFIX[op]} {ref(a[1])}"
     if op == "neg":
         return f"-{ref(a[0])}"
     if op == "recip":
-        return f"1.0f / {ref(a[0])}"
+        return f"1.0{f} / {ref(a[0])}"
     if op == "pow":
-        return f"powf({ref(a[0])}, {ref(a[1])})"
+        return f"pow{f}({ref(a[0])}, {ref(a[1])})"
     if op == "sign":
-        return f"static_cast<float>((0.0f < {ref(a[0])}) - ({ref(a[0])} < 0.0f))"
+        return f"static_cast<{real}>((0.0{f} < {ref(a[0])}) - ({ref(a[0])} < 0.0{f}))"
     if op == "where":
         return f"{ref(a[0])} ? {ref(a[1])} : {ref(a[2])}"
-    return f"{_CALL[op]}({ref(a[0])})"
+    return f"{_CALL[op] if f else _CALL[op][:-1]}({ref(a[0])})"
 
 
 def _ref(a) -> str:
@@ -2527,11 +2589,23 @@ def count_ops(prog: Program) -> int:
 
 def _fx_graph(prog: Program) -> torch.fx.GraphModule:
     """The program as an fx graph of ATen ops over lane tensors: x (P, D),
-    phi (P,) -> (logp (P,), grad (P, D)). A literal first operand of a
-    non-commutative op takes the op's scalar form, or a full tensor."""
+    phi (P,) -> (logp (P,), grad (P, D))."""
     g = torch.fx.Graph()
     x = g.placeholder("x")
     phi = g.placeholder("phi")
+    out, call = _fx_ops(g, prog.ops, prog.data, x, phi)
+    logp = out(prog.logp)
+    grad = call(_aten.stack.default, [out(o) for o in prog.grad], 1)
+    g.output((logp, grad))
+    g.eliminate_dead_code()
+    return torch.fx.GraphModule(nn.Module(), g)
+
+
+def _fx_ops(g: torch.fx.Graph, ops, data, x, phi):
+    """The ops of a program as nodes of g over lane tensors (x (P, D) and
+    phi (P,), placeholders of g); returns (out, call): out(o) the node of a
+    program value o, a node or a literal. A literal first operand of a
+    non-commutative op takes the op's scalar form, or a full tensor."""
     first = g.call_function(_aten.select.int, (x, 1, 0))
 
     def call(fn, *args):
@@ -2542,7 +2616,7 @@ def _fx_graph(prog: Program) -> torch.fx.GraphModule:
 
     vals = []
     swap = {"lt": "gt", "le": "ge", "gt": "lt", "ge": "le", "eq": "eq", "ne": "ne"}
-    for op, *a in prog.ops:
+    for op, *a in ops:
         if op == "x":
             vals.append(call(_aten.select.int, x, 1, a[0]))
             continue
@@ -2550,7 +2624,7 @@ def _fx_graph(prog: Program) -> torch.fx.GraphModule:
             vals.append(phi)
             continue
         if op == "data":
-            vals.append(prog.data[a[0]])
+            vals.append(data[a[0]])
             continue
         r = [vals[v] if type(v) is int else v for v in a]
         if op in ("add", "mul"):
@@ -2583,11 +2657,7 @@ def _fx_graph(prog: Program) -> torch.fx.GraphModule:
     def out(o):
         return vals[o] if type(o) is int else full(o)
 
-    logp = out(prog.logp)
-    grad = call(_aten.stack.default, [out(o) for o in prog.grad], 1)
-    g.output((logp, grad))
-    g.eliminate_dead_code()
-    return torch.fx.GraphModule(nn.Module(), g)
+    return out, call
 
 
 # The lane counts whose CUDA graph a generated model keeps (`_replay`).
@@ -2784,6 +2854,83 @@ def straight_line(model: GeneratedModel) -> GeneratedModel:
     n_data = sum(op == "data" for op, *_ in prog.ops)
     prog = dataclasses.replace(prog, data=prog.data[:n_data], recurrences=())
     return GeneratedModel(prog, model.autodiff, model.name)
+
+
+# ---------------------------------------------------------------------------
+# Functions of many outputs: an ODE right-hand side and its VJP.
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class Function:
+    """A lowered function of len(outs) outputs in the real type `dtype`:
+    `ops` as a Program's (the inputs are the leaves ("x", d), the elements
+    of the traced inputs flattened in order; "data" indexes `data`,
+    constants of the function), `outs` node indices or literals, the traced
+    outputs' elements flattened in order."""
+
+    ops: tuple
+    outs: tuple
+    data: tuple
+    dtype: torch.dtype
+
+
+def lower_function(fn, inputs, name="function") -> Function:
+    """fn(*inputs) traced by `trace_fx` on the tensors `inputs` (one dtype,
+    float32 or float64) and lowered to scalars, simplified as a generated
+    model is, its constants folded in that dtype. An op the lowering does
+    not have raises NotImplementedError naming it."""
+    dtype = inputs[0].dtype
+    with _real(dtype):
+        gm = trace_fx(fn, *inputs)
+        b = _Scalars()
+        leaves, d = [], 0
+        for t in inputs:
+            a = np.empty(tuple(t.shape), dtype=object)
+            for idx in np.ndindex(a.shape):
+                a[idx] = b.leaf("x", d)
+                d += 1
+            leaves.append(a)
+        out = _lower(gm, leaves, b, name)
+        flat = [v for o in (out if isinstance(out, (list, tuple)) else [out])
+                for v in _arr(o).reshape(-1)]
+        ops, outs, data, _ = _renumber(b, flat)
+    return Function(ops, tuple(outs), data, dtype)
+
+
+def function_ops(fn: Function) -> int:
+    """Operations of one evaluation: every node but the leaves."""
+    return sum(op not in ("x", "data") for op, *_ in fn.ops)
+
+
+def function_graph(fn: Function) -> torch.fx.GraphModule:
+    """The function as an fx graph of ATen ops over lanes: x (P, inputs) ->
+    (P, len(outs)), op for op as `function_lines` computes it."""
+    g = torch.fx.Graph()
+    x = g.placeholder("x")
+    out, call = _fx_ops(g, fn.ops, fn.data, x, None)
+    g.output(call(_aten.stack.default, [out(o) for o in fn.outs], 1))
+    g.eliminate_dead_code()
+    return torch.fx.GraphModule(nn.Module(), g)
+
+
+def function_lines(fn: Function, leaf, out: str) -> list:
+    """The function's body in CUDA C++ in its real type: a line a node,
+    input d written as leaf(d), then `out[k] = ...;` for every output."""
+    real = "double" if fn.dtype == torch.float64 else "float"
+    literal = _c_literal64 if real == "double" else _c_literal
+
+    def ref(a):
+        return f"v{a}" if type(a) is int else literal(a)
+
+    lines = []
+    for i, (op, *a) in enumerate(fn.ops):
+        kind = "bool" if op in _CMP else real
+        rhs = (leaf(a[0]) if op == "x" else literal(fn.data[a[0]]) if op == "data"
+               else _c_rhs(op, a, ref, real))
+        lines.append(f"    const {kind} v{i} = {rhs};")
+    lines += [f"    {out}[{k}] = {ref(o)};" for k, o in enumerate(fn.outs)]
+    return lines
 
 
 # ---------------------------------------------------------------------------

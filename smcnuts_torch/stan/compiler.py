@@ -36,8 +36,14 @@ Semantics (those of the JAX frontend):
 - The solvers are the JAX frontend's: every ODE interface (`ode_*`,
   `ode_*_tol`, the old `integrate_ode_*`) is adaptive Dormand-Prince with
   its continuous adjoint (`ops/ode.odeint_dopri5`, a port of
-  `jax.experimental.ode.odeint` batched over the particles of a vmap), and
-  `ode_rk4` the fixed-step RK4 extension (`ops/ode.odeint_rk4`);
+  `jax.experimental.ode.odeint` batched over the particles of a vmap, one
+  op a solve), and `ode_rk4` the fixed-step RK4 extension
+  (`ops/ode.odeint_rk4`). Each adaptive call site, with each set of data
+  it is reached with, has its right-hand side (`ops/ode.OdeRhs`), whose
+  route in float32 and float64 the compile-time probe fixes and
+  `StanModel.ode_routes` shows: the kernel of `csrc/ode_dopri5.cuh` over
+  the function lowered to generated code, or the host loop for one the
+  lowering cannot take, naming the op;
   `integrate_1d` a 30-point Gauss-Legendre rule with Stan's maps for
   infinite bounds; the algebra solvers 16 Newton steps with a `jacfwd`
   jacobian. A bound of `integrate_1d` that depends on the parameters and is
@@ -65,7 +71,7 @@ import numpy as np
 import torch
 
 from ..models.base import CallableModel
-from ..ops.ode import MXSTEP, odeint_dopri5, odeint_rk4
+from ..ops.ode import MXSTEP, OdeRhs, odeint_dopri5, odeint_rk4
 from . import math as smath
 from .math import (
     DISTRIBUTIONS,
@@ -373,7 +379,6 @@ _ODE_SOLVERS = frozenset({
     "integrate_ode_rk45", "integrate_ode_bdf", "integrate_ode_adams",
     "integrate_ode", "ode_rk4",
 })
-_ADAPTIVE_SOLVERS = _ODE_SOLVERS - {"ode_rk4"}
 _ALGEBRA_SOLVERS = frozenset({
     "algebra_solver", "algebra_solver_newton", "solve_newton", "solve_powell",
 })
@@ -908,7 +913,27 @@ class _Interp:
 
         if name == "ode_rk4":
             return odeint_rk4(rhs, y0, times, tensors, steps)
-        return odeint_dopri5(rhs, y0, times, tensors, rtol, atol, mxstep)[1:]
+        site = self._ode_site(node, fd, extra)
+        site.set_fn(rhs, y0.dtype, y0.device)
+        return odeint_dopri5(site, y0, times, tensors, rtol, atol, mxstep)[1:]
+
+    def _ode_site(self, node: Call, fd, extra) -> OdeRhs:
+        """The right-hand side of an adaptive solver's call site reached with
+        these data: the program's `_OdeSites` entry (made at its first
+        evaluation, the compile-time probe, which fixes its routes). The
+        right-hand side bakes the data among its arguments into its program
+        (and the interpreted function into its closure), so a site reached
+        with other data (a loop over subjects, a function called from two
+        places) is another entry."""
+        sites = self.env.get("__ode__")
+        if sites is None:
+            raise StanCompileError(f"{node.name}: no ODE call-site registry in this scope")
+        key = (id(node), tuple(_data_key(_as_value(v), node.name) for v in extra))
+        site = sites.get(key)
+        if site is None:
+            site = sites[key] = OdeRhs(f"{node.name}({fd.name}) #{len(sites) + 1}")
+            sites.nodes.append(node)  # keeps the node, and so its id, alive
+        return site
 
     def _integrate_1d(self, node: Call):
         """Stan's integrate_1d(f, a, b, theta, x_r, x_i[, rel_tol]) with the
@@ -1146,6 +1171,7 @@ class _Interp:
                 f"function call depth exceeded in {fd.name!r} (unbounded recursion?)")
         fenv = {
             "__functions__": self.env.get("__functions__"),
+            "__ode__": self.env.get("__ode__"),
             "__fdepth__": depth + 1,
             # parameter orientation: declared row_vector params re-tag their
             # (possibly untagged) argument values at read time
@@ -1612,8 +1638,39 @@ def load_stan_data(path: str) -> dict:
         return json.loads(repaired)
 
 
+def _data_key(v, what, inner=False):
+    """A solver argument as a key: a parameter (a tensor, an input of the
+    solve) by its place alone, data by their bits. A container's values
+    are baked into the right-hand side whole, so one may hold no
+    parameter."""
+    if is_tensor(v):
+        if inner:
+            raise StanCompileError(f"{what}: an argument that holds parameters in a tuple "
+                                   "or list is not supported")
+        return "parameter"
+    if isinstance(v, (list, tuple)):
+        return (type(v).__name__, tuple(_data_key(x, what, True) for x in v))
+    if isinstance(v, (np.ndarray, np.generic)):
+        return ("array", v.dtype.str, v.shape, v.tobytes())
+    if isinstance(v, float):
+        return ("float", v.hex())
+    if isinstance(v, int):
+        return ("int", v)
+    raise StanCompileError(f"{what}: an argument of type {type(v).__name__} is not supported")
+
+
+class _OdeSites(dict):
+    """A program's adaptive ODE call sites: (id of the Call node, the key of
+    its data arguments) -> its `OdeRhs`, in the order they were first
+    reached."""
+
+    def __init__(self):
+        super().__init__()
+        self.nodes = []
+
+
 def _build_data_env(prog: Program, data: dict) -> tuple[dict, bool]:
-    env = {"__types__": {}}
+    env = {"__types__": {}, "__ode__": _OdeSites()}
     # User-defined functions ride the env under a reserved key (Stan
     # identifiers cannot start with '_').
     fdefs = prog.blocks.get("functions", [])
@@ -1816,10 +1873,13 @@ class StanModel(CallableModel):
     program every call costs the host ~14 ms for radon at 512 particles on
     an H100's host, against a negligible device time (PERF.md, §5);
     `CallableModel.logp_and_grad(model, x, phi)` is the interpretation.
-    A program that reaches an adaptive ODE solver (`has_adaptive_solver`,
-    as `has_rng` marks one that draws) is interpreted every call: its step
-    loop depends on the data, and a graph would replay the traced inputs'
-    steps.
+    A program that reaches an adaptive ODE solver is replayed too: each
+    solve and its adjoint are one op of the graph (`ops/ode.py`), which
+    solves again at the replay's inputs, each lane to its own steps.
+    `ode_routes` maps each of its call sites (one for each set of data a
+    site is reached with) to its route in float32 and in float64, fixed
+    when the program compiled: the kernel, or the host loop and the op the
+    lowering lacks.
 
     `constrain` runs under `vmap(randomness="different")` inside a forked
     RNG state, so generated quantities that draw (`*_rng`) are deterministic
@@ -1829,15 +1889,22 @@ class StanModel(CallableModel):
     # dropped beyond.
     MAX_GRAPHS = 8
 
-    def __init__(self, *args, has_rng=False, has_adaptive_solver=False, **kw):
+    def __init__(self, *args, has_rng=False, ode_sites=None, **kw):
         super().__init__(*args, **kw)
         self.has_rng = has_rng
-        self.has_adaptive_solver = has_adaptive_solver
+        self._ode_sites = {} if ode_sites is None else ode_sites
         self._graphs: dict = {}
 
+    @property
+    def ode_routes(self) -> dict:
+        """Each adaptive ODE call site's route in each real type, {site:
+        {"float32": route, "float64": route}}, a route "kernel" or "host
+        loop: <the op the lowering lacks>"."""
+        return {site.name: {str(dtype).removeprefix("torch."): route
+                            for dtype, route in site.routes.items()}
+                for site in self._ode_sites.values()}
+
     def logp_and_grad(self, x, phi=1.0):
-        if self.has_adaptive_solver:
-            return super().logp_and_grad(x, phi)
         if not (isinstance(phi, torch.Tensor) and phi.dim() > 0):
             phi = torch.as_tensor(phi, dtype=x.dtype, device=x.device).expand(x.shape[0])
         key = (tuple(x.shape), x.dtype, x.device, phi.dtype)
@@ -2043,10 +2110,13 @@ def compile_stan_program(source: str, data: dict, name: str = "stan",
     # Eager validation: evaluate the target once so unsupported
     # distributions, undefined variables, and parameter-dependent control
     # flow surface at compile time, not first use.
+    # The ODE call sites' routes are fixed here, in both real types.
     probe = torch.zeros(dim, dtype=torch.float32)
     try:
         with torch.no_grad():
             _eval_target(probe, 0.5)
+            if data_env["__ode__"]:
+                _eval_target(probe.double(), 0.5)
     except (StanCompileError, StanSyntaxError):
         raise
     except Exception as e:  # errors of bad programs
@@ -2056,12 +2126,11 @@ def compile_stan_program(source: str, data: dict, name: str = "stan",
     for s in specs:
         param_names.extend(s.names())
     has_rng = _uses_rng(gq_block)
-    # Every block, the functions' bodies included.
-    has_adaptive_solver = _calls(list(prog.blocks.values()),
-                                 lambda name: name in _ADAPTIVE_SOLVERS)
     with torch.no_grad(), torch.random.fork_rng(devices=[]):
         n_tp_all = int(constrain(probe, include_gq=False).shape[0])
         n_all = int(constrain(probe).shape[0])
+        if data_env["__ode__"]:  # the routes of the sites only these blocks reach
+            constrain(probe.double())
     n_tp = n_tp_all - len(param_names)
     n_gq = n_all - n_tp_all
     param_names.extend(f"tp.{i + 1}" for i in range(n_tp))
@@ -2102,7 +2171,7 @@ def compile_stan_program(source: str, data: dict, name: str = "stan",
     return StanModel(
         name, dim, logprior, loglik, constrain=constrain, constrained_dim=n_all,
         param_names=tuple(param_names), tile_model=tile_model, has_rng=has_rng,
-        has_adaptive_solver=has_adaptive_solver,
+        ode_sites=data_env["__ode__"],
     )
 
 

@@ -686,11 +686,11 @@ def test_errors_match_jax(case):
 def test_ode_raises_naming_its_roadmap_item():
     """The ODE program the port once refused (ROADMAP Queue 1 item 11b, done)
     compiles and matches the JAX frontend (tests/test_torch_stan_solvers.py
-    holds the solvers themselves); its adaptive solver marks it for
-    interpretation at every call."""
+    holds the solvers themselves); its adaptive solver's call site takes
+    the ODE kernel's route in both real types."""
     data = {"T": 3, "ts": [0.5, 1.0, 1.5], "y0": [1.0]}
     _, tm = compare(_ODE, data, "ode")
-    assert tm.has_adaptive_solver
+    assert list(tm.ode_routes.values()) == [{"float32": "kernel", "float64": "kernel"}]
 
 
 def test_load_stan_data_repairs_truncation(tmp_path):

@@ -192,7 +192,7 @@ def test_dopri5_follows_jax_odeint_step_for_step(jax_x64):
 def test_lotka_volterra_float64_matches_jax_x64(jax_x64):
     inputs, want = jax_x64
     m = tstan.compile_stan_program(LV.replace("{solver}", LV_RK45), lv_data(), name="lv")
-    assert m.dim == 8 and m.has_adaptive_solver
+    assert m.dim == 8 and list(m.ode_routes.values()) == [{"float32": "kernel", "float64": "kernel"}]
     lp, g = m.logp_and_grad(torch.tensor(inputs["th"], dtype=torch.float64))
     assert lp.dtype == g.dtype == torch.float64
     np.testing.assert_allclose(lp.numpy(), want["lp"], rtol=1e-8)
@@ -265,7 +265,7 @@ def test_decay_ode_closed_form_and_jax(form):
     src = _decay_source(_DECAY_CALLS[form])
     m = tstan.compile_stan_program(src, _DECAY_DATA, name=form)
     jm = jstan.compile_stan_program(src, _DECAY_DATA, name=form)
-    assert m.has_adaptive_solver == (form != "ode_rk4")
+    assert bool(m.ode_routes) == (form != "ode_rk4")
     th = np.array([[np.log(0.8), np.log(0.3)], [0.1, -0.5], [-0.4, 0.2]], np.float32)
     lp, g = interpret(m, torch.tensor(th))
     want = [_decay_closed_form(t.astype(np.float64)) for t in th]
@@ -313,19 +313,101 @@ def test_batched_dopri5_equals_each_lane_alone():
         assert len(set(alone_steps)) > 1 and steps == sum(alone_steps)
 
 
-def test_adaptive_program_is_interpreted_at_every_call():
-    """A program with an adaptive solver is never replayed from a trace: a
-    second call at new inputs (whose solves take other steps) gives the bits
-    of a fresh interpretation."""
+def test_adaptive_program_replays_the_bits_of_a_fresh_interpretation():
+    """A program with an adaptive solver is traced once a shape and
+    replayed: the solve and its adjoint are one node each of the graph, and
+    a second call at new inputs (whose solves take other steps) gives the
+    bits of a fresh interpretation. Its call site takes the kernel route."""
     m = tstan.compile_stan_program(_decay_source(_DECAY_CALLS["ode_rk45"]), _DECAY_DATA,
                                    name="decay")
+    assert list(m.ode_routes.values()) == [{"float32": "kernel", "float64": "kernel"}]
     x1 = torch.tensor([[0.1, -0.5], [-0.4, 0.2]])
     x2 = torch.tensor([[1.2, 0.3], [-1.5, -0.1]])
     m.logp_and_grad(x1)
+    (graph,) = m._graphs.values()
+    ops = [str(n.target) for n in graph.graph.nodes if "smcnuts" in str(n.target)]
+    assert ops == ["smcnuts.ode_dopri5.default", "smcnuts.ode_dopri5_adjoint.default"]
+    ode.solve_batched.steps = 0
     got = m.logp_and_grad(x2)
+    replay_steps = ode.solve_batched.steps
+    ode.solve_batched.steps = 0
     want = CallableModel.logp_and_grad(m, x2)
-    assert not m._graphs
+    assert replay_steps == ode.solve_batched.steps > 0
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+_DOSE_RHS = {
+    "kernel": "return d - k * y;",
+    # atan: an op the lowering lacks, so this site takes the host loop.
+    "host loop": "return d - k * y + 0.001 * atan(y);",
+}
+_DOSE_TS = [0.25, 0.5, 1.0, 2.0]
+_DOSES = [0.5, 2.0, 4.0]
+
+
+def _dose_source(body):
+    return f"""
+functions {{ vector inflow(real t, vector y, real k, real d) {{ {body} }} }}
+data {{ int<lower=1> J; int<lower=1> N; array[N] real ts; array[J] real dose;
+       array[J, N] real yobs; }}
+parameters {{ real<lower=0> k; real<lower=0> sigma; }}
+model {{
+  for (j in 1:J) {{
+    array[N] vector[1] mu = ode_rk45(inflow, to_vector({{1.0}}), 0, ts, k, dose[j]);
+    for (n in 1:N) {{ yobs[j, n] ~ normal(mu[n][1], sigma); }}
+  }}
+  k ~ lognormal(0, 1);
+  sigma ~ exponential(1);
+}}
+"""
+
+
+def _dose_mean(k, d, ts):
+    """y(t) of dy/dt = d - k y, y(0) = 1."""
+    return d / k + (1.0 - d / k) * np.exp(-k * np.asarray(ts))
+
+
+_DOSE_DATA = {"J": 3, "N": 4, "ts": _DOSE_TS, "dose": _DOSES,
+              "yobs": [_dose_mean(0.8, d, _DOSE_TS).tolist() for d in _DOSES]}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("route", sorted(_DOSE_RHS))
+def test_a_call_site_reached_with_other_data_solves_with_each(route, dtype):
+    """One call site in a loop over subjects, each with its own dose (data):
+    each reach is a right-hand side of its own, on its route; the replay at
+    new inputs equals a fresh interpretation to the bit, and both the
+    closed form (rtol 1e-4, as the decay ODE's) and, in float32, the JAX
+    frontend (as test_decay_ode_closed_form_and_jax holds it)."""
+    from scipy import stats
+
+    src = _dose_source(_DOSE_RHS[route])
+    m = tstan.compile_stan_program(src, _DOSE_DATA, name="dose")
+    routes = [r for site in m.ode_routes.values() for r in site.values()]
+    assert len(m.ode_routes) == len(_DOSES) and len(routes) == 2 * len(_DOSES)
+    assert all(r == "kernel" if route == "kernel" else r.startswith("host loop:") and
+               "atan" in r for r in routes)
+    x1 = torch.tensor([[0.1, -0.5], [-0.4, 0.2]], dtype=dtype)
+    x2 = torch.tensor([[np.log(0.8), np.log(0.3)], [0.3, -1.0]], dtype=dtype)
+    m.logp_and_grad(x1)
+    got = m.logp_and_grad(x2)
+    want = interpret(m, x2)
+    assert len(m._graphs) == 1
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    if route == "kernel":
+        for (lk, ls), lp in zip(x2.double().numpy(), got[0].double().numpy()):
+            k, sigma = np.exp(lk), np.exp(ls)
+            closed = (stats.lognorm(1, scale=1).logpdf(k) + stats.expon().logpdf(sigma) + lk + ls
+                      + sum(stats.norm(_dose_mean(k, d, _DOSE_TS), sigma).logpdf(obs).sum()
+                            for d, obs in zip(_DOSES, _DOSE_DATA["yobs"])))
+            np.testing.assert_allclose(lp, closed, rtol=1e-4)
+    if dtype == torch.float32:
+        jm = jstan.compile_stan_program(src, _DOSE_DATA, name="dose")
+        jl, jg = jax.vmap(jax.value_and_grad(lambda t: jm.logp(t, 1.0)))(
+            jnp.asarray(x2.numpy()))
+        np.testing.assert_allclose(got[0].numpy(), np.asarray(jl), rtol=1e-4)
+        scale = np.abs(np.asarray(jg)).max(1, keepdims=True)
+        np.testing.assert_allclose(got[1].numpy() / scale, np.asarray(jg) / scale, atol=1e-4)
 
 
 def test_rk4_program_replays_the_bits_of_a_fresh_interpretation():
@@ -334,7 +416,7 @@ def test_rk4_program_replays_the_bits_of_a_fresh_interpretation():
     equals a fresh interpretation to the bit."""
     m = tstan.compile_stan_program(_decay_source(_DECAY_CALLS["ode_rk4"]), _DECAY_DATA,
                                    name="decay_rk4")
-    assert not m.has_adaptive_solver
+    assert not m.ode_routes
     m.logp_and_grad(torch.tensor([[0.1, -0.5], [-0.4, 0.2]]))
     assert len(m._graphs) == 1
     x2 = torch.tensor([[1.2, 0.3], [-1.5, -0.1]])
