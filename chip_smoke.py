@@ -6,7 +6,7 @@
     (phase keys: arma, prmwcd, main, batched, staged_times, cli, autodiff,
     gaussian, logistic, eightschools (phase 8 for one model alone),
     strategies, fused_kernel, eager, unfused, wide_eager, generated, runner,
-    stan, solvers, lv_rk45 (phase solvers (b) alone), mesh; device, build and
+    stan, solvers, lv_rk45 (phase solvers (b) alone), tile_programs, mesh; device, build and
     peak always run first)
 
 Phases, each printing its own lines; any failure raises (non-zero exit):
@@ -166,7 +166,7 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
    eager tree's block), 12,800 and 1,048,576 lanes; the device-alone time
    beside torch.profiler's device time of the same launches. (b) The
    slice's path, run_smc_batched(make_arma(fused="cuda"), eager,
-   fused_epilogue=False) at 25 x 512 x K=30 (EAGER_K), depth 10, blocks of 4,096: K5
+   fused_epilogue=False) at 25 x 512 x K=15 (EAGER_K), depth 10, blocks of 4,096: K5
    launched once per model evaluation of the tree, the whole-tree kernel and
    the plain K5 never; finite series, the PARITY bands, runs 0 and 24 equal
    their single runs; wall, and the profile of 2 iterations; then 3
@@ -283,7 +283,7 @@ solvers. float64 on the card, the rest of the Stan frontend, the special
    (replayed) and on the host loop (interpreted) side by side, both equal
    to the CPU's float64 values at rtol 1e-10, with the RK steps a particle;
    (c) lv_rk4 (ode_rk4 at LV_RK4_STEPS
-   steps a year, K7r) at 25 x 512 x K=100: K dispatches, no plain call,
+   steps a year, K7r) at 25 x 512 x K=LV_RK4_K: K dispatches, no plain call,
    runs 0 and 24 equal their single runs; then on the population it ended
    with, the kernel against its plain version at 25 x 512 x depth 10, zero
    bits and Philox, to the bit (the plain program replayed as a CUDA graph,
@@ -294,6 +294,27 @@ solvers. float64 on the card, the rest of the Stan frontend, the special
    libdevice calls they emit (cos, sin, erf, erfc, lgamma) equal to torch's op on every float32 of the range the
    densities use (`ops.generated.libdevice_unary`), timed beside torch's
    op (a measurement entry).
+
+tile_programs. every Stan program the JAX frontend tiles, through the
+   generated NUTS kernel (`TILE_PROGRAMS`): examples/stan/mvn_quadform,
+   inv_wishart_cov, multi_student_t and ordered_logistic, the algebra solver
+   (16 Newton steps), the decay ODE (ode_rk45, the adaptive solve and its
+   adjoint inlined in K7r), the lowering's new elementwise ops in one
+   density in reverse mode (K7r) and in forward mode (K7f), and lv_rk45
+   through K7r. (a), after phase 2b: each traced in a worker process (two
+   at once) and built as its trace ends, beside the later phases. (b) Each
+   program but lv_rk45 at 25 x 512 x K=TILE_K, forwards, depth 10: K
+   launches, no plain call, finite series, runs 0 and 24 equal their single
+   runs; then on its final population the kernel against its plain tree to
+   the bit under zero bits and Philox at 25 x 512 x depth 10 (a program that
+   solves an ODE: at ODE_BIT_LANES lanes x depth ODE_BIT_DEPTH, its plain
+   tree stepping each solve from the host), timed, with the bound and
+   ptxas's lines. (c) lv_rk45 through K7r at 25 x 512 x K=LV_K, depth 10,
+   from phase solvers (b)'s start: K launches, its moments inside the bands
+   of `estimates_band` against (b)'s eager float64 run, the RK steps its
+   solves and adjoints took (the library's counter); then as (b)'s ODE
+   program. The bound of a program that solves an ODE adds the RK steps of
+   its timed call x the operations of a float32 step.
 
 mesh. the particle and run axes over torch.distributed process groups
    (`smcnuts_torch/parallel/`; the ranks load the libraries phase 2 built).
@@ -734,6 +755,12 @@ def times_text(t):
     """A kernel's times (`kernel_times`) as one printed phrase."""
     return (f"kernel {t['ms']:.4f} ms on the device alone ({DEVICE_REPEATS} launches "
             f"back to back), {t['host_call_ms']:.4f} ms a call timed alone")
+
+
+def ptxas_lines(log):
+    """ptxas's lines of registers, stack and spills in an nvcc log."""
+    return [line.strip() for line in log.splitlines()
+            if "registers" in line or "spill" in line or "stack frame" in line]
 
 
 def time_pair(label, model, args, smi):
@@ -2142,8 +2169,9 @@ def arma_fused_kernel_phase(smi):
 
 # 10b's iterations: on an NVIDIA H100 80GB HBM3 at 700 W the eager path at
 # K=100 took 88 s and its two single runs 40 more (PERF.md); the same checks
-# at K=30 leave time for phase `solvers`.
-EAGER_K = 30
+# at K=30 left time for phase `solvers` (71 s for 10b), at K=15 for phase
+# tile_programs.
+EAGER_K = 15
 
 
 def eager_config(**kw):
@@ -3541,19 +3569,25 @@ F64_RUNS, F64_N, F64_K, F64_DEPTH = 5, 256, 10, 5
 # lv_rk45 on the eager backend in float64 through the ODE kernel
 # (csrc/ode_dopri5.cuh, one launch a solve and one an adjoint): the main
 # path's 25 x 512 at depth 10, started around the data's generating values,
-# K cut from 100 to LV_K to keep (b) near the 50-75 s its 1 x 64 x K=2 run at
-# depth 2 took on the host loop (PERF.md): the eager tree's ~286 replayed model
-# calls an iteration, not the solve, set its wall (K=20: 45.8 and 68.0 s on
-# two hosts, the whole script 1,142 s of its 1,200). The kernel is held to its
+# K cut from 100 to LV_K: the eager tree's ~286 replayed model calls an
+# iteration, not the solve, set its wall (K=20: 45.8 and 68.0 s on two hosts,
+# the whole script 1,142 s of its 1,200; K=10: 34.4-54.2 s; with phase
+# tile_programs, whose lv_rk45 run through K7r takes the same K, K=5 keeps
+# the script near 1,100 s; PERF.md). The kernel is held to its
 # plain version at LV_CHECK_N lanes and timed at LV_BLOCK, the eager tree's
 # block (SMCConfig.eager_block_size); a logp_and_grad call is timed at
 # LV_TIMED_N particles, kernel route and host loop side by side.
-LV_K, LV_CHECK_N, LV_TIMED_N, LV_BLOCK = 10, 64, 256, 4096
+LV_K, LV_CHECK_N, LV_TIMED_N, LV_BLOCK = 5, 64, 256, 4096
+# (c) lv_rk4's iterations, cut from 100 with phase tile_programs (its K=100
+# run and two single runs took 35.6 s of phase solvers; PERF.md).
+LV_RK4_K = 50
 SPECIAL_K = 10  # the short main-path run of each special-function program
 # The float32 inputs each libdevice call is swept over, every one of them:
 # the ranges the densities use.
 LIBDEVICE_RANGES = {"cos": (-50.0, 50.0), "sin": (-50.0, 50.0), "erf": (-10.0, 10.0),
-                    "erfc": (-10.0, 10.0), "lgamma": (0.0, 1e4)}
+                    "erfc": (-10.0, 10.0), "lgamma": (0.0, 1e4), "tan": (-10.0, 10.0),
+                    "atan": (-100.0, 100.0), "asin": (-1.0, 1.0), "acos": (-1.0, 1.0),
+                    "sinh": (-20.0, 20.0), "cosh": (-20.0, 20.0)}
 SOLVER_TILE = ("lv_rk4",) + SPECIAL_PROGRAMS
 # The spread of the special programs' clouds around their generating values
 # (unconstrained): probit's eta stays within float32's Phi < 1.
@@ -3579,34 +3613,39 @@ def trace_program(name):
     return tm.program, tm.autodiff, time.perf_counter() - t0
 
 
-def solvers_prepare(smi):
-    """Phase `solvers` (a), run after phase 2b (phase 2's build keeps its
-    minute): lv_rk4 and the five special programs traced (tile=True) in
-    worker processes, three at once, and each library's nvcc started in a
-    thread as its trace ends, so that both run beside the later phases.
-    Returns what solvers_phase takes."""
+def start_builds(names, trace, workers, smi):
+    """Each program of `names` traced by `trace` (tile=True on the CPU) in
+    worker processes, `workers` at once, and its library's nvcc started in
+    a thread as its trace ends, so that both run beside the later phases.
+    Returns what the phase that reads them takes."""
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 
     from smcnuts_torch.ops.generated import GeneratedModel, build_generated
 
-    phase("solvers (a). lv_rk4 and the special-function programs: traced in processes, "
-          "their nvcc started in the background")
     started = time.perf_counter()
-    # Three at once: the card's machine has 8 cores, and the phases that run
-    # beside them time their host.
-    procs = ProcessPoolExecutor(3, mp_context=multiprocessing.get_context("spawn"))
-    traces = {name: procs.submit(trace_program, name) for name in SOLVER_TILE}
+    procs = ProcessPoolExecutor(workers, mp_context=multiprocessing.get_context("spawn"))
+    traces = {name: procs.submit(trace, name) for name in names}
 
     def build(name):
         program, mode, seconds = traces[name].result()
         gm = GeneratedModel(program, mode, name)
         return gm, seconds, build_generated(gm)
 
-    threads = ThreadPoolExecutor(len(SOLVER_TILE))
-    builds = {name: threads.submit(build, name) for name in SOLVER_TILE}
-    print(f"(a) {len(SOLVER_TILE)} traces and builds started ({smi})")
+    threads = ThreadPoolExecutor(len(names))
+    builds = {name: threads.submit(build, name) for name in names}
+    print(f"(a) {len(names)} traces and builds started ({smi})")
     return dict(builds=builds, procs=procs, threads=threads, started=started)
+
+
+def solvers_prepare(smi):
+    """Phase `solvers` (a), run after phase 2b (phase 2's build keeps its
+    minute): lv_rk4 and the five special programs traced and built in the
+    background (`start_builds`), three at once: the card's machine has 8
+    cores, and the phases that run beside them time their host."""
+    phase("solvers (a). lv_rk4 and the special-function programs: traced in processes, "
+          "their nvcc started in the background")
+    return start_builds(SOLVER_TILE, trace_program, 3, smi)
 
 
 def solver_model(name, gm=None):
@@ -3765,6 +3804,7 @@ def lv_rk45_phase(smi):
                 "ode_dopri5_adjoint": ode.dopri5_adjoint.launches}
     calls, wall_s, run_steps = nuts_tree_plain.model_calls, t.ms / 1e3, ode.solve_batched.steps
     check_series("(b) lv_rk45", res, LV_K)
+    LV_EAGER.update(res=res, wall_s=wall_s)
     if nuts_tree.launches != 0 or res.x_final.dtype != torch.float64 or min(launches.values()) < 1:
         raise AssertionError(f"(b) lv_rk45: {nuts_tree.launches} NUTS kernel launches, "
                              f"{res.x_final.dtype}, ODE kernel launches {launches}")
@@ -3800,9 +3840,8 @@ def lv_rk45_phase(smi):
             row = ode_row(f"(b) {key} {what}", kernel, plain, prog, inputs, adjoint, smi)
             if n_lanes == LV_BLOCK:
                 rows[key] = {**row, "launches": launches[key]}
-    for line in ode.build_ode(prog).log.splitlines():
-        if "registers" in line or "spill" in line or "stack frame" in line:
-            print("  ptxas:", line.strip())
+    for line in ptxas_lines(ode.build_ode(prog).log):
+        print("  ptxas:", line)
 
     # A logp_and_grad call at LV_TIMED_N particles: the kernel route, replayed
     # (timed at its second call), beside the host loop as it ran before the
@@ -3936,7 +3975,7 @@ def libdevice_phase(smi):
 def solvers_phase(smi, prep):
     """Phase `solvers`: (a) float64 arma on the eager tree; (b) lv_rk45 eager
     in float64; (c) lv_rk4 through the generated kernel (K7r): a run at RUNS x
-    N x K=K (K dispatches, no plain call), then the kernel against its plain
+    N x K=LV_RK4_K (K dispatches, no plain call), then the kernel against its plain
     version on the population it ended with; (d) the five special-function
     programs, each kernel against its plain version on a cloud around its
     generating values and a short run (their launches), and the libdevice
@@ -3965,14 +4004,13 @@ def solvers_phase(smi, prep):
               f"at once; traced in {trace_s:.1f} s (a worker process), nvcc {lib.build_seconds:.1f}"
               f" s; its result read {time.perf_counter() - prep['started']:.0f} s after (a) "
               f"began ({smi})")
-        for line in lib.log.splitlines():
-            if "registers" in line or "spill" in line or "stack frame" in line:
-                print("  ptxas:", line.strip())
+        for line in ptxas_lines(lib.log):
+            print("  ptxas:", line)
         m = solver_model(name, gm)
         if gm.autodiff != STAN_PROGRAMS[name]["mode"]:
             raise AssertionError(f"(a) {name}: tile_autodiff='auto' chose {gm.autodiff}")
         step = STAN_PROGRAMS[name]["step"]
-        k = K if name == "lv_rk4" else SPECIAL_K
+        k = LV_RK4_K if name == "lv_rk4" else SPECIAL_K
         cfg = SMCConfig(n_particles=N, n_iterations=k, step_size=step, max_tree_depth=MAX_DEPTH)
         label = f"({'c' if name == 'lv_rk4' else 'd'}) {name}"
         res, launches, _ = strategy_run(f"{label}, forwards, step {step}", "generated", m, cfg,
@@ -3986,6 +4024,321 @@ def solvers_phase(smi, prep):
     part_took("(d) the libdevice sweep")
     print(f"phase solvers took {time.perf_counter() - started:.1f} s (host clock; its "
           f"budget is 120 s; {smi})")
+    return rows
+
+
+# ---- phase tile_programs: every Stan program the JAX frontend tiles, through
+# the generated NUTS kernel (K7r, K7f): dense linear algebra, the Newton
+# solver, the adaptive ODE solve inlined in K7r, and the elementwise ops.
+
+# The elementwise ops the lowering gained (tan, atan, asin, acos, sinh, cosh
+# and the select-built atan2 and fmin / fmax, log_mix's logaddexp,
+# log_sum_exp, inv_Phi's ndtri, digamma's derivative trigamma, weibull's pow
+# with a parameter exponent) in one density: a Weibull likelihood with a
+# location, a scale and a correlation-like parameter.
+ELEMENTWISE_PROGRAM = """
+data { int<lower=1> N; vector[N] y; real phi; }
+parameters { real mu; real<lower=0> sigma; real<lower=-1, upper=1> rho; }
+model {
+  mu ~ normal(0, 1);
+  sigma ~ lognormal(0, 0.5);
+  target += 0.1 * (tan(0.5 * rho) + atan(mu) + asin(0.9 * rho) - acos(0.9 * rho)
+                   + sinh(0.3 * mu) - cosh(0.3 * mu) + atan2(mu, sigma));
+  target += -0.5 * square(fmax(mu, -3) - fmin(sigma, 3));
+  target += log_mix(0.3, normal_lpdf(rho | -0.5, 0.5), normal_lpdf(rho | 0.5, 0.5));
+  target += -0.1 * log_sum_exp(mu, sigma);
+  target += 0.1 * inv_Phi(0.5 + 0.45 * rho) + 0.1 * digamma(1 + sigma);
+  target += phi * weibull_lpdf(y | 1 + sigma, exp(mu));
+}
+"""
+# tests/test_stan_orientation.py:420's algebra solver: root = sqrt(a).
+ALGEBRA_PROGRAM = """
+functions {
+  vector sq_system(vector y, array[] real theta, array[] real x_r, array[] int x_i) {
+    vector[1] z;
+    z[1] = y[1] * y[1] - theta[1];
+    return z;
+  }
+}
+data { real phi; }
+parameters { real<lower=0> a; }
+model {
+  vector[1] guess = [1.0]';
+  vector[1] root = algebra_solver(sq_system, guess, {a}, {0.0}, {0});
+  target += -0.5 * square(root[1] - 2.0);
+  a ~ normal(4, 2);
+}
+"""
+# tests/test_stan_ode.py:17's decay model, the adaptive solver (ode_rk45).
+DECAY_PROGRAM = """
+functions { vector decay(real t, vector y, real k) { return -k * y; } }
+data { int<lower=1> N; array[N] real ts; vector[N] yobs; real y0; }
+parameters { real<lower=0> k; real<lower=0> sigma; }
+model {
+  array[N] vector[1] mu = ode_rk45(decay, to_vector({y0}), 0, ts, k);
+  k ~ lognormal(0, 1);
+  sigma ~ exponential(1);
+  for (n in 1:N) { yobs[n] ~ normal(mu[n][1], sigma); }
+}
+"""
+
+
+def elementwise_data(seed=0, n=50):
+    import numpy as np
+
+    return {"N": n, "y": np.random.default_rng(seed).weibull(2.0, n).tolist()}
+
+
+def decay_data():
+    import numpy as np
+
+    ts = [0.25, 0.5, 1.0, 2.0]
+    return {"N": 4, "ts": ts, "yobs": (2.0 * np.exp(-0.8 * np.asarray(ts))).tolist(),
+            "y0": 2.0}
+
+
+# name -> its source (a path, or a string and its data), tile_autodiff, the
+# step of its runs. lv_rk45 is LV_PROGRAM with ode_rk45 (STAN_PROGRAMS), here
+# through the kernel: the adaptive solve and its adjoint inlined in K7r.
+TILE_PROGRAMS = {
+    "mvn_quadform": dict(path="examples/stan/mvn_quadform.stan", mode="reverse", step=0.2),
+    "inv_wishart_cov": dict(path="examples/stan/inv_wishart_cov.stan", mode="reverse",
+                            step=0.1),
+    "multi_student_t": dict(path="examples/stan/multi_student_t.stan", mode="reverse",
+                            step=0.2),
+    "ordered_logistic": dict(path="examples/stan/ordered_logistic.stan", mode="reverse",
+                             step=0.1),
+    "algebra_solver": dict(source=ALGEBRA_PROGRAM, data=dict, mode="reverse", step=0.2),
+    "decay_rk45": dict(source=DECAY_PROGRAM, data=decay_data, mode="reverse", step=0.05),
+    "elementwise": dict(source=ELEMENTWISE_PROGRAM, data=elementwise_data, mode="reverse",
+                        step=0.1),
+    "elementwise_fwd": dict(source=ELEMENTWISE_PROGRAM, data=elementwise_data,
+                            mode="forward", step=0.1),
+    "lv_rk45": dict(source=LV_PROGRAM.replace("{solver}", "ode_rk45(dz_dt, z_init, 0, ts, theta)"),
+                    data=lv_data, mode="reverse", step=0.02),
+}
+TILE_K = 10  # the short run of each small program
+# A program that solves an ODE, against its plain tree (which steps each
+# solve from the host, a leaf at a time): ODE_BIT_LANES lanes of run 0 at
+# depth ODE_BIT_DEPTH.
+ODE_BIT_LANES, ODE_BIT_DEPTH = 64, 3
+# phase solvers (b)'s eager lv_rk45 run, the reference of the kernel's.
+LV_EAGER = {}
+
+
+def tile_source(name):
+    """(source, data) of one of TILE_PROGRAMS."""
+    from smcnuts_torch.stan import load_stan_data
+
+    spec = TILE_PROGRAMS[name]
+    if "source" in spec:
+        return spec["source"], spec["data"]()
+    with open(spec["path"]) as f:
+        return f.read(), load_stan_data(spec["path"][: -len(".stan")] + ".json")
+
+
+def trace_tile_program(name):
+    """In a worker process: TILE_PROGRAMS[name] compiled with tile=True on
+    the CPU; returns (its generated program, mode, seconds)."""
+    from smcnuts_torch.stan import compile_stan_program
+
+    torch.set_num_threads(1)
+    src, data = tile_source(name)
+    t0 = time.perf_counter()
+    tm = compile_stan_program(src, data, name=name, tile=True,
+                              tile_autodiff=TILE_PROGRAMS[name]["mode"]).tile_model
+    return tm.program, tm.autodiff, time.perf_counter() - t0
+
+
+def tile_prepare(smi):
+    """Phase tile_programs (a), beside the later phases: each program traced
+    and built in the background (`start_builds`), two at once."""
+    phase("tile_programs (a). the Stan programs of the lowering's new ops: traced in "
+          "processes, their nvcc started in the background")
+    return start_builds(tuple(TILE_PROGRAMS), trace_tile_program, 2, smi)
+
+
+def tile_model(name, gm):
+    """TILE_PROGRAMS[name] compiled on the card, eager, with the generated
+    model gm (traced in tile_prepare) attached."""
+    from smcnuts_torch.stan import compile_stan_program
+
+    src, data = tile_source(name)
+    m = compile_stan_program(src, data, name=name)
+    m.tile_model = gm
+    return m.to(torch.device("cuda"))
+
+
+def tile_kernel_case(label, m, x, depth, step, smi):
+    """A program's kernel against its plain tree on x (B x n lanes) at
+    `depth`, zero bits and Philox, to the bit; the kernel's device time, the
+    plain tree's (one call) and the bound: the program's operations x the
+    kernel's leapfrogs. Returns its row of the kernels line (launches added
+    later)."""
+    from smcnuts_torch.ops.draws import PHILOX, ZERO_BITS
+    from smcnuts_torch.ops.nuts_cuda import nuts_tree, nuts_tree_plain
+    from smcnuts_torch.utils.timing import CudaTimer
+
+    ones = torch.ones(x.shape[-1], device=x.device)
+    seeds = torch.arange(x.shape[0], dtype=torch.int32, device=x.device)
+    worst, plain_ms = 0.0, {}
+    for source in (ZERO_BITS, PHILOX):
+        args = (x, seeds, step, 1.0, ones, depth, source)
+        out_k = nuts_tree(m, *args)
+        with CudaTimer() as t:
+            out_p = nuts_tree_plain(m, *args)
+        plain_ms[source] = t.ms
+        worst = max(worst, check_outputs(
+            f"{label} [{source}] kernel vs plain, {x.shape[0]} x {x.shape[1]} x depth {depth}, "
+            f"plain {t.ms:.1f} ms", out_k, out_p, nan_lanes=True, bitwise=True))
+    times = kernel_times(lambda: nuts_tree(m, *args))
+    bound = tree_roofline("generated", nuts_tree(m, *args), model=m.tile_model)
+    print(f"{label} time, {x.shape[0]} x {x.shape[1]} x depth {depth}, step {step} [philox]: "
+          f"{times_text(times)}; plain {plain_ms[PHILOX]:.1f} ms; {bound_text(bound)} "
+          f"({m.tile_model.n_ops} operations x the kernel's leapfrogs; {smi})")
+    return {"max_abs_err": worst, **times, "plain_ms": plain_ms[PHILOX], **bound}
+
+
+def lv_eager_reference(smi):
+    """Phase solvers (b)'s eager lv_rk45 run (float64, 25 x 512 x K=LV_K,
+    depth 10, started around the generating values): its result, or, where
+    that phase did not run, the same run made here."""
+    if "res" not in LV_EAGER:
+        lv_rk45_phase(smi)
+    return LV_EAGER["res"]
+
+
+def lv_tile_phase(gm, smi):
+    """lv_rk45 through K7r, the adaptive solve and its adjoint inlined: a
+    run at 25 x 512 x K=LV_K, depth 10, float32, from phase (b)'s start
+    (counts set to 0 just before it): K launches, no plain call, finite
+    series, the moments inside the bands of `estimates_band` against (b)'s
+    eager float64 run; the RK steps its solves and adjoints took (the
+    library's counter); then `ode_kernel_case` on the run's population."""
+    from smcnuts_torch import DiagNormalProposal, SMCConfig, run_smc_batched
+    from smcnuts_torch.ops.generated import ode_steps
+    from smcnuts_torch.utils.timing import CudaTimer
+
+    name, step = "lv_rk45", TILE_PROGRAMS["lv_rk45"]["step"]
+    ref = lv_eager_reference(smi)
+    m = tile_model(name, gm)
+    cfg = SMCConfig(n_particles=N, n_iterations=LV_K, step_size=step, max_tree_depth=MAX_DEPTH)
+    start = DiagNormalProposal(8, mean=tuple(math.log(v) for v in LV_TRUTH), var=(0.01,) * 8)
+    ode_steps(gm, reset=True)
+    reset_counts()
+    with CudaTimer() as t:
+        res = run_smc_batched(m, cfg, SEEDS, "cuda", sample_proposal=start)
+        res.mean_estimate[:, -1].cpu()
+    counts, plain_calls = read_counts()
+    fwd, adj = ode_steps(gm, reset=True)
+    label = f"(c) lv_rk45 through K7r, {RUNS} x {N} x K={LV_K}, depth {MAX_DEPTH}, step {step}"
+    check_series(label, res, LV_K)
+    if counts["generated"] != LV_K or plain_calls != 0:
+        raise AssertionError(f"{label}: {counts} dispatches, {plain_calls} plain calls")
+    leapfrogs = float(res.tree_leapfrogs[:, :LV_K].sum()) * N
+    print(f"{label}: {LV_K} dispatches, no plain call; wall {t.ms:.1f} ms (CUDA events; "
+          f"phase (b)'s eager float64 run of the same shape took {LV_EAGER['wall_s']:.1f} s); "
+          f"{fwd} RK steps of the solves and {adj} of the adjoints, {fwd / leapfrogs:.1f} and "
+          f"{adj / leapfrogs:.1f} a leapfrog (float32, the initial evaluations counted; (b)'s "
+          f"float64 steps a lane stand beside its ODE rows); mean tree depth "
+          f"{float(res.tree_depth[:, :LV_K].mean()):.3f}, acceptance "
+          f"{float(res.acceptance_rate[:, :LV_K].mean()):.3f} ({smi})")
+    estimates_band(f"{label} against (b)'s eager float64 run", res.mean_estimate[:, -1],
+                   res.variance_estimate[:, -1], ref.mean_estimate[:, -1].mean(0),
+                   ref.variance_estimate[:, -1].mean(0))
+    return {**ode_kernel_case("(c) lv_rk45", m, res.x_final.contiguous(), step, smi),
+            "launches": counts["generated"]}
+
+
+def ode_kernel_case(label, m, x, step, smi):
+    """A program that solves an ODE: its kernel against its plain tree to
+    the bit on ODE_BIT_LANES lanes of x's run 0 at depth ODE_BIT_DEPTH (the
+    plain tree steps each solve from the host), then timed at x's shape
+    (`ode_kernel_timed`). Returns its row of the kernels line."""
+    row = tile_kernel_case(f"{label} [bits]", m, x[:1, :ODE_BIT_LANES].contiguous(),
+                           ODE_BIT_DEPTH, step, smi)
+    return {**ode_kernel_timed(label, m, x, MAX_DEPTH, step, smi),
+            "max_abs_err": row["max_abs_err"], "plain_ms": row["plain_ms"]}
+
+
+def ode_kernel_timed(label, m, x, depth, step, smi):
+    """The kernel of a program that solves an ODE timed at x's shape, where
+    its plain tree (which steps each solve from the host) is not run: the
+    device time and the bound from this call's leapfrogs and RK steps."""
+    from smcnuts_torch.ops.draws import PHILOX
+    from smcnuts_torch.ops.generated import ode_steps
+    from smcnuts_torch.ops.nuts_cuda import nuts_tree
+
+    gm = m.tile_model
+    ones = torch.ones(x.shape[-1], device=x.device)
+    seeds = torch.arange(x.shape[0], dtype=torch.int32, device=x.device)
+    args = (x, seeds, step, 1.0, ones, depth, PHILOX)
+    times = kernel_times(lambda: nuts_tree(m, *args))
+    ode_steps(gm, reset=True)
+    out = nuts_tree(m, *args)
+    fwd, adj = ode_steps(gm, reset=True)
+    progs = {d.kind: d.prog for d in gm.program.calls}
+    tree_ops = float(out[2]["leapfrogs"].sum()) * gm.n_ops
+    ode_ops = fwd * progs["ode"].step_ops(False) + adj * progs["ode_adj"].step_ops(True)
+    bound = roofline(tree_ops + ode_ops, 0.0)
+    evals = float(out[2]["leapfrogs"].sum()) + x.shape[0] * x.shape[1]
+    print(f"{label} time, {x.shape[0]} x {x.shape[1]} x depth {depth}, step {step} [philox]: "
+          f"{times_text(times)}; {bound_text(bound)} ({gm.n_ops} operations x "
+          f"{int(out[2]['leapfrogs'].sum())} leapfrogs, {fwd} and {adj} RK steps of the solves "
+          f"and adjoints ({fwd / evals:.1f} and {adj / evals:.1f} a model evaluation) x "
+          f"{progs['ode'].step_ops(False)} and {progs['ode_adj'].step_ops(True)} operations a "
+          f"step; {smi})")
+    return {**times, **bound}
+
+
+def tile_programs_phase(smi, prep):
+    """Phase tile_programs: (b) each small program's generated model (the
+    nvcc of (a): its seconds, ptxas's lines, operations a leapfrog) through
+    the kernel at 25 x 512 x K=TILE_K, forwards, depth 10 (`strategy_run`:
+    K launches, no plain call, finite series, runs 0 and 24 equal their
+    single runs), then on the population it ended with the kernel against
+    its plain tree at 25 x 512 x depth 10, zero bits and Philox, to the bit,
+    timed beside its bound (a program that solves an ODE, decay_rk45: to
+    the bit at ODE_BIT_LANES lanes x depth ODE_BIT_DEPTH, timed at 25 x 512
+    x depth 10, `ode_kernel_case`); (c) lv_rk45 through K7r
+    (`lv_tile_phase`). Returns the kernels-line rows."""
+    from smcnuts_torch import SMCConfig
+    from smcnuts_torch.ops.generated import peak_live
+
+    phase("tile_programs. the Stan programs the JAX frontend tiles, through K7r and K7f")
+    started = time.perf_counter()
+    rows = {}
+    for name, spec in TILE_PROGRAMS.items():
+        gm, trace_s, lib = prep["builds"][name].result()
+        print(f"(a) {name}: {gm.autodiff} mode, {gm.n_ops} operations a leapfrog, "
+              f"{len(gm.program.calls)} ODE call(s), {gm.data.numel()} data floats, at most "
+              f"{peak_live(gm.program)} values live at once; traced in {trace_s:.1f} s (a "
+              f"worker process), nvcc {lib.build_seconds:.1f} s; read "
+              f"{time.perf_counter() - prep['started']:.0f} s after (a) began ({smi})")
+        for line in ptxas_lines(lib.log):
+            print("  ptxas:", line)
+        if gm.autodiff != spec["mode"]:
+            raise AssertionError(f"(a) {name}: built in {gm.autodiff} mode")
+        t0 = time.perf_counter()
+        if name == "lv_rk45":
+            rows[name] = lv_tile_phase(gm, smi)
+        else:
+            m = tile_model(name, gm)
+            cfg = SMCConfig(n_particles=N, n_iterations=TILE_K, step_size=spec["step"],
+                            max_tree_depth=MAX_DEPTH)
+            label = f"(b) {name}"
+            res, launches, _ = strategy_run(f"{label}, forwards, step {spec['step']}",
+                                            "generated", m, cfg, smi)
+            x = res.x_final.contiguous()
+            if gm.program.calls:
+                row = ode_kernel_case(label, m, x, spec["step"], smi)
+            else:
+                row = tile_kernel_case(label, m, x, MAX_DEPTH, spec["step"], smi)
+            rows[name] = {**row, "launches": launches}
+        print(f"tile_programs: {name} took {time.perf_counter() - t0:.1f} s (host clock)")
+    prep["threads"].shutdown()
+    prep["procs"].shutdown()
+    print(f"phase tile_programs took {time.perf_counter() - started:.1f} s (host clock; {smi})")
     return rows
 
 
@@ -4214,7 +4567,7 @@ def mesh_phase(smi):
     return counts, ranks
 
 
-def partial_run(only, smi, stan_prep, solvers_prep):
+def partial_run(only, smi, stan_prep, solvers_prep, tile_prep):
     """The phases named in `only` (after device and build), for development:
     no kernels line and no "ok" line, so it cannot pass for the whole run."""
     phases = {"arma": arma_kernel_phase, "prmwcd": prmwcd_kernel_phase,
@@ -4230,6 +4583,7 @@ def partial_run(only, smi, stan_prep, solvers_prep):
               "stan": lambda smi: stan_phase(smi, stan_prep),
               "solvers": lambda smi: solvers_phase(smi, solvers_prep),
               "lv_rk45": lv_rk45_phase,
+              "tile_programs": lambda smi: tile_programs_phase(smi, tile_prep),
               "mesh": mesh_phase}
     for key in only:
         phases[key](smi)
@@ -4246,8 +4600,9 @@ def main():
     k8 = peak_phase(smi)
     # After phase 2's build (its minute), beside the phases that follow.
     solvers_prep = solvers_prepare(smi) if only is None or "solvers" in only else None
+    tile_prep = tile_prepare(smi) if only is None or "tile_programs" in only else None
     if only is not None:
-        return partial_run(only, smi, stan_prep, solvers_prep)
+        return partial_run(only, smi, stan_prep, solvers_prep, tile_prep)
     arma, arma_staged, arma_w1 = arma_kernel_phase(smi)
     prmwcd, prmwcd_staged, prmwcd_w1 = prmwcd_kernel_phase(smi)
     arma_launches = main_path_phase(smi)
@@ -4262,6 +4617,7 @@ def main():
     tally = runner_phase(smi)
     stan, stan_witnesses = stan_phase(smi, stan_prep)
     solvers = solvers_phase(smi, solvers_prep)
+    tiles = tile_programs_phase(smi, tile_prep)
     mesh_counts, mesh_ranks = mesh_phase(smi)
     source = "smcnuts_torch/csrc/nuts_tree.cuh"
 
@@ -4382,6 +4738,15 @@ def main():
              route="cuda", source="smcnuts_torch/ops/generated.py",
              replaces=STAN_PROGRAMS[prog]["replaces"], **solvers[prog])
         for prog in SOLVER_TILE
+    ]
+    # Phase tile_programs: the Stan programs of the lowering's linear algebra,
+    # Newton solver, inlined adaptive ODE solve and elementwise ops, each its
+    # generated model inlined into the K1 template, one library each.
+    kernels += [
+        dict(name=f"nuts_tree_generated_stan_{prog}_{TILE_PROGRAMS[prog]['mode']}",
+             route="cuda", source="smcnuts_torch/ops/generated.py",
+             replaces=K7F if TILE_PROGRAMS[prog]["mode"] == "forward" else K7R, **row)
+        for prog, row in tiles.items()
     ]
     kernels.append(dict(name="libdevice_unary", route="cuda",
                         source="smcnuts_torch/csrc/libdevice_sweep.cu", replaces=K7R,

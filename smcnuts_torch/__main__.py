@@ -13,10 +13,16 @@ to an .npz, as host numpy arrays.
 target in place of `--model`, with a default step size of 0.5, as that CLI
 does; it runs on the eager backend by autograd, and with `--stan-tile` the
 program also gets a generated in-kernel model, so that `--nuts-backend auto`
-on a card runs it inside the CUDA NUTS kernel. A program with an adaptive ODE
-solver prints each call site's route in float32 and float64 to stderr
-(`StanModel.ode_routes`: the ODE kernel, or the host loop). Without
-`--stan`, `--data` and `--stan-tile` change nothing, as in that CLI.
+on a card runs it inside the CUDA NUTS kernel: every program the JAX
+frontend tiles (dense linear algebra, the algebra solvers, the adaptive ODE
+solvers inlined in the kernel, the special functions), raising
+NotImplementedError naming the op and the model where the lowering lacks one
+(the incomplete gamma functions of a parameter, among others), with no
+fallback to the eager path. A program with an adaptive ODE solver prints
+each call site's route in float32 and float64 to stderr
+(`StanModel.ode_routes`: the ODE kernel, in the NUTS kernel under
+`--stan-tile`, or the host loop). Without `--stan`, `--data` and
+`--stan-tile` change nothing, as in that CLI.
 
 `--mesh` shards the particles over a process group (`parallel/`): under
 torchrun, every rank it starts (one a card, NCCL, device cuda:{LOCAL_RANK};
@@ -52,7 +58,8 @@ def main(argv=None) -> dict:
     p.add_argument("--stan-tile", action="store_true",
                    help="with --stan: also build the generated in-kernel "
                         "model, so the program runs inside the CUDA NUTS "
-                        "kernel (loops fully unrolled)")
+                        "kernel (loops fully unrolled, adaptive ODE solves "
+                        "inlined); an op the lowering lacks raises")
     p.add_argument("-N", "--particles", type=int, default=512)
     p.add_argument("-K", "--iterations", type=int, default=100)
     p.add_argument("--step-size", type=float, default=None)

@@ -18,6 +18,9 @@
 // (t < target, i < mxstep, dt > 0), every scalar of a tensor op rounded to R
 // first as ATen rounds it, torch.maximum / minimum / clamp with ATen's NaN
 // rules, and `0.01 / x` as torch computes it (reciprocal, then the product).
+// A generated NUTS model whose density solves an ODE (`ops/generated.py`)
+// inlines `forward_lane` and `adjoint_lane`, so the solve runs inside the
+// NUTS kernel's leapfrog, in the particle's thread.
 // The right-hand side F is generated code (`ops/ode.OdeProgram`): a struct
 // with `Real`, `N` (the state), `A` (the argument scalars), `f(y, t, a,
 // out)` and `vjp(y, t, a, ybar, out)`, out = (f, ybar df/dy, ybar df/dt,
@@ -297,44 +300,37 @@ struct Augmented {
   }
 };
 
-// y0 (B, N), ts (B, T), a (B, A) -> ys (B, T, N), row 0 y0; steps (B,).
+// One lane's solve (`solve_batched` for one lane): y0 (N), ts (T), a (A) ->
+// ys (T, N), row 0 y0. Returns the RK steps. The kernel below runs it a
+// thread a lane; a generated NUTS model (ops/generated.py) inlines it, one
+// call a solve of its density.
 template <class F>
-__global__ void __launch_bounds__(kOdeBlock)
-dopri5_forward(const typename F::Real* y0, const typename F::Real* ts,
-               const typename F::Real* a, typename F::Real* ys, int* steps, int B, int T,
-               double rtol, double atol, long long mxstep) {
+__device__ __forceinline__ int forward_lane(const typename F::Real* y0,
+                                            const typename F::Real* ts,
+                                            const typename F::Real* a, typename F::Real* ys,
+                                            int T, double rtol, double atol, long long mxstep) {
   using R = typename F::Real;
   constexpr int N = F::N;
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= B) return;
-  const R* y = y0 + static_cast<long long>(lane) * N;
-  const R* t = ts + static_cast<long long>(lane) * T;
-  R* out = ys + static_cast<long long>(lane) * T * N;
 #pragma unroll
-  for (int j = 0; j < N; ++j) out[j] = y[j];
-  const Forward<F> dyn{a + static_cast<long long>(lane) * F::A};
-  steps[lane] = solve<R, N>(dyn, y, t[0], t + 1, T - 1, out + N, R(rtol), R(atol), mxstep);
+  for (int j = 0; j < N; ++j) ys[j] = y0[j];
+  const Forward<F> dyn{a};
+  return solve<R, N>(dyn, y0, ts[0], ts + 1, T - 1, ys + N, R(rtol), R(atol), mxstep);
 }
 
-// ys (B, T, N), ts (B, T), g (B, T, N), a (B, A) -> y0_bar (B, N), ts_bar
-// (B, T), a_bar (B, A); steps (B,): `_adjoint`, the augmented state solved
-// backwards between output times, one solve an interval.
+// One lane's adjoint (`_adjoint` for one lane): ys (T, N), ts (T), g (T, N),
+// a (A) -> y0_bar (N), ts_bar (T), a_bar (A), the augmented state solved
+// backwards between output times, one solve an interval. Returns the RK
+// steps of all intervals.
 template <class F>
-__global__ void __launch_bounds__(kOdeBlock)
-dopri5_adjoint(const typename F::Real* ys, const typename F::Real* ts,
-               const typename F::Real* g, const typename F::Real* a,
-               typename F::Real* y0_bar, typename F::Real* ts_bar,
-               typename F::Real* a_bar, int* steps, int B, int T, double rtol, double atol,
-               long long mxstep) {
+__device__ __forceinline__ int adjoint_lane(const typename F::Real* y,
+                                            const typename F::Real* t,
+                                            const typename F::Real* gl,
+                                            const typename F::Real* al,
+                                            typename F::Real* y0_bar, typename F::Real* tb,
+                                            typename F::Real* a_bar, int T, double rtol,
+                                            double atol, long long mxstep) {
   using R = typename F::Real;
   constexpr int N = F::N, A = F::A, M = Augmented<F>::M;
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= B) return;
-  const R* y = ys + static_cast<long long>(lane) * T * N;
-  const R* t = ts + static_cast<long long>(lane) * T;
-  const R* gl = g + static_cast<long long>(lane) * T * N;
-  const R* al = a + static_cast<long long>(lane) * A;
-  R* tb = ts_bar + static_cast<long long>(lane) * T;
   const Augmented<F> aug{al};
   R state[M], next[M], fi[N];
 #pragma unroll
@@ -363,10 +359,43 @@ dopri5_adjoint(const typename F::Real* ys, const typename F::Real* ts,
   }
   tb[0] = t0bar;
 #pragma unroll
-  for (int j = 0; j < N; ++j) y0_bar[static_cast<long long>(lane) * N + j] = state[N + j];
+  for (int j = 0; j < N; ++j) y0_bar[j] = state[N + j];
 #pragma unroll
-  for (int c = 0; c < A; ++c) a_bar[static_cast<long long>(lane) * A + c] = state[2 * N + 1 + c];
-  steps[lane] = count;
+  for (int c = 0; c < A; ++c) a_bar[c] = state[2 * N + 1 + c];
+  return count;
+}
+
+// y0 (B, N), ts (B, T), a (B, A) -> ys (B, T, N), row 0 y0; steps (B,).
+template <class F>
+__global__ void __launch_bounds__(kOdeBlock)
+dopri5_forward(const typename F::Real* y0, const typename F::Real* ts,
+               const typename F::Real* a, typename F::Real* ys, int* steps, int B, int T,
+               double rtol, double atol, long long mxstep) {
+  constexpr int N = F::N;
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= B) return;
+  steps[lane] = forward_lane<F>(y0 + static_cast<long long>(lane) * N,
+                                ts + static_cast<long long>(lane) * T,
+                                a + static_cast<long long>(lane) * F::A,
+                                ys + static_cast<long long>(lane) * T * N, T, rtol, atol, mxstep);
+}
+
+// ys (B, T, N), ts (B, T), g (B, T, N), a (B, A) -> y0_bar (B, N), ts_bar
+// (B, T), a_bar (B, A); steps (B,): `adjoint_lane` a thread a lane.
+template <class F>
+__global__ void __launch_bounds__(kOdeBlock)
+dopri5_adjoint(const typename F::Real* ys, const typename F::Real* ts,
+               const typename F::Real* g, const typename F::Real* a,
+               typename F::Real* y0_bar, typename F::Real* ts_bar,
+               typename F::Real* a_bar, int* steps, int B, int T, double rtol, double atol,
+               long long mxstep) {
+  constexpr int N = F::N, A = F::A;
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= B) return;
+  const long long l = lane;
+  steps[lane] = adjoint_lane<F>(ys + l * T * N, ts + l * T, g + l * T * N, a + l * A,
+                                y0_bar + l * N, ts_bar + l * T, a_bar + l * A, T, rtol, atol,
+                                mxstep);
 }
 
 template <class F>

@@ -86,17 +86,27 @@ peak of `ops/peak.py`, what the -fmad=false build can reach); in a split
 model also the tree control, which every lane of a group repeats.
 
 Supported ATen ops: add, sub, rsub, mul, div, neg, exp, expm1, log, log1p,
-sqrt, rsqrt, reciprocal, pow by a constant, tanh, sigmoid, abs, sign, sgn,
-cos, sin, erf, erfc (Phi traces as erf), lgamma, special_i0e, special_i1e,
-digamma, where, the six comparisons, sum, dot, mv, mm, select and slice by
-constants, stack, cat, unbind, the backward ops that autograd emits for
-these, the constructors of constant tensors, and the shape-only ops;
-torch.special.log_ndtr is replaced while a density is traced (`log_ndtr`).
-cos, sin, erf, erfc and lgamma are libdevice calls in the kernel;
-i0e, i1e, digamma and log_ndtr are built from the program's own ops (the
-section "Special functions" below says why). The derivative of digamma
-(trigamma, polygamma) is not lowered. Any other op raises
-NotImplementedError naming the ATen op and the model.
+sqrt, rsqrt, reciprocal, pow (an exponent that is not constant as exp(e log
+a)), tanh, sigmoid, log_sigmoid, abs, sign, sgn, cos, sin, tan, atan, asin,
+acos, sinh, cosh, atan2, erf, erfc (Phi traces as erf), lgamma,
+special_i0e, special_i1e, digamma, polygamma of order 1 (trigamma),
+special_ndtri, minimum, maximum, logaddexp, logsumexp, where, masked_fill,
+the six comparisons and logical_and, sum, cumsum, dot, mv, mm, trace,
+diagonal, diag_embed, tril, select and slice by constants,
+index_put, stack, cat, unbind, split, the in-place forms of these (an
+in-place op on a view writes its base), the dense linear algebra of a
+static n (Cholesky, triangular solves, cholesky_solve, solve, inverse,
+det, slogdet: the section "Small dense linear algebra" below), the ODE ops
+of `ops/ode.py` (reverse mode: the section "Adaptive ODE solves"), the
+backward ops that autograd emits for these, the constructors of constant
+tensors (arange, eye), bool and integer constants, and the shape-only ops;
+torch.special.log_ndtr and torch.linalg.det are replaced while a density is
+traced (`log_ndtr`, `_Det`). cos, sin, tan, atan, asin, acos, sinh, cosh,
+erf, erfc and lgamma are libdevice calls in the kernel; i0e, i1e, digamma,
+trigamma, ndtri and log_ndtr are built from the program's own ops (the
+section "Special functions" below says why). Any other op raises
+NotImplementedError naming the ATen op and the model (the incomplete gamma
+functions igamma and igammac, fmod, logit, among others).
 """
 
 from __future__ import annotations
@@ -200,15 +210,18 @@ class _Grouped:
 
 
 _BINARY = {"add": np.add, "sub": np.subtract, "mul": np.multiply, "div": np.divide}
+# The ops whose value is a bool: the six comparisons, and "and" of two
+# predicates (autograd's pow backward masks with one).
 _CMP = {"lt": operator.lt, "le": operator.le, "gt": operator.gt,
-        "ge": operator.ge, "eq": operator.eq, "ne": operator.ne}
+        "ge": operator.ge, "eq": operator.eq, "ne": operator.ne, "and": operator.and_}
 # Unary ops of the program and the torch function that folds or runs each.
 _UNARY = {
     "neg": torch.neg, "exp": torch.exp, "log": torch.log, "log1p": torch.log1p,
     "expm1": torch.expm1, "sqrt": torch.sqrt, "tanh": torch.tanh,
     "abs": torch.abs, "lgamma": torch.lgamma, "recip": torch.reciprocal,
     "sign": torch.sign, "cos": torch.cos, "sin": torch.sin, "erf": torch.erf,
-    "erfc": torch.erfc,
+    "erfc": torch.erfc, "tan": torch.tan, "atan": torch.atan, "asin": torch.asin,
+    "acos": torch.acos, "sinh": torch.sinh, "cosh": torch.cosh,
 }
 
 
@@ -266,6 +279,10 @@ class _Scalars:
         # (`_special`) -> (its kind, its argument): forward mode takes the
         # function's own derivative there, not that of the composition.
         self.rules = {}
+        # The adaptive ODE solves the program calls (`OdeCall`); a call node
+        # is (kind, "c<k>", *inputs), k its place here, and each of its
+        # outputs a node ("elem", call node, "<index>").
+        self.calls = []
 
     # -- leaves and nodes ---------------------------------------------------
     def _append(self, op):
@@ -444,6 +461,25 @@ class _Scalars:
             return a
         return self.node("where", c, a, b)
 
+    def call(self, desc, inputs, n_out):
+        """The outputs of a call of `desc` (an `OdeCall`) on `inputs`: one
+        node for the call, one read ("elem") for each of its n_out outputs.
+        A call is never folded: it runs on the device even on data alone."""
+        inputs = tuple(self.mat(v) for v in inputs)
+        key = (desc.kind, id(desc.prog), desc.tol) + tuple(_skey(v) for v in inputs)
+        hit = self.memo.get(key)
+        if hit is None:
+            self.calls.append(desc)
+            hit = self.memo[key] = self._append(
+                (desc.kind, f"c{len(self.calls) - 1}") + inputs)
+        outs = []
+        for j in range(n_out):
+            k = ("elem", hit, j)
+            if k not in self.memo:
+                self.memo[k] = self._append(("elem", hit, str(j)))
+            outs.append(self.memo[k])
+        return outs
+
     def reduce(self, items):
         """The sum of `items` in index order. Folded in sequence, the adds
         the kernel and its plain version both run; at a group width W that
@@ -501,6 +537,12 @@ def _tangent(b: _Scalars, i: int, op: str, args: tuple, tan: dict):
     ts = [tan.get(a) if type(a) is int else None for a in args]
     if all(t is None for t in ts):
         return None
+    if op in _CALLS:
+        desc = b.calls[int(args[0][1:])]
+        raise NotImplementedError(
+            f"forward mode through the adaptive ODE solve {desc.prog.name} "
+            "(smcnuts::ode_dopri5): its derivative is the continuous adjoint, reverse "
+            "mode only, as JAX's odeint has only a custom VJP")
     t = [0.0 if v is None else v for v in ts]
     if op == "add":
         return b.add(t[0], t[1])
@@ -542,6 +584,17 @@ def _tangent(b: _Scalars, i: int, op: str, args: tuple, tan: dict):
         return b.mul(t[0], b.mul(c, b.unary("exp", b.mul(-1.0, b.mul(args[0], args[0])))))
     if op == "lgamma":
         return b.mul(t[0], _digamma(b, args[0]))
+    if op == "tan":
+        return b.mul(t[0], b.add(1.0, b.mul(i, i)))
+    if op == "atan":
+        return b.div(t[0], b.add(1.0, b.mul(args[0], args[0])))
+    if op in ("asin", "acos"):
+        d = b.div(t[0], b.unary("sqrt", b.sub(1.0, b.mul(args[0], args[0]))))
+        return d if op == "asin" else b.mul(-1.0, d)
+    if op == "sinh":
+        return b.mul(t[0], b.unary("cosh", args[0]))
+    if op == "cosh":
+        return b.mul(t[0], b.unary("sinh", args[0]))
     raise NotImplementedError(f"forward mode through {op} of a parameter: its derivative "
                               "is not written")
 
@@ -550,17 +603,19 @@ def _tangent(b: _Scalars, i: int, op: str, args: tuple, tan: dict):
 # Special functions as compositions of the program's own ops.
 # ---------------------------------------------------------------------------
 #
-# ATen computes i0e, i1e and digamma in its own code (`ATen/native/Math.h`),
-# which a kernel built with -fmad=false could not round alike, so the
+# ATen computes i0e, i1e, digamma, trigamma and ndtri in its own code
+# (`ATen/native/Math.h`), which a kernel built with -fmad=false could not
+# round alike, so the
 # lowering builds each from the program's ops (add, mul, div, sqrt, log,
 # where and the comparisons; range splits through `where`), mirroring ATen's
 # float code step for step: the kernel and its plain version then compute
 # the same ops and agree to the bit by construction, and the CPU tests hold
-# the composition to torch.special and JAX. cos, sin, erf, erfc and lgamma
-# stay single ops, emitted as libdevice calls (`_CALL`): on an H100 each
-# equals ATen's CUDA op on every float32 of the range the densities use
-# (`libdevice_unary`, chip_smoke.py phase `solvers`). log_ndtr is replaced in
-# the traced density itself (`_SpecialFunctions`); Phi traces as erf.
+# the composition to torch.special and JAX. cos, sin, tan, atan, asin,
+# acos, sinh, cosh, erf, erfc and lgamma stay single ops, emitted as
+# libdevice calls (`_CALL`): on an H100 each equals ATen's CUDA op on every
+# float32 of the range the densities use (`libdevice_unary`, chip_smoke.py
+# phase `solvers`). log_ndtr is replaced in the traced density itself
+# (`_SpecialFunctions`); Phi traces as erf.
 
 _SQRT1_2 = 0.7071067811865476
 _TWO_OVER_SQRT_PI = 1.1283791670955126
@@ -674,24 +729,112 @@ def _i1e_derivative(b, x, value):
     return b.where(big, d, 0.5)
 
 
-def _no_trigamma(b, x, value):
+def _trigamma(b, x):
+    """ATen's float trigamma (`ATen/native/Math.h`, the jiterator's
+    `trigamma_string` on CUDA): below 1/2 the reflection pi^2 / sin^2(pi x)
+    and x <- 1 - x, six steps of the recurrence, then the asymptotic series;
+    both sides of the reflection computed and one selected."""
+    low = b.node("lt", x, 0.5)
+    s = b.unary("sin", b.mul(_rnd(math.pi), x))
+    pi2 = b.mul(_rnd(math.pi), _rnd(math.pi))
+    result = b.where(low, b.mul(-1.0, b.div(pi2, b.mul(s, s))), 0.0)
+    z = b.where(low, b.sub(1.0, x), x)
+    for _ in range(6):
+        result = b.add(result, b.div(1.0, b.mul(z, z)))
+        z = b.add(z, 1.0)
+    ixx = b.div(1.0, b.mul(z, z))
+    inner = b.sub(b.div(1.0, 30.0), b.mul(ixx, b.div(1.0, 42.0)))
+    inner = b.sub(b.div(1.0, 6.0), b.mul(ixx, inner))
+    series = b.add(b.add(1.0, b.div(1.0, b.mul(2.0, z))), b.mul(ixx, inner))
+    result = b.add(result, b.div(series, z))
+    return b.where(low, b.mul(-1.0, result), result)
+
+
+# ndtri's rational approximations (Cephes; ATen's `calc_ndtri`, whose Q
+# tables carry the leading 1 explicitly).
+_NDTRI_P0 = (-5.99633501014107895267E1, 9.80010754185999661536E1, -5.66762857469070293439E1,
+             1.39312609387279679503E1, -1.23916583867381258016E0)
+_NDTRI_Q0 = (1.0, 1.95448858338141759834E0, 4.67627912898881538453E0, 8.63602421390890590575E1,
+             -2.25462687854119370527E2, 2.00260212380060660359E2, -8.20372256168333339912E1,
+             1.59056225126211695515E1, -1.18331621121330003142E0)
+_NDTRI_P1 = (4.05544892305962419923E0, 3.15251094599893866154E1, 5.71628192246421288162E1,
+             4.40805073893200834700E1, 1.46849561928858024014E1, 2.18663306850790267539E0,
+             -1.40256079171354495875E-1, -3.50424626827848203418E-2, -8.57456785154685413611E-4)
+_NDTRI_Q1 = (1.0, 1.57799883256466749731E1, 4.53907635128879210584E1, 4.13172038254672030440E1,
+             1.50425385692907503408E1, 2.50464946208309415979E0, -1.42182922854787788574E-1,
+             -3.80806407691578277194E-2, -9.33259480895457427372E-4)
+_NDTRI_P2 = (3.23774891776946035970E0, 6.91522889068984211695E0, 3.93881025292474443415E0,
+             1.33303460815807542389E0, 2.01485389549179081538E-1, 1.23716634817820021358E-2,
+             3.01581553508235416007E-4, 2.65806974686737550832E-6, 6.23974539184983293730E-9)
+_NDTRI_Q2 = (1.0, 6.02427039364742014255E0, 3.67983563856160859403E0, 1.37702099489081330271E0,
+             2.16236993594496635890E-1, 1.34204006088543189037E-2, 3.28014464682127739104E-4,
+             2.89247864745380683936E-6, 6.79019408009981274425E-9)
+_EXP_M2 = 0.13533528323661269189
+_SQRT_2PI = 2.50662827463100050242
+
+
+def _polevl(b, x, coeffs):
+    """Cephes' polevl: Horner from the first coefficient, `result * x + c`."""
+    acc = 0.0
+    for c in coeffs:
+        acc = b.add(b.mul(acc, x), _rnd(c))
+    return acc
+
+
+def _ndtri(b, y0):
+    """ATen's calc_ndtri in float: the central approximation for |y - 1/2|
+    <= 1/2 - exp(-2), the tails at z = sqrt(-2 log y) (two ranges split at
+    z = 8), -inf at 0, inf at 1, NaN outside [0, 1]. Each branch reads its
+    input clamped into its own range, so a branch not taken stays finite."""
+    upper = b.node("gt", y0, _rnd(1.0 - _EXP_M2))
+    y = b.where(upper, b.sub(1.0, y0), y0)
+    central = b.node("gt", y, _rnd(_EXP_M2))
+    yc = b.sub(b.where(central, y, 0.5), 0.5)
+    y2 = b.mul(yc, yc)
+    mid = b.add(yc, b.mul(yc, b.div(b.mul(y2, _polevl(b, y2, _NDTRI_P0)),
+                                     _polevl(b, y2, _NDTRI_Q0))))
+    mid = b.mul(mid, _rnd(_SQRT_2PI))
+    yt = b.where(central, _rnd(_EXP_M2), y)
+    x = b.unary("sqrt", b.mul(-2.0, b.unary("log", yt)))
+    x0 = b.sub(x, b.div(b.unary("log", x), x))
+    z = b.div(1.0, x)
+    near = b.div(b.mul(z, _polevl(b, z, _NDTRI_P1)), _polevl(b, z, _NDTRI_Q1))
+    far = b.div(b.mul(z, _polevl(b, z, _NDTRI_P2)), _polevl(b, z, _NDTRI_Q2))
+    tail = b.sub(x0, b.where(b.node("lt", x, 8.0), near, far))
+    tail = b.where(upper, tail, b.mul(-1.0, tail))
+    out = b.where(central, mid, tail)
+    out = b.where(b.node("eq", y0, 0.0), -math.inf, out)
+    out = b.where(b.node("eq", y0, 1.0), math.inf, out)
+    bad = b.node("lt", y0, 0.0)
+    out = b.where(bad, math.nan, out)
+    return b.where(b.node("gt", y0, 1.0), math.nan, out)
+
+
+def _trigamma_derivative(b, x, value):
     raise NotImplementedError(
-        "forward mode through digamma of a parameter: its derivative, trigamma, "
+        "forward mode through trigamma of a parameter: its derivative, tetragamma, "
         "is not lowered")
 
 
-_SPECIAL = {"i0e": _i0e, "i1e": _i1e, "digamma": _digamma}
+def _ndtri_derivative(b, x, value):
+    """sqrt(2 pi) exp(ndtri(x)^2 / 2), autograd's formula."""
+    return b.mul(_rnd(_SQRT_2PI), b.unary("exp", b.mul(0.5, b.mul(value, value))))
+
+
+_SPECIAL = {"i0e": _i0e, "i1e": _i1e, "digamma": _digamma, "trigamma": _trigamma,
+            "ndtri": _ndtri}
 _SPECIAL_DERIVATIVES = {"i0e": _i0e_derivative, "i1e": _i1e_derivative,
-                        "digamma": _no_trigamma}
+                        "digamma": lambda b, x, value: _special(b, "trigamma", x),
+                        "trigamma": _trigamma_derivative, "ndtri": _ndtri_derivative}
 
 
 def _special(b, kind, x):
     """Special function `kind` of x from the program's ops; its value node
     is differentiated in forward mode by the function's own derivative
     (`_Scalars.rules`). In reverse mode autograd's backward is traced: i0e's
-    emits i1e and sgn, i1e's i0e, lgamma's digamma, digamma's polygamma
-    (which raises). They mirror ATen's float code, so a float64 program
-    does not lower them."""
+    emits i1e and sgn, i1e's i0e, lgamma's digamma, digamma's polygamma(1,
+    .), trigamma here, ndtri's exp of its value. They mirror ATen's float
+    code, so a float64 program does not lower them."""
     if _REAL.dtype != torch.float32:
         raise NotImplementedError(f"{kind} in a {_REAL.dtype} program: the lowering "
                                   "mirrors ATen's float code only")
@@ -760,12 +903,35 @@ def trace_fx(fn, *inputs) -> torch.fx.GraphModule:
         return make_fx(fn)(*inputs)
 
 
+class _Det(torch.autograd.Function):
+    """torch.linalg.det with the backward of a nonsingular matrix, g det
+    A^-T (autograd's own also takes an SVD, for singular matrices, which the
+    lowering does not have; a singular matrix gets a gradient of inf or
+    NaN)."""
+
+    @staticmethod
+    def forward(a):
+        return torch.linalg.det(a)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(inputs[0], output)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, det = ctx.saved_tensors
+        return (g * det)[..., None, None] * torch.linalg.inv(a).mT
+
+
 class _SpecialFunctions(torch.overrides.TorchFunctionMode):
-    """While a density is traced: torch.special.log_ndtr as `log_ndtr`."""
+    """While a density is traced: torch.special.log_ndtr as `log_ndtr`,
+    torch.linalg.det as `_Det`."""
 
     def __torch_function__(self, func, types, args=(), kwargs=None):
         if func is torch.special.log_ndtr:
             return log_ndtr(*args)
+        if func is torch.linalg.det and not kwargs:
+            return _Det.apply(*args)
         return func(*args, **(kwargs or {}))
 
 
@@ -817,7 +983,8 @@ def _seq_sum(b: _Scalars, items):
     return b.reduce(list(items))
 
 
-def _reduce(b, a, dims, keepdim):
+def _reduce(b, a, dims, keepdim, fold=_seq_sum):
+    """fold(b, items) over `dims` of a (every dim where none is named)."""
     a = _arr(a)
     nd = a.ndim
     dims = sorted({d % nd for d in (range(nd) if not dims else dims)}) if nd else []
@@ -826,7 +993,7 @@ def _reduce(b, a, dims, keepdim):
     flat = moved.reshape(tuple(a.shape[d] for d in keep) + (-1,))
     out = np.empty(flat.shape[:-1], dtype=object)
     for idx in np.ndindex(out.shape):
-        out[idx] = _seq_sum(b, list(flat[idx]))
+        out[idx] = fold(b, list(flat[idx]))
     if keepdim:
         out = out.reshape(tuple(1 if d in dims else a.shape[d] for d in range(nd)))
     return out
@@ -857,12 +1024,17 @@ def _lower(gm: torch.fx.GraphModule, inputs: list, b: _Scalars, model: str):
             env[node] = next(placeholders)
             continue
         if node.op == "get_attr":
-            t = getattr(gm, node.target)
-            if not t.is_floating_point():
+            t = getattr(gm, node.target).detach().cpu()
+            if t.dtype == torch.bool:  # folded predicates
+                env[node] = _ew(bool, t.numpy().astype(object))
+            elif t.is_floating_point():
+                vals = t.double().numpy()
+                env[node] = _ew(lambda v: b.datum(float(v)), vals.astype(object))
+            elif t.dtype in (torch.int32, torch.int64):  # indices and counts: literals
+                env[node] = _ew(float, t.numpy().astype(object))
+            else:
                 raise NotImplementedError(
                     f"model '{model}': a constant of {t.dtype} in the density")
-            vals = t.detach().double().cpu().numpy()
-            env[node] = _ew(lambda v: b.datum(float(v)), vals.astype(object))
             continue
         if node.op == "output":
             return get(node.args[0])
@@ -873,6 +1045,19 @@ def _lower(gm: torch.fx.GraphModule, inputs: list, b: _Scalars, model: str):
         name = getattr(node.target, "_overloadpacket", None)
         name = getattr(name, "__name__", str(node.target))
         handler = _HANDLERS.get(name)
+        if handler is None and name.endswith("_") and name[:-1] in _HANDLERS:
+            # An in-place op: the out-of-place result, written into its
+            # operand (a view writes its base), or for an op that changes the
+            # shape (squeeze_) rebound to the operand's node.
+            out = _arr(_HANDLERS[name[:-1]](b, node, *args, **kwargs))
+            target = _arr(args[0])
+            if out.shape == target.shape and target.flags.writeable:
+                target[...] = out
+                out = target
+            else:
+                env[node.args[0]] = out
+            env[node] = out
+            continue
         if handler is None:
             raise NotImplementedError(
                 f"model '{model}': the ATen op {node.target} is not supported "
@@ -935,23 +1120,13 @@ def _place(grad, sizes, key):
     return out
 
 
-def _pow(b, node, a, e):
-    if isinstance(e, np.ndarray):
-        if not all(type(v) is float for v in e.flat):
-            raise NotImplementedError(f"{node.target} with an exponent that is not constant")
-        return _ew(lambda u, v: b.pow(u, v), a, e)
-    if isinstance(a, (int, float)) and not isinstance(a, bool):
-        raise NotImplementedError(f"{node.target}: a constant raised to a tensor")
-    return _ew(lambda u: b.pow(u, _rnd(e)), a)
-
-
 def _where(b, node, c, x, y):
     return _ew(lambda cc, u, v: b.where(cc, u, v), c, x, y)
 
 
 def _to_copy(b, node, a, **kw):
     _check_float(kw.get("dtype"), node.target)
-    return _arr(a)
+    return _arr(a).copy()
 
 
 def _matmul(b, node, x, y):
@@ -970,16 +1145,627 @@ def _sum(b, node, a, dims=None, keepdim=False, **kw):
     return _reduce(b, a, dims, keepdim)
 
 
+def _minimum(b, u, v, take_min=True):
+    """torch.minimum / maximum of two values: a NaN operand is the result
+    (the first one if both are), else the smaller (larger)."""
+    pick = b.where(b.node("lt" if take_min else "gt", u, v), u, v)
+    return b.where(b.node("ne", u, u), u, b.where(b.node("ne", v, v), v, pick))
+
+
+def _logaddexp(b, u, v):
+    """ATen's `_log_add_exp_helper`: log1p(exp(min - max)) + max (NaN rules
+    of torch.minimum / maximum), u itself where both are the same infinity."""
+    lo, hi = _minimum(b, u, v), _minimum(b, u, v, take_min=False)
+    out = b.add(b.unary("log1p", b.unary("exp", b.sub(lo, hi))), hi)
+    finite = b.node("lt", b.unary("abs", lo), math.inf)
+    return b.where(b.node("ne", lo, hi), out, b.where(finite, out, u))
+
+
+def _atan2(b, y, x):
+    """atan2 from atan (a libdevice call) and selects: atan(y / x) shifted by
+    pi into the left half plane, +-pi/2 on the y axis, 0 at the origin."""
+    r = b.unary("atan", b.div(y, x))
+    pi = _rnd(math.pi)
+    left = b.where(b.node("ge", y, 0.0), b.add(r, pi), b.sub(r, pi))
+    axis = b.where(b.node("gt", y, 0.0), _rnd(math.pi / 2),
+                   b.where(b.node("lt", y, 0.0), _rnd(-math.pi / 2), 0.0))
+    return b.where(b.node("gt", x, 0.0), r, b.where(b.node("lt", x, 0.0), left, axis))
+
+
+def _pow_tensor(b, a, e):
+    """a ** e for an exponent that is not constant: exp(e log a), 1 at e = 0
+    (a negative base gives NaN, as torch does for an exponent that is not
+    an integer)."""
+    if type(e) is float:
+        return b.pow(a, e)
+    v = b.unary("exp", b.mul(e, b.unary("log", a)))
+    return b.where(b.node("eq", e, 0.0), 1.0, v)
+
+
+def _pow(b, node, a, e):
+    if isinstance(e, np.ndarray):
+        return _ew(lambda u, v: _pow_tensor(b, u, v), a, e)
+    if isinstance(a, (int, float)) and not isinstance(a, bool):
+        return _ew(lambda v: _pow_tensor(b, _rnd(a), v), e)
+    return _ew(lambda u: b.pow(u, _rnd(e)), a)
+
+
+def _logsumexp(b, node, a, dims, keepdim=False):
+    """torch.logsumexp: m the maximum (0 where infinite), log(sum exp(a - m))
+    + m, the sum in index order."""
+    def lse(b, items):
+        m = items[0]
+        for v in items[1:]:
+            m = _minimum(b, m, v, take_min=False)
+        m = b.where(b.node("eq", b.unary("abs", m), math.inf), 0.0, m)
+        s = b.reduce([b.unary("exp", b.sub(v, m)) for v in items])
+        return b.add(b.unary("log", s), m)
+
+    return _reduce(b, a, dims, keepdim, lse)
+
+
+def _log_sigmoid_forward(b, node, x):
+    """(log sigmoid x, ATen's buffer): min(x, 0) - log1p(exp(-|x|)); the
+    buffer is read by the backward only, which recomputes from x."""
+    out = _ew(lambda u: b.sub(b.where(b.node("lt", u, 0.0), u, 0.0),
+                              b.unary("log1p", b.unary("exp", b.mul(-1.0, b.unary("abs", u))))),
+              x)
+    return out, _const_array(out.shape, 0.0)
+
+
+def _log_sigmoid_backward(b, node, g, x, buffer):
+    """ATen's formula: g (1 - z / (1 + z)) below 0, g z / (1 + z) above, z =
+    exp(-|x|)."""
+    def d(u, v):
+        z = b.unary("exp", b.mul(-1.0, b.unary("abs", v)))
+        q = b.div(z, b.add(1.0, z))
+        return b.mul(u, b.where(b.node("lt", v, 0.0), b.sub(1.0, q), q))
+    return _ew(d, g, x)
+
+
+def _special_handler(kind):
+    return lambda b, node, a: _ew(lambda u: _special(b, kind, u), a)
+
+
+def _polygamma(b, node, n, a):
+    if n != 1:
+        raise NotImplementedError(f"{node.target} of order {n}: only trigamma (order 1) "
+                                  "is lowered")
+    return _ew(lambda u: _special(b, "trigamma", u), a)
+
+
+def _logical_and(b):
+    def f(u, v):
+        if type(u) is bool or type(v) is bool:
+            c, other = (u, v) if type(u) is bool else (v, u)
+            return other if c else False
+        return b.node("and", u, v, commutative=True)
+    return f
+
+
+def _masked_fill(b, node, a, mask, value):
+    value = _arr(value)[()] if isinstance(value, np.ndarray) else _lit(value)
+    return _ew(lambda u, m: b.where(m, value, u), a, mask)
+
+
+def _index_of(v) -> int:
+    """An index held as a program literal (an integer constant of the
+    graph)."""
+    if type(v) is int or type(v) is bool or v != int(v):
+        raise NotImplementedError("an index that is not a constant of the graph")
+    return int(v)
+
+
+def _index_put(b, node, a, indices, values, accumulate=False):
+    out = _arr(a).copy()
+    key = tuple(slice(None) if i is None else np.vectorize(_index_of, otypes=[np.int64])(_arr(i))
+                for i in indices)
+    vals = np.broadcast_to(_arr(values), out[key].shape)
+    if accumulate:
+        vals = _ew(b.add, out[key], vals)
+    out[key] = vals
+    return out
+
+
+def _arange(b, node, *args, **kw):
+    start, end, step = (0, args[0], 1) if len(args) == 1 else (
+        args + (1,) if len(args) == 2 else args)
+    out = np.empty(len(range(int(start), int(end), int(step))), dtype=object)
+    out[:] = [float(v) for v in range(int(start), int(end), int(step))]
+    return out
+
+
+def _eye(b, node, n, m=None, **kw):
+    _check_float(kw.get("dtype"), node.target)
+    out = _const_array((n, n if m is None else m), 0.0)
+    for i in range(min(out.shape)):
+        out[i, i] = 1.0
+    return out
+
+
+def _diagonal(b, node, a, offset=0, dim1=0, dim2=1):
+    d = np.diagonal(_arr(a), offset, dim1, dim2)
+    d.flags.writeable = True  # a view: an in-place op on it writes its base
+    return d
+
+
+def _on_diagonal(shape, values, offset, dim1, dim2):
+    """Zeros of `shape` with `values` on the diagonal (offset, dim1, dim2)."""
+    out = _const_array(shape, 0.0)
+    view = np.diagonal(out, offset, dim1 % out.ndim, dim2 % out.ndim)
+    view.flags.writeable = True
+    view[...] = _arr(values)
+    return out
+
+
+def _diagonal_backward(b, node, g, sizes, offset, dim1, dim2):
+    return _on_diagonal(tuple(sizes), g, offset, dim1, dim2)
+
+
+def _diag_embed(b, node, a, offset=0, dim1=-2, dim2=-1):
+    a = _arr(a)
+    n = a.shape[-1] + abs(offset)
+    return _on_diagonal(a.shape[:-1] + (n, n), a, offset, dim1, dim2)
+
+
+def _tril(b, node, a, diagonal=0):
+    out = _arr(a).copy()
+    n, m = out.shape[-2:]
+    for i in range(n):
+        for j in range(max(0, i + diagonal + 1), m):
+            out[..., i, j] = 0.0
+    return out
+
+
+def _split(b, node, a, sizes, dim=0):
+    a = _arr(a)
+    cuts = np.cumsum(sizes)[:-1]
+    return tuple(np.split(a, cuts, axis=dim % a.ndim))
+
+
+def _cumsum(b, node, a, dim, **kw):
+    """The running sums along dim, each from the last in index order (torch
+    builds jacfwd's basis offsets with one on some versions)."""
+    out = _arr(a).copy()
+    moved = np.moveaxis(out, dim % out.ndim, 0)
+    for i in range(1, moved.shape[0]):
+        moved[i] = _ew(b.add, moved[i - 1], moved[i])
+    return out
+
+
+def _zero_tensor(b, node, size, **kw):
+    return _const_array(size, 0.0)
+
+
+# ---------------------------------------------------------------------------
+# Small dense linear algebra at a static n, as scalar ops (the eager path
+# keeps ATen's linalg). Each routine works on one (n, n) matrix of program
+# values; `_batched` maps it over leading dimensions. Outputs that no lowered
+# node may read (an info code, LU factors and pivots) are checked dead.
+# ---------------------------------------------------------------------------
+
+
+def _batched(fn, *mats):
+    """fn over the matrices of the leading (batch) dimensions; each output
+    (an array, or a 0-d array for a scalar) restacked."""
+    mats = [_arr(m) for m in mats]
+    lead = np.broadcast_shapes(*(m.shape[:-2] for m in mats))
+    mats = [np.broadcast_to(m, lead + m.shape[-2:]) for m in mats]
+    outs = None
+    for idx in np.ndindex(lead):
+        res = fn(*(m[idx] for m in mats))
+        res = res if isinstance(res, tuple) else (res,)
+        if outs is None:
+            outs = [np.empty(lead + _arr(r).shape, dtype=object) for r in res]
+        for o, r in zip(outs, res):
+            o[idx + (...,)] = _arr(r)
+    return outs if len(outs) > 1 else outs[0]
+
+
+def _check_dead(node, outputs, what):
+    """Raise if a node reads output k (in `outputs`) of the multi-output
+    `node` (LU factors and pivots, which the program does not form), other
+    than `_linalg_check_errors` (a check that raises, which the program
+    drops: its factorisations give NaN or inf instead)."""
+    for user in node.users:
+        if user.target is operator.getitem and user.args[1] in outputs:
+            for reader in user.users:
+                if "_linalg_check_errors" not in str(reader.target):
+                    raise NotImplementedError(
+                        f"{node.target}: its {what} output is read by {reader.target}, "
+                        "which the generated lowering does not compute")
+
+
+def _first_failure(b, oks):
+    """LAPACK's info: 0 where every predicate of `oks` holds, else 1 + the
+    index of the first that does not, as a program value."""
+    info = 0.0
+    for j in range(len(oks) - 1, -1, -1):
+        info = b.where(oks[j], info, float(j + 1))
+    return info
+
+
+def _cholesky(b, a):
+    """Cholesky-Banachiewicz, row by row: L[i][j] = (A[i][j] - sum_k<j
+    L[i][k] L[j][k]) / L[j][j], the diagonal its square root; and LAPACK's
+    info, the first diagonal whose radicand is not positive (a matrix that
+    is not positive definite: its root is NaN there)."""
+    n = a.shape[0]
+    L = _const_array((n, n), 0.0)
+    oks = []
+    for i in range(n):
+        for j in range(i + 1):
+            s = a[i, j]
+            for k in range(j):
+                s = b.sub(s, b.mul(L[i, k], L[j, k]))
+            if i == j:
+                oks.append(b.node("gt", s, 0.0))
+                L[i, j] = b.unary("sqrt", s)
+            else:
+                L[i, j] = b.div(s, L[j, j])
+    return L, np.array(_first_failure(b, oks), dtype=object)
+
+
+def _linalg_cholesky_ex(b, node, a, upper=False, check_errors=False):
+    L, info = _batched(lambda m: _cholesky(b, m), a)
+    if upper:
+        L = np.swapaxes(L, -1, -2).copy()
+    return L, info
+
+
+def _tri_solve(b, A, B, upper, unit):
+    """A X = B for a triangular A: forward (lower) or back (upper)
+    substitution, column by column of B, each row's sum in index order."""
+    n, m = A.shape[0], B.shape[1]
+    X = _const_array((n, m), 0.0)
+    rows = range(n - 1, -1, -1) if upper else range(n)
+    for c in range(m):
+        for i in rows:
+            s = B[i, c]
+            ks = range(i + 1, n) if upper else range(i)
+            for k in ks:
+                s = b.sub(s, b.mul(A[i, k], X[k, c]))
+            X[i, c] = s if unit else b.div(s, A[i, i])
+    return X
+
+
+def _linalg_solve_triangular(b, node, A, B, upper, left=True, unitriangular=False):
+    def solve(a, x):
+        if left:
+            return _tri_solve(b, a, x, upper, unitriangular)
+        return _tri_solve(b, a.T, x.T, not upper, unitriangular).T
+    return _batched(solve, A, B)
+
+
+def _cholesky_solve(b, node, B, L, upper=False):
+    def solve(x, l):
+        if upper:
+            return _tri_solve(b, l, _tri_solve(b, l.T, x, False, False), True, False)
+        return _tri_solve(b, l.T, _tri_solve(b, l, x, False, False), True, False)
+    return _batched(solve, B, L)
+
+
+def _lu(b, a, rhs):
+    """Gaussian elimination with partial pivoting on A, applied to the
+    columns of rhs: at column k the pivot is the first row i >= k of the
+    largest |U[i][k]| (LAPACK's choice), found by selects, not branches: the
+    row index is carried as a value, and every row is rebuilt by selects on
+    it. Returns (U, the rhs eliminated, the pivot index of each column)."""
+    n = a.shape[0]
+    U, R = a.copy(), rhs.copy()
+    pivots = []
+    for k in range(n):
+        best, p = b.unary("abs", U[k, k]), float(k)
+        for i in range(k + 1, n):
+            mag = b.unary("abs", U[i, k])
+            take = b.node("gt", mag, best)
+            best = b.where(take, mag, best)
+            p = b.where(take, float(i), p)
+        pivots.append(p)
+        old_k = list(U[k, k:]) + list(R[k])
+        new_k = old_k
+        for i in range(k + 1, n):
+            row_i = list(U[i, k:]) + list(R[i])
+            chosen = b.node("eq", p, float(i))
+            new_k = [b.where(chosen, u, v) for u, v in zip(row_i, new_k)]
+            row_i = [b.where(chosen, u, v) for u, v in zip(old_k, row_i)]
+            U[i, k:], R[i] = row_i[:n - k], row_i[n - k:]
+        U[k, k:], R[k] = new_k[:n - k], new_k[n - k:]
+        for i in range(k + 1, n):
+            f = b.div(U[i, k], U[k, k])
+            for j in range(k + 1, n):
+                U[i, j] = b.sub(U[i, j], b.mul(f, U[k, j]))
+            for c in range(R.shape[1]):
+                R[i, c] = b.sub(R[i, c], b.mul(f, R[k, c]))
+            U[i, k] = 0.0
+    return U, R, pivots
+
+
+def _lu_solve(b, a, rhs):
+    """(the solution of a X = rhs, LAPACK's info: 1 + the first zero pivot,
+    else 0)."""
+    U, R, _ = _lu(b, a, rhs)
+    info = _first_failure(b, [b.node("ne", U[k, k], 0.0) for k in range(a.shape[0])])
+    return _tri_solve(b, U, R, True, False), np.array(info, dtype=object)
+
+
+def _linalg_solve_ex(b, node, A, B, left=True, check_errors=False):
+    _check_dead(node, (1, 2), "LU or pivots")
+    B = _arr(B)
+    vector = B.ndim == 1 or (B.ndim == _arr(A).ndim - 1)
+
+    def solve(a, x):
+        if left:
+            return _lu_solve(b, a, x)
+        X, info = _lu_solve(b, a.T, x.T)
+        return X.T, info
+
+    X, info = _batched(solve, A, B[..., None] if vector else B)
+    return (X[..., 0] if vector else X), None, None, info
+
+
+def _linalg_inv_ex(b, node, A, check_errors=False):
+    A = _arr(A)
+    n = A.shape[-1]
+    eye = _const_array((n, n), 0.0)
+    for i in range(n):
+        eye[i, i] = 1.0
+    return _batched(lambda a: _lu_solve(b, a, eye), A)
+
+
+def _det_parts(b, a):
+    """(the swaps' sign, U's diagonal) of the pivoted elimination of a: -1
+    for each row swap."""
+    U, _, pivots = _lu(b, a, _const_array((a.shape[0], 0), 0.0))
+    sign = 1.0
+    for k, p in enumerate(pivots):
+        sign = b.mul(sign, b.where(b.node("eq", p, float(k)), 1.0, -1.0))
+    return sign, [U[k, k] for k in range(a.shape[0])]
+
+
+def _per_matrix(fn, A):
+    """fn(one matrix) -> a tuple of scalars, over the batch dimensions of A."""
+    A = _arr(A)
+    outs = None
+    for idx in np.ndindex(A.shape[:-2]):
+        res = fn(A[idx])
+        if outs is None:
+            outs = [np.empty(A.shape[:-2], dtype=object) for _ in res]
+        for o, r in zip(outs, res):
+            o[idx] = r
+    return outs
+
+
+def _linalg_slogdet(b, node, A):
+    """(sign, log|det|, LU, pivots): the sign the product of the swaps' and
+    of U's diagonal signs, log|det| the sum of log|U[k][k]| in index order."""
+    _check_dead(node, (2, 3), "LU or pivots")
+
+    def one(a):
+        sign, diag = _det_parts(b, a)
+        for u in diag:
+            sign = b.mul(sign, b.unary("sign", u))
+        return sign, b.reduce([b.unary("log", b.unary("abs", u)) for u in diag])
+
+    sign, logabs = _per_matrix(one, A)
+    return sign, logabs, None, None
+
+
+def _linalg_det(b, node, A):
+    """(det, LU, pivots): the swaps' sign times U's diagonal, in index
+    order."""
+    _check_dead(node, (1, 2), "LU or pivots")
+
+    def one(a):
+        sign, diag = _det_parts(b, a)
+        for u in diag:
+            sign = b.mul(sign, u)
+        return (sign,)
+
+    det, = _per_matrix(one, A)
+    return det, None, None
+
+
+# ---------------------------------------------------------------------------
+# Adaptive ODE solves inside the program: the Stan frontend's ode_rk45 and
+# the other adaptive interfaces trace to one node of `ops/ode.py`'s op
+# `smcnuts::ode_dopri5` a solve and one of `ode_dopri5_adjoint` an adjoint
+# (the reverse-mode backward). Each becomes a call node: in the kernel a
+# call of `forward_lane` / `adjoint_lane` of csrc/ode_dopri5.cuh over the
+# call site's right-hand side (its float32 `OdeProgram`, the struct that the
+# ODE kernel inlines), in the particle's thread; in the plain version
+# `ode.dopri5_plain` / `dopri5_adjoint_plain` on the lanes, which the ODE
+# kernel equals to the bit.
+# ---------------------------------------------------------------------------
+
+_CALLS = ("ode", "ode_adj")
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class OdeCall:
+    """A solve ("ode": inputs y0 (n), ts (T), a (A); outputs ys (T, n), row
+    0 y0) or an adjoint ("ode_adj": inputs ys (T, n), ts (T), g (T, n), a
+    (A); outputs y0_bar (n), ts_bar (T), a_bar (A)) of the right-hand side
+    `prog` (an `ops/ode.OdeProgram` in float32), at tol = (rtol, atol,
+    mxstep)."""
+
+    kind: str
+    prog: object
+    T: int
+    tol: tuple
+
+    @property
+    def n_out(self) -> int:
+        n, A = self.prog.n, self.prog.n_args
+        return self.T * n if self.kind == "ode" else n + self.T + A
+
+
+def _ode_program(rhs, n, shapes, what):
+    """The float32 program of the ODE right-hand side `rhs` (a key of
+    ops/ode.py's registry) at these shapes; raises naming the solve where its
+    float32 route is the host loop."""
+    from . import ode
+
+    if _REAL.dtype != torch.float32:
+        raise NotImplementedError(f"{what} in a {_REAL.dtype} program")
+    r = ode._entry(rhs)
+    route = r.routes.get(torch.float32)
+    if route != ode.KERNEL:
+        raise NotImplementedError(
+            f"{what} of {r.name}: its right-hand side's float32 route is '{route}', "
+            "so the solve cannot run in the NUTS kernel")
+    prog = r.programs.get(ode._program_key(torch.float32, n, shapes))
+    if prog is None:
+        raise NotImplementedError(f"{what} of {r.name}: no float32 program at these shapes")
+    return prog
+
+
+def _flat(v):
+    """The program values of an entry of an object array, flat (indexing
+    down to one element returns the element, a node id or a literal)."""
+    return list(_wrap(v).reshape(-1))
+
+
+def _ode_solve(b, node, rhs, rtol, atol, mxstep, y0, ts, args):
+    y0, ts, args = _arr(y0), _arr(ts), [_arr(a) for a in args]
+    B, n = y0.shape
+    T = ts.shape[1]
+    prog = _ode_program(rhs, n, [a.shape[1:] for a in args], node.target)
+    desc = OdeCall("ode", prog, T, (float(rtol), float(atol), int(mxstep)))
+    out = np.empty((B, T, n), dtype=object)
+    for i in range(B):
+        vals = b.call(desc, _flat(y0[i]) + _flat(ts[i]) + [v for a in args for v in _flat(a[i])],
+                      desc.n_out)
+        out[i] = np.array(vals, dtype=object).reshape(T, n)
+    return out
+
+
+def _ode_adjoint(b, node, rhs, rtol, atol, mxstep, ys, ts, g, args):
+    ys, ts, g, args = _arr(ys), _arr(ts), _arr(g), [_arr(a) for a in args]
+    B, T, n = ys.shape
+    prog = _ode_program(rhs, n, [a.shape[1:] for a in args], node.target)
+    desc = OdeCall("ode_adj", prog, T, (float(rtol), float(atol), int(mxstep)))
+    y0_bar = np.empty((B, n), dtype=object)
+    ts_bar = np.empty((B, T), dtype=object)
+    bars = [np.empty(a.shape, dtype=object) for a in args]
+    for i in range(B):
+        vals = b.call(desc, _flat(ys[i]) + _flat(ts[i]) + _flat(g[i])
+                      + [v for a in args for v in _flat(a[i])], desc.n_out)
+        y0_bar[i], ts_bar[i] = vals[:n], vals[n:n + T]
+        o = n + T
+        for bar in bars:
+            k = int(np.prod(bar.shape[1:], dtype=np.int64))
+            bar[i] = np.array(vals[o:o + k], dtype=object).reshape(bar.shape[1:])
+            o += k
+    return [y0_bar, ts_bar, *bars]
+
+
+class _OdeCallPlain(nn.Module):
+    """The plain version of one call node over lanes: its inputs (P,) tensors
+    or literals, stacked, through `ode.dopri5_plain` / `dopri5_adjoint_plain`
+    -> (P, n_out)."""
+
+    def __init__(self, desc: OdeCall):
+        super().__init__()
+        self.desc = desc
+
+    def forward(self, first, *inputs):
+        from .ode import dopri5_adjoint_plain, dopri5_plain
+
+        d, prog = self.desc, self.desc.prog
+        n, T, P = prog.n, d.T, first.shape[0]
+        X = torch.stack([v if isinstance(v, torch.Tensor) else torch.full_like(first, v)
+                         for v in inputs], 1)
+        if d.kind == "ode":
+            y0, ts, a = (X[:, :n].contiguous(), X[:, n:n + T].contiguous(),
+                         X[:, n + T:].contiguous())
+            return dopri5_plain(prog, y0, ts, a, *d.tol)[0].reshape(P, T * n)
+        ys, ts = X[:, :T * n].reshape(P, T, n), X[:, T * n:T * n + T].contiguous()
+        g, a = X[:, T * n + T:2 * T * n + T].reshape(P, T, n), X[:, 2 * T * n + T:].contiguous()
+        (y0_bar, ts_bar, a_bar), _ = dopri5_adjoint_plain(prog, ys.contiguous(), ts,
+                                                          g.contiguous(), a, *d.tol)
+        return torch.cat([y0_bar, ts_bar, a_bar], 1)
+
+
+def _c_call(prog: Program, i: int) -> str:
+    """Call node i in the kernel: its inputs gathered into local arrays, then
+    `forward_lane` / `adjoint_lane` of csrc/ode_dopri5.cuh writing its
+    outputs to c<i>; the lane's RK steps added to `ode_steps` (solves,
+    adjoints)."""
+    op, tag, *a = prog.ops[i]
+    d = prog.calls[int(tag[1:])]
+    struct = _ode_struct(d.prog)[0]
+    n, A, T = d.prog.n, d.prog.n_args, d.T
+    rtol, atol, mxstep = d.tol
+
+    def arr(name, vals):
+        body = ", ".join(_ref(v) for v in vals) if vals else "0.0f"
+        return f"      const float {name}[{max(len(vals), 1)}] = {{{body}}};"
+
+    tol = f"{_c_literal64(rtol)}, {_c_literal64(atol)}, {mxstep}LL"
+    lines = [f"    float c{i}[{d.n_out}];", "    {"]
+    if op == "ode":
+        lines += [arr("in_y", a[:n]), arr("in_t", a[n:n + T]), arr("in_a", a[n + T:]),
+                  f"      ode_steps[0] += smcnuts::ode::forward_lane<{struct}>(in_y, in_t, in_a, "
+                  f"c{i}, {T}, {tol});"]
+    else:
+        lines += [arr("in_y", a[:T * n]), arr("in_t", a[T * n:T * n + T]),
+                  arr("in_g", a[T * n + T:2 * T * n + T]), arr("in_a", a[2 * T * n + T:]),
+                  f"      ode_steps[1] += smcnuts::ode::adjoint_lane<{struct}>(in_y, in_t, in_g, in_a, "
+                  f"c{i}, c{i} + {n}, c{i} + {n + T}, {T}, {tol});"]
+    return "\n".join(lines + ["    }"])
+
+
+def _ode_struct(prog):
+    from .ode import ode_struct
+
+    return ode_struct(prog)
+
+
 _HANDLERS = {
     "add": _binary(_Scalars.add), "sub": _binary(_Scalars.sub),
     "rsub": _binary(lambda b, u, v: b.sub(v, u)),
     "mul": _binary(_Scalars.mul), "div": _binary(_Scalars.div),
     **{op: _unary(op) for op in ("neg", "exp", "log", "log1p", "expm1", "sqrt",
                                  "tanh", "abs", "lgamma", "sign", "cos", "sin",
-                                 "erf", "erfc")},
+                                 "erf", "erfc", "tan", "atan", "asin", "acos", "sinh",
+                                 "cosh")},
+    "atan2": _binary(_atan2),
+    "minimum": _binary(_minimum),
+    "maximum": _binary(lambda b, u, v: _minimum(b, u, v, take_min=False)),
+    "logaddexp": _binary(_logaddexp),
+    "logsumexp": _logsumexp,
+    "log_sigmoid_forward": _log_sigmoid_forward,
+    "log_sigmoid_backward": _log_sigmoid_backward,
+    "special_ndtri": _special_handler("ndtri"),
+    "polygamma": _polygamma,
+    "masked_fill": _masked_fill,
+    "fill": lambda b, node, a, v: _ew(lambda u, w: w, a, v),
+    "index_put": _index_put,
+    "arange": _arange,
+    "eye": _eye,
+    "diagonal": _diagonal,
+    "diagonal_backward": _diagonal_backward,
+    "diag_embed": _diag_embed,
+    "trace": lambda b, node, a: _wrap(_seq_sum(b, list(np.diagonal(_arr(a))))),
+    "tril": _tril,
+    "split_with_sizes": _split,
+    "cumsum": _cumsum,
+    "_local_scalar_dense": lambda b, node, a: _arr(a)[()],
+    "_efficientzerotensor": _zero_tensor,
+    "linalg_cholesky_ex": _linalg_cholesky_ex,
+    "_linalg_check_errors": lambda b, node, *a, **kw: None,
+    "linalg_solve_triangular": _linalg_solve_triangular,
+    "cholesky_solve": _cholesky_solve,
+    "_linalg_solve_ex": _linalg_solve_ex,
+    "linalg_inv_ex": _linalg_inv_ex,
+    "_linalg_slogdet": _linalg_slogdet,
+    "_linalg_det": _linalg_det,
+    "ode_dopri5": _ode_solve,
+    "ode_dopri5_adjoint": _ode_adjoint,
     "sgn": _unary("sign"),
     "reciprocal": _unary("recip"),
-    **{name: (lambda kind: lambda b, node, a: _ew(lambda u: _special(b, kind, u), a))(kind)
+    **{name: _special_handler(kind)
        for name, kind in (("special_i0e", "i0e"), ("special_i1e", "i1e"),
                           ("digamma", "digamma"))},
     "rsqrt": lambda b, node, a: _ew(lambda u: b.div(1.0, b.unary("sqrt", u)), a),
@@ -991,11 +1777,13 @@ _HANDLERS = {
         lambda u, v: b.mul(u, b.sub(1.0, b.mul(v, v))), g, y),
     "pow": _pow, "where": _where,
     **{op: (lambda op: lambda b, node, u, v: _ew(lambda p, q: b.node(op, p, q), u, v))(op)
-       for op in _CMP},
+       for op in _CMP if op != "and"},
+    "logical_and": lambda b, node, u, v: _ew(_logical_and(b), u, v),
     "sum": _sum,
     "dot": _matmul, "mv": _matmul, "mm": _matmul,
-    **{op: _shape(lambda a, *r: a) for op in (
-        "clone", "alias", "detach", "lift_fresh_copy", "contiguous")},
+    **{op: _shape(lambda a, *r: a) for op in ("alias", "detach", "contiguous")},
+    # Copies: an in-place op on the copy must not write the original.
+    **{op: _shape(lambda a, *r: a.copy()) for op in ("clone", "lift_fresh_copy")},
     "_to_copy": _to_copy,
     **{op: _shape(lambda a, shape: a.reshape(tuple(shape)))
        for op in ("view", "_unsafe_view", "reshape")},
@@ -1051,6 +1839,8 @@ class Program:
     # A forward program's recurrences emitted as loops over their steps
     # (`_reroll`, `Recurrence`), in program order; the other ops straight-line.
     recurrences: tuple = ()
+    # The ODE solves its call nodes run (`OdeCall`), by the k of their tag.
+    calls: tuple = ()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -1096,7 +1886,7 @@ def _finish(b: _Scalars, logp, grads, dim, order="built") -> Program:
 def _finish_map(b: _Scalars, logp, grads, dim, order="built"):
     """`_finish`, and the map from the builder's node ids to the program's."""
     ops, ren, data, new = _renumber(b, [logp] + list(grads), order)
-    return Program(ops, ren[0], tuple(ren[1:]), data, dim), new
+    return Program(ops, ren[0], tuple(ren[1:]), data, dim, calls=tuple(b.calls)), new
 
 
 def _renumber(b: _Scalars, outs, order="built"):
@@ -2210,18 +3000,20 @@ def _check_unrolled(prog: Program, k: int):
 
 
 _INFIX = {"add": "+", "sub": "-", "mul": "*", "div": "/", **{
-    k: v for k, v in zip(_CMP, ("<", "<=", ">", ">=", "==", "!="))}}
+    k: v for k, v in zip(_CMP, ("<", "<=", ">", ">=", "==", "!=", "&&"))}}
 _CALL = {"exp": "expf", "log": "logf", "log1p": "log1pf", "expm1": "expm1f",
          "sqrt": "sqrtf", "tanh": "tanhf", "abs": "fabsf", "lgamma": "lgammaf",
-         "cos": "cosf", "sin": "sinf", "erf": "erff", "erfc": "erfcf"}
+         "cos": "cosf", "sin": "sinf", "erf": "erff", "erfc": "erfcf", "tan": "tanf",
+         "atan": "atanf", "asin": "asinf", "acos": "acosf", "sinh": "sinhf", "cosh": "coshf"}
 # The libdevice calls that `libdevice_unary` holds to ATen's CUDA ops, by
 # their op in the program (the kernel's code of each, `csrc/libdevice_sweep.cu`).
-LIBDEVICE_SWEEP = {"cos": 0, "sin": 1, "erf": 2, "erfc": 3, "lgamma": 4}
+LIBDEVICE_SWEEP = {"cos": 0, "sin": 1, "erf": 2, "erfc": 3, "lgamma": 4, "tan": 5, "atan": 6,
+                   "asin": 7, "acos": 8, "sinh": 9, "cosh": 10}
 
 
 def libdevice_unary(op: str, x: torch.Tensor) -> torch.Tensor:
-    """The libdevice call the kernel emits for `op` (cos, sin, erf, erfc,
-    lgamma) on x, float32: the kernel of `csrc/libdevice_sweep.cu` for a
+    """The libdevice call the kernel emits for `op` (one of LIBDEVICE_SWEEP)
+    on x, float32: the kernel of `csrc/libdevice_sweep.cu` for a
     CUDA tensor (built with the NUTS kernels' flags), torch's op, the
     program's plain version, for a CPU tensor."""
     if op not in LIBDEVICE_SWEEP:
@@ -2293,7 +3085,11 @@ def _ref(a) -> str:
 def _c_line(prog: Program, i: int) -> str:
     op, *a = prog.ops[i]
     kind = "bool" if op in _CMP else "float"
-    if op == "x":
+    if op in _CALLS:
+        return _c_call(prog, i)
+    if op == "elem":
+        rhs = f"c{a[0]}[{a[1]}]"
+    elif op == "x":
         rhs = f"x[{a[0]}]"
     elif op == "phi":
         rhs = "phi"
@@ -2514,6 +3310,14 @@ def _c_recurrences(prog: Program) -> list:
 
 
 def _c_body(prog: Program) -> list:
+    calls = any(op in _CALLS for op, *_ in prog.ops)
+    head = ["    int ode_steps[2] = {0, 0};"] if calls else []
+    tail = [f"    atomicAdd(&smcnuts_generated_ode_steps_count[{k}], "
+            f"static_cast<unsigned long long>(ode_steps[{k}]));" for k in (0, 1)] if calls else []
+    return head + _c_statements(prog) + tail + [f"    return {_ref(prog.logp)};"]
+
+
+def _c_statements(prog: Program) -> list:
     if prog.recurrences:
         lines = _c_recurrences(prog)
     elif prog.group == 1:
@@ -2525,7 +3329,6 @@ def _c_body(prog: Program) -> list:
             lines += [_c_line(prog, v)] if kind == "v" else _c_loop(prog, v)
     for d, g in enumerate(prog.grad):
         lines.append(f"    grad[{d}] = {_ref(g)};")
-    lines.append(f"    return {_ref(prog.logp)};")
     return lines
 
 
@@ -2548,11 +3351,12 @@ def _cuda_source(prog: Program, name: str, autodiff: str) -> tuple:
                  f"emitted as loops over their steps")
     else:
         n_ops = f"{n_ops} operations"
+    structs, steps = _c_ode_parts(prog)
     src = f"""// Generated by smcnuts_torch/ops/generated.py from the density '{name}'
 // ({autodiff} mode, {n_ops}, {len(prog.data)} data floats): the
 // NUTS kernel of nuts_tree.cuh with this model inlined, one entry.
 #include "nuts_tree.cuh"
-
+{structs}
 namespace smcnuts {{
 
 struct {struct_name} {{
@@ -2577,14 +3381,46 @@ struct {struct_name} {{
 
 extern "C" {{
 SMCNUTS_ENTRY(smcnuts_nuts_tree_generated, {entry})
-}}
+{steps}}}
 """
     return src, struct_name
 
 
+def _c_ode_parts(prog: Program) -> tuple:
+    """For a program with ODE calls: (the header, the step counter and the
+    right-hand sides' structs, before the model; the C entry that reads the
+    counter), else empty."""
+    used = [prog.calls[int(a[0][1:])] for op, *a in prog.ops if op in _CALLS]
+    if not used:
+        return "", ""
+    structs = {}
+    for d in used:
+        name, body = _ode_struct(d.prog)
+        structs.setdefault(name, body)
+    head = "\n".join([
+        '#include "ode_dopri5.cuh"', "",
+        "// The RK steps of the ODE solves and of their adjoints, every lane's, added",
+        "// up (a lane's once an evaluation); read and reset by",
+        "// smcnuts_generated_ode_steps.",
+        "__device__ unsigned long long smcnuts_generated_ode_steps_count[2] = {0, 0};", "",
+        "namespace smcnuts {", "", *structs.values(), "}  // namespace smcnuts", ""])
+    entry = """int smcnuts_generated_ode_steps(unsigned long long* out, int reset) {
+  cudaError_t err = cudaMemcpyFromSymbol(out, smcnuts_generated_ode_steps_count,
+                                         2 * sizeof(unsigned long long));
+  if (err == cudaSuccess && reset) {
+    const unsigned long long zero[2] = {0, 0};
+    err = cudaMemcpyToSymbol(smcnuts_generated_ode_steps_count, zero, sizeof(zero));
+  }
+  return static_cast<int>(err);
+}
+"""
+    return head, entry
+
+
 def count_ops(prog: Program) -> int:
-    """Operations of one evaluation: every node but the leaves."""
-    return sum(op not in ("x", "phi", "data") for op, *_ in prog.ops)
+    """Operations of one evaluation: every node but the leaves and the reads
+    of a call's outputs (an ODE solve counts as one)."""
+    return sum(op not in ("x", "phi", "data", "elem") for op, *_ in prog.ops)
 
 
 def _fx_graph(prog: Program) -> torch.fx.GraphModule:
@@ -2593,19 +3429,23 @@ def _fx_graph(prog: Program) -> torch.fx.GraphModule:
     g = torch.fx.Graph()
     x = g.placeholder("x")
     phi = g.placeholder("phi")
-    out, call = _fx_ops(g, prog.ops, prog.data, x, phi)
+    root = nn.Module()
+    out, call = _fx_ops(g, prog.ops, prog.data, x, phi, prog.calls, root)
     logp = out(prog.logp)
     grad = call(_aten.stack.default, [out(o) for o in prog.grad], 1)
     g.output((logp, grad))
-    g.eliminate_dead_code()
-    return torch.fx.GraphModule(nn.Module(), g)
+    gm = torch.fx.GraphModule(root, g)
+    gm.graph.eliminate_dead_code()
+    gm.recompile()
+    return gm
 
 
-def _fx_ops(g: torch.fx.Graph, ops, data, x, phi):
+def _fx_ops(g: torch.fx.Graph, ops, data, x, phi, calls=(), root=None):
     """The ops of a program as nodes of g over lane tensors (x (P, D) and
     phi (P,), placeholders of g); returns (out, call): out(o) the node of a
     program value o, a node or a literal. A literal first operand of a
-    non-commutative op takes the op's scalar form, or a full tensor."""
+    non-commutative op takes the op's scalar form, or a full tensor. A call
+    node (an ODE solve, `calls`) is a submodule of `root`, `_OdeCallPlain`."""
     first = g.call_function(_aten.select.int, (x, 1, 0))
 
     def call(fn, *args):
@@ -2626,6 +3466,15 @@ def _fx_ops(g: torch.fx.Graph, ops, data, x, phi):
         if op == "data":
             vals.append(data[a[0]])
             continue
+        if op in _CALLS:
+            name = f"ode_call{len(vals)}"
+            root.add_module(name, _OdeCallPlain(calls[int(a[0][1:])]))
+            vals.append(g.call_module(name, (first, *(vals[v] if type(v) is int else v
+                                                       for v in a[1:]))))
+            continue
+        if op == "elem":
+            vals.append(call(_aten.select.int, vals[a[0]], 1, int(a[1])))
+            continue
         r = [vals[v] if type(v) is int else v for v in a]
         if op in ("add", "mul"):
             if isinstance(r[0], float):
@@ -2638,6 +3487,8 @@ def _fx_ops(g: torch.fx.Graph, ops, data, x, phi):
             # A true division, as the kernel's: ATen's CUDA division by a
             # Python scalar would multiply by its reciprocal instead.
             v = call(_aten.div.Tensor, *(full(u) if isinstance(u, float) else u for u in r))
+        elif op == "and":
+            v = call(_aten.logical_and.default, *r)
         elif op in _CMP:
             if isinstance(r[0], float):
                 op, r = swap[op], [r[1], r[0]]
@@ -2694,19 +3545,22 @@ class GeneratedModel(nn.Module):
     def logp_and_grad(self, x, phi=1.0):
         """The plain version of the kernel's model: (logp (P,), grad (P, D))
         of float32 x (P, D), op for op as the kernel computes them; on the
-        card through `_replay`."""
+        card through `_replay`, but for a program with ODE solves, whose
+        plain solve checks its lanes from the host a step and so cannot be
+        captured: that one runs op by op."""
         if x.dtype != torch.float32:
             raise NotImplementedError(
                 f"the generated model computes in float32 (as its kernel), got {x.dtype}")
         if not isinstance(phi, torch.Tensor) or phi.dim() == 0:
             phi = torch.full((x.shape[0],), float(phi), dtype=x.dtype, device=x.device)
         phi = phi.to(x.dtype)
-        if x.is_cuda and x.shape[0] > 0:
+        if x.is_cuda and x.shape[0] > 0 and not self.program.calls:
             return self._replay(x, phi)
         return self.graph(x, phi)
 
     def _replay(self, x, phi):
-        """The graph on the card: op by op at the first call of a lane count,
+        """The graph on the card (a program without ODE solves, whose plain
+        version steps on the host): op by op at the first call of a lane count,
         captured into a CUDA graph at its second and replayed from then on.
         A replay launches the same ATen kernels on the same values, so its
         bits are those of the graph run op by op, without a host dispatch
@@ -2948,6 +3802,21 @@ class GeneratedLibrary:
 
 
 _GENERATED: dict = {}
+
+
+def ode_steps(model: GeneratedModel, reset=False) -> tuple:
+    """(solves, adjoints): the RK steps the kernel's inlined ODE solves and
+    their adjoints took since the last reset, every lane's added up (the
+    library's device counter; synchronises). `reset` sets it to 0."""
+    if not model.program.calls:
+        raise ValueError(f"model '{model.name}' solves no ODE")
+    fn = build_generated(model).lib.smcnuts_generated_ode_steps
+    fn.argtypes, fn.restype = [ctypes.c_void_p, ctypes.c_int], ctypes.c_int
+    out = (ctypes.c_ulonglong * 2)()
+    err = fn(ctypes.addressof(out), int(reset))
+    if err != 0:
+        raise RuntimeError(f"reading the ODE step counter failed: CUDA error {err}")
+    return int(out[0]), int(out[1])
 
 
 def build_generated(model: GeneratedModel) -> GeneratedLibrary:

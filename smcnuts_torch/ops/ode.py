@@ -487,9 +487,10 @@ class OdeProgram:
         return 6 * dyn + 123 * M + 27
 
 
-def _ode_source(prog: OdeProgram) -> str:
-    """The CUDA struct of a program and the two entries of
-    `csrc/ode_dopri5.cuh` over it."""
+def ode_struct(prog: OdeProgram) -> tuple:
+    """(struct name, the CUDA struct of a program: `Real`, `N`, `A`, `f` and
+    `vjp`), which `csrc/ode_dopri5.cuh` inlines; named by a hash of its
+    code."""
     real = "double" if prog.dtype == torch.float64 else "float"
     n, A = prog.n, prog.n_args
 
@@ -506,14 +507,8 @@ def _ode_source(prog: OdeProgram) -> str:
     vjp_body = "\n".join(function_lines(prog.vjp, leaf, "out"))
     tag = hashlib.sha256(f"{real} {n} {A}\n{f_body}\n{vjp_body}".encode()).hexdigest()[:16]
     struct = f"OdeRhs_{tag}"
-    return f"""// Generated by smcnuts_torch/ops/ode.py from the ODE right-hand side
-// '{prog.name}' ({real}, {n} states, {A} argument scalars; {prog.f_ops} operations
-// a right-hand side, {prog.vjp_ops} its VJP): the Dormand-Prince solve and
-// its adjoint of csrc/ode_dopri5.cuh with this right-hand side inlined.
-#include "ode_dopri5.cuh"
-
-namespace smcnuts {{
-
+    return struct, f"""// The ODE right-hand side '{prog.name}' ({real}, {n} states, {A} argument
+// scalars; {prog.f_ops} operations a right-hand side, {prog.vjp_ops} its VJP).
 struct {struct} {{
   using Real = {real};
   static constexpr int N = {n};
@@ -528,7 +523,20 @@ struct {struct} {{
 {vjp_body}
   }}
 }};
+"""
 
+
+def _ode_source(prog: OdeProgram) -> str:
+    """The CUDA struct of a program and the two entries of
+    `csrc/ode_dopri5.cuh` over it."""
+    struct, body = ode_struct(prog)
+    return f"""// Generated by smcnuts_torch/ops/ode.py: the Dormand-Prince solve and its
+// adjoint of csrc/ode_dopri5.cuh with this right-hand side inlined.
+#include "ode_dopri5.cuh"
+
+namespace smcnuts {{
+
+{body}
 }}  // namespace smcnuts
 
 extern "C" {{

@@ -49,8 +49,11 @@ Semantics (those of the JAX frontend):
   jacobian. A bound of `integrate_1d` that depends on the parameters and is
   infinite at run time takes its map lane by lane (the JAX frontend takes a
   traced bound as finite, `smcnuts_tpu/stan/compiler.py:1081-1094`). Under
-  the generated in-kernel model (`tile=True`) an adaptive ODE solver raises
-  NotImplementedError naming it: its step loop depends on the data.
+  the generated in-kernel model (`tile=True`, reverse mode) each adaptive
+  solve and its adjoint are inlined in the NUTS kernel, a device call over
+  the site's float32 right-hand side (`ops/generated.OdeCall`); forward mode
+  through an adaptive solve raises NotImplementedError naming it (JAX's
+  odeint has a reverse-mode derivative only).
 
 Not ported: the JAX frontend lowers loops of `scan_threshold` or more
 iterations to `lax.scan` for XLA's compile time and states that lowering
@@ -899,10 +902,6 @@ class _Interp:
             extra = rest[4:]
         else:
             extra = rest[3:]
-        if name != "ode_rk4" and self.scalarize:
-            raise NotImplementedError(
-                f"{name} under the generated in-kernel model: its step loop depends on "
-                "the data (use ode_rk4, or the eager model)")
         f, tensors = self._solver_fn(fd, 2, extra)
         y0 = to_tensor(_as_value(rest[0])).reshape(-1)
         times = torch.cat([to_tensor(_as_value(rest[1])).reshape(1),
@@ -1017,7 +1016,10 @@ class _Interp:
         for _ in range(16):
             fy = system(y)
             jac = torch.func.jacfwd(system)(y)
-            y = y - torch.linalg.solve(jac + 1e-10 * eye, fy)
+            step, info = torch.linalg.solve_ex(jac + 1e-10 * eye, fy)
+            # A singular system gives NaN (jnp.linalg.solve's inf or NaN),
+            # not an exception.
+            y = y - torch.where(info == 0, step, torch.full_like(step, math.nan))
         return y
 
     def _call(self, node: Call):
@@ -1859,6 +1861,10 @@ def _scalar_tensor(v, like):
     return torch.full((), float(v), dtype=like.dtype, device=like.device)
 
 
+# The route of a float32 ODE call site that the generated model inlines.
+INLINED = "in the NUTS kernel"
+
+
 class StanModel(CallableModel):
     """A compiled Stan program: a `CallableModel` whose eager
     `logp_and_grad` is replayed from a traced graph, and whose `constrain`
@@ -1898,9 +1904,15 @@ class StanModel(CallableModel):
     @property
     def ode_routes(self) -> dict:
         """Each adaptive ODE call site's route in each real type, {site:
-        {"float32": route, "float64": route}}, a route "kernel" or "host
-        loop: <the op the lowering lacks>"."""
-        return {site.name: {str(dtype).removeprefix("torch."): route
+        {"float32": route, "float64": route}}, a route "kernel" (the ODE
+        kernel, one launch a solve), "in the NUTS kernel" (float32, a site
+        the generated model inlines: `tile=True`) or "host loop: <the op
+        the lowering lacks>"."""
+        tm = self.tile_model
+        inlined = {d.prog.name for d in tm.program.calls} if tm is not None else set()
+        return {site.name: {str(dtype).removeprefix("torch."):
+                            INLINED if dtype == torch.float32 and site.name in inlined
+                            else route
                             for dtype, route in site.routes.items()}
                 for site in self._ode_sites.values()}
 

@@ -520,12 +520,171 @@ def _binomial_logit(y, n, alpha):
 
 # ---- special functions the CDFs need ----
 
+def _igamma_series(ax, x, a, enabled, eps):
+    """The series of P(a, x) and its derivative in a, each element iterated
+    until its own term is below eps (XLA's `IgammaSeries`, DERIVATIVE mode)."""
+    r, c, ans = a, torch.ones_like(a), torch.ones_like(a)
+    dc_da, dans_da = torch.zeros_like(a), torch.zeros_like(a)
+    while bool(enabled.any()):
+        r1 = r + 1.0
+        dc1 = dc_da * (x / r1) - (c * x) / (r1 * r1)
+        dans1 = dans_da + dc1
+        c1 = c * (x / r1)
+        ans1 = ans + c1
+        go = enabled & ((dc1 / dans1).abs() > eps)
+        r, c, ans = (torch.where(enabled, u, v) for u, v in ((r1, r), (c1, c), (ans1, ans)))
+        dc_da = torch.where(enabled, dc1, dc_da)
+        dans_da = torch.where(enabled, dans1, dans_da)
+        enabled = go
+    dlogax_da = torch.log(x) - torch.digamma(a + 1.0)
+    return ax * (ans * dlogax_da + dans_da) / a
+
+
+def _igammac_fraction(ax, x, a, enabled, eps):
+    """The continued fraction of Q(a, x) and its derivative in a, at most
+    2000 terms (XLA's `IgammacContinuedFraction`, DERIVATIVE mode)."""
+    y = 1.0 - a
+    z = x + y + 1.0
+    pkm2, qkm2, pkm1 = torch.ones_like(x), x, x + 1.0
+    qkm1 = z * x
+    ans = pkm1 / qkm1
+    dpkm2, dqkm2, dpkm1, dqkm1 = (torch.zeros_like(x),) * 3 + (-x,)
+    dans = (dpkm1 - ans * dqkm1) / qkm1
+    big = 1.0 / eps
+    c = 0
+    while c < 2000 and bool(enabled.any()):
+        c += 1
+        y1, z1 = y + 1.0, z + 2.0
+        yc = y1 * c
+        pk = pkm1 * z1 - pkm2 * yc
+        qk = qkm1 * z1 - qkm2 * yc
+        nz = qk != 0
+        ans1 = torch.where(nz, pk / qk, ans)
+        dpk = dpkm1 * z1 - pkm1 - dpkm2 * yc + pkm2 * c
+        dqk = dqkm1 * z1 - qkm1 - dqkm2 * yc + qkm2 * c
+        dans1 = torch.where(nz, (dpk - ans1 * dqk) / qk, dans)
+        moved = torch.where(nz, (dans1 - dans).abs(), torch.ones_like(dans))
+        rescale = pk.abs() > big
+        new = [pk, qk, pkm1, qkm1, dpk, dqk, dpkm1, dqkm1]
+        new = [torch.where(rescale, v * eps, v) for v in new]
+        old = [pkm1, qkm1, pkm2, qkm2, dpkm1, dqkm1, dpkm2, dqkm2]
+        pkm1, qkm1, pkm2, qkm2, dpkm1, dqkm1, dpkm2, dqkm2 = (
+            torch.where(enabled, u, v) for u, v in zip(new, old))
+        ans, dans = torch.where(enabled, ans1, ans), torch.where(enabled, dans1, dans)
+        y, z = torch.where(enabled, y1, y), torch.where(enabled, z1, z)
+        enabled = enabled & (moved > eps)
+    dlogax_da = torch.log(x) - torch.digamma(a)
+    return ax * (ans * dlogax_da + dans)
+
+
+@torch.library.custom_op("smcnuts::igamma_grad_a", mutates_args=())
+def igamma_grad_a(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """dP(a, x)/da elementwise (broadcast), JAX's `igamma_grad_a`
+    (`jax/_src/lax/special.py`, XLA's `IgammaGradA`): the series below x =
+    max(1, a), the continued fraction above, each element iterated to its own
+    convergence; 0 at x = 0, NaN outside the domain. One op in a trace; its
+    vmap rule runs the batch in one call."""
+    a, x = torch.broadcast_tensors(a, x)
+    eps = torch.finfo(a.dtype).eps
+    is_nan = a.isnan() | x.isnan()
+    x_is_zero = x == 0
+    domain_error = (x < 0) | (a <= 0)
+    use_igammac = (x > 1) & (x > a)
+    log_ax = a * torch.log(x) - x - torch.lgamma(a)
+    underflow = log_ax < -math.log(torch.finfo(a.dtype).max)
+    ax = torch.exp(log_ax)
+    enabled = ~(x_is_zero | domain_error | underflow | is_nan)
+    out = torch.where(use_igammac,
+                      -_igammac_fraction(ax, x, a, enabled & use_igammac, eps),
+                      _igamma_series(ax, x, a, enabled & ~use_igammac, eps))
+    out = torch.where(x_is_zero, torch.zeros_like(out), out)
+    return torch.where(domain_error | is_nan, torch.full_like(out, math.nan), out)
+
+
+@igamma_grad_a.register_fake
+def _(a, x):
+    return a.new_empty(torch.broadcast_shapes(a.shape, x.shape))
+
+
+def _igamma_grad_a_vmap(info, in_dims, a, x):
+    n = max(a.dim() - (in_dims[0] is not None), x.dim() - (in_dims[1] is not None))
+
+    def lead(v, d):
+        v = v.unsqueeze(0) if d is None else v.movedim(d, 0)
+        return v.reshape(v.shape[:1] + (1,) * (n + 1 - v.dim()) + v.shape[1:])
+
+    return igamma_grad_a(lead(a, in_dims[0]), lead(x, in_dims[1])), 0
+
+
+igamma_grad_a.register_vmap(_igamma_grad_a_vmap)
+
+
+class _IgammaGradA(torch.autograd.Function):
+    """`igamma_grad_a` under the transforms (a custom op's own autograd
+    wrapper is refused by torch.func); it has no derivative of its own."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(a, x):
+        return igamma_grad_a(a, x)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, g):
+        raise NotImplementedError("the second derivative of gammainc in its shape is not "
+                                  "supported")
+
+
+class _RegularizedGamma(torch.autograd.Function):
+    """P(a, x) (upper=False) or Q(a, x) = 1 - P (upper=True), torch's values,
+    with JAX's derivatives in both arguments: in x the density
+    x^(a-1) e^-x / Gamma(a), in a `igamma_grad_a` (torch's gammainc has no
+    derivative in a)."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(a, x, upper):
+        return (torch.special.gammaincc if upper else torch.special.gammainc)(a, x)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        a, x, ctx.upper = inputs
+        ctx.save_for_backward(a, x)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, x = ctx.saved_tensors
+        sign = -1.0 if ctx.upper else 1.0
+        ga = gx = None
+        if ctx.needs_input_grad[0]:
+            ga = (sign * g * _IgammaGradA.apply(a, x)).sum_to_size(a.shape)
+        if ctx.needs_input_grad[1]:
+            dx = torch.exp(-x + (a - 1.0) * torch.log(x) - torch.lgamma(a))
+            gx = (sign * g * dx).sum_to_size(x.shape)
+        return ga, gx, None
+
+
+def _regularized_gamma(a, x, upper):
+    """P(a, x) or Q(a, x) of tensors or numbers: data alone through torch's
+    op on the host (`apply`), a parameter through `_RegularizedGamma`."""
+    a, x = _as_value(a), _as_value(x)
+    if not (is_tensor(a) or is_tensor(x)):
+        op = torch.special.gammaincc if upper else torch.special.gammainc
+        return apply(lambda u, v: op(to_tensor(u), to_tensor(v)), a, x)
+    return _RegularizedGamma.apply(to_tensor(a), to_tensor(x), upper)
+
+
 def _gammainc(a, x):
-    return _bf(torch.special.gammainc)(a, x)
+    return _regularized_gamma(a, x, False)
 
 
 def _gammaincc(a, x):
-    return _bf(torch.special.gammaincc)(a, x)
+    return _regularized_gamma(a, x, True)
 
 
 def _betainc_cf(a, b, x, iters=200):
@@ -967,7 +1126,7 @@ def _mvn_chol_core(y, mu, chol):
 
 
 def _multi_normal(y, mu, sigma):
-    return _mvn_chol_core(y, mu, torch.linalg.cholesky(_as_arr(sigma)))
+    return _mvn_chol_core(y, mu, _cholesky(_as_arr(sigma)))
 
 
 def _multi_normal_cholesky(y, mu, chol):
@@ -1002,10 +1161,26 @@ def _lkj_corr_cholesky(chol, eta):
     return torch.sum(expo * torch.log(diag))
 
 
+def _cholesky(m):
+    """The lower Cholesky factor, NaN throughout for a matrix that is not
+    positive definite, as jnp.linalg.cholesky gives it (torch.linalg.cholesky
+    raises, and a proposed covariance may lose definiteness to float32
+    rounding mid-run)."""
+    chol, info = torch.linalg.cholesky_ex(m)
+    return torch.where((info == 0)[..., None, None], chol, torch.full_like(chol, math.nan))
+
+
+def _inverse(m):
+    """The inverse, NaN throughout for a singular matrix (torch.linalg.inv
+    raises; jnp.linalg.inv returns inf or NaN)."""
+    inv, info = torch.linalg.inv_ex(_as_arr(m))
+    return torch.where((info == 0)[..., None, None], inv, torch.full_like(inv, math.nan))
+
+
 def _logdet_spd(m):
     """(log det, lower Cholesky factor) of a symmetric positive-definite
     matrix."""
-    chol = torch.linalg.cholesky(_as_arr(m))
+    chol = _cholesky(_as_arr(m))
     return 2.0 * torch.sum(torch.log(torch.diagonal(chol))), chol
 
 
@@ -1123,7 +1298,7 @@ def _multi_student_t(y, nu, mu, sigma):
     y2 = _atleast_2d(_as_arr(y))
     n, d = y2.shape
     nu = _as_arr(nu)
-    chol = torch.linalg.cholesky(_as_arr(sigma))
+    chol = _cholesky(_as_arr(sigma))
     diff = y2 - _as_arr(mu)
     z = torch.linalg.solve_triangular(chol, diff.T, upper=False)
     maha = torch.sum(z * z, dim=0)  # (N,)
@@ -1419,7 +1594,7 @@ FUNCTIONS = {
     "diag_pre_multiply": lambda d, m: _as_arr(d)[:, None] * _as_arr(m),
     "diag_post_multiply": lambda m, d: _as_arr(m) * _as_arr(d)[None, :],
     "multiply_lower_tri_self_transpose": lambda L: _as_arr(L) @ _as_arr(L).T,
-    "cholesky_decompose": lambda m: torch.linalg.cholesky(_as_arr(m)),
+    "cholesky_decompose": lambda m: _cholesky(_as_arr(m)),
     "sqrt": _t1(torch.sqrt),
     "square": lambda x: _as_arr(x) ** 2,
     "cbrt": lambda x: torch.sign(_as_arr(x)) * torch.abs(_as_arr(x)) ** (1.0 / 3.0),
@@ -1514,8 +1689,8 @@ FUNCTIONS = {
     "to_array_1d": lambda x: _as_arr(x).reshape(-1),
     # matrix algebra (pairs with the corr_matrix/cov_matrix parameter types)
     "trace": lambda m: torch.trace(_as_arr(m)),
-    "inverse": lambda m: torch.linalg.inv(_as_arr(m)),
-    "inverse_spd": lambda m: torch.linalg.inv(_as_arr(m)),
+    "inverse": _inverse,
+    "inverse_spd": _inverse,
     "determinant": lambda m: torch.linalg.det(_as_arr(m)),
     "log_determinant": lambda m: torch.linalg.slogdet(_as_arr(m))[1],
     # quad_form(A, B) = B' A B; a vector B gives a scalar, a matrix B a
@@ -1547,7 +1722,7 @@ def _solve_tri(a, b):
 
 def _cho_solve(a, b):
     vec = b.dim() == 1
-    out = torch.cholesky_solve(b[:, None] if vec else b, torch.linalg.cholesky(a))
+    out = torch.cholesky_solve(b[:, None] if vec else b, _cholesky(a))
     return out[:, 0] if vec else out
 
 

@@ -462,25 +462,35 @@ def test_forward_arma_op_count_beside_jax_simplified_jaxpr(arma200):
 
 
 def test_unsupported_op_raises_naming_it():
-    with pytest.raises(NotImplementedError, match="atan.*model 'atanmodel'|model 'atanmodel'.*atan"):
-        tile_model_from_logp(lambda t, p: torch.atan(t).sum() * p, 2, name="atanmodel")
+    with pytest.raises(NotImplementedError,
+                       match="asinh.*model 'asinhmodel'|model 'asinhmodel'.*asinh"):
+        tile_model_from_logp(lambda t, p: torch.asinh(t).sum() * p, 2, name="asinhmodel")
 
 
 def test_lgamma_of_a_parameter_has_no_derivative_in_the_kernel():
     """lgamma of a parameter lowers, its derivative digamma built from the
     program's ops (tests/test_torch_generated_special.py holds both to
-    torch.special and JAX); the chain stops one step on: digamma of a
-    parameter has no derivative (trigamma) in the kernel, in either mode."""
-    x = torch.tensor([[0.5], [3.0]])
+    torch.special and JAX); digamma of a parameter lowers too, its
+    derivative trigamma built from the program's ops and equal to
+    torch.special.polygamma(1, .) at rtol 2e-6 + atol 1e-6 (ATen's float
+    code, mirrored); the chain stops one step on: trigamma of a parameter
+    has no derivative (tetragamma) in the kernel, in either mode."""
+    x = torch.tensor([[0.5], [3.0], [0.25], [17.0]])
     for tm in (tile_model_from_logp_fwd(lambda c, p: torch.lgamma(c[0]), 1),
                tile_model_from_logp(lambda t, p: torch.lgamma(t[0]), 1)):
         lp, g = tm.logp_and_grad(x, 1.0)
         torch.testing.assert_close(lp, torch.lgamma(x[:, 0]))
         torch.testing.assert_close(g[:, 0], torch.digamma(x[:, 0]), rtol=2e-6, atol=1e-6)
-    with pytest.raises(NotImplementedError, match="trigamma"):
-        tile_model_from_logp_fwd(lambda c, p: torch.digamma(c[0]), 1)
+    for tm in (tile_model_from_logp_fwd(lambda c, p: torch.digamma(c[0]), 1),
+               tile_model_from_logp(lambda t, p: torch.digamma(t[0]), 1)):
+        lp, g = tm.logp_and_grad(x, 1.0)
+        torch.testing.assert_close(lp, torch.digamma(x[:, 0]), rtol=2e-6, atol=1e-6)
+        want = torch.special.polygamma(1, x[:, 0].double()).float()
+        torch.testing.assert_close(g[:, 0], want, rtol=2e-6, atol=1e-6)
+    with pytest.raises(NotImplementedError, match="tetragamma"):
+        tile_model_from_logp_fwd(lambda c, p: torch.special.polygamma(1, c[0]), 1)
     with pytest.raises(NotImplementedError, match="polygamma"):
-        tile_model_from_logp(lambda t, p: torch.digamma(t[0]), 1)
+        tile_model_from_logp(lambda t, p: torch.special.polygamma(1, t[0]), 1)
 
 
 def test_emitted_source_is_deterministic_and_exact():

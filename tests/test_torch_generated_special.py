@@ -143,8 +143,8 @@ def test_emitted_source_calls_no_function_aten_implements_itself(name):
 def test_libdevice_unary_plain_version_is_torchs_op():
     x = torch.linspace(-3.0, 3.0, 101)
     for op in LIBDEVICE_SWEEP:
-        v = x.abs() + 0.5 if op == "lgamma" else x
+        v = x.abs() + 0.5 if op == "lgamma" else x / 3.0 if op in ("asin", "acos") else x
         assert torch.equal(libdevice_unary(op, v), getattr(torch, op)(v))
     assert libdevice_unary.launches == 0
     with pytest.raises(ValueError, match="one of"):
-        libdevice_unary("tan", x)
+        libdevice_unary("exp", x)
