@@ -6,8 +6,9 @@
     (phase keys: arma, prmwcd, main, batched, staged_times, cli, autodiff,
     gaussian, logistic, eightschools (phase 8 for one model alone),
     strategies, fused_kernel, eager, unfused, wide_eager, generated, runner,
-    stan, solvers, lv_rk45 (phase solvers (b) alone), tile_programs, mesh; device, build and
-    peak always run first)
+    stan, solvers, lv_rk45 (phase solvers (b) alone), tile_programs, mesh, oracle;
+    device, build and peak always run first; `--only batched,strategies` also
+    runs phase parity)
 
 Phases, each printing its own lines; any failure raises (non-zero exit):
 
@@ -79,8 +80,9 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
    PRMwCD with step-size and mass adaptation at target_accept 0.5. Each must
    launch its kernel exactly 100 times and the plain tree never; every series
    is finite with K+1 entries; the 25-run MC mean and variance of the final
-   estimates lie in the PARITY bands of experiments/parity_summary.py
-   (3 MC standard errors + 0.1 posterior sd; 3 MC standard errors + 40%);
+   estimates lie in the PARITY bands of `smcnuts_torch.utils.parity` (those
+   of experiments/parity_summary.py: 3 MC standard errors + 0.1 posterior
+   sd; 3 MC standard errors + 40%);
    runs 0 and 24 equal single runs with their seeds, to the bit. The adapted
    run's step size is constant over the frozen iterations, and its mean
    leapfrogs per particle-iteration are below half the fixed run's. Prints
@@ -156,6 +158,24 @@ Phases, each printing its own lines; any failure raises (non-zero exit):
    decreases and ends at 1; runs 0 and 24 equal their single runs to the
    bit; for the asymptotic strategy the estimates made inside the loop
    (save_history=False) equal those from the saved history to the bit.
+parity. the six parity configurations' summary: phases 6 and 9's final
+   estimates of arma and PRMwCD (forwards; asymptotic with tempering and the
+   Gaussian L-kernel), 25 runs each, through `smcnuts_torch.utils.parity`
+   (strategy_entry, summary): one <model>_summary.json object a model
+   (experiments/parity_summary_torch.py's keys) printed as a JSON line;
+   fails unless both pass. No device time: it reuses those runs.
+oracle. the card against the serial NumPy oracle, the card's counterpart of
+   tests/test_oracle_crossval.py: the Gaussian N([1, -2], diag(0.5, 2)) with
+   a unit prior (D = 2, K6a's gaussian2 entry) at N=192, K=8, step 0.5,
+   seeds 0-2 in one run_smc_batched call, forwards without tempering and
+   asymptotic with it (K dispatches each, all to the pipelined walk, no
+   plain call); `smcnuts_torch.baselines.numpy_smc.run_numpy_smc` over
+   NumpyModelAdapter of the same model on the host's CPU, its six runs in
+   spawned worker processes meanwhile. Each MC mean within 0.3 of the truth
+   and the two within 0.4 of each other (the test's tolerances). Prints the
+   host's numpy and scipy versions (a missing scipy fails the phase) and
+   times one run_numpy_smc(NumpyArmaModel(), 64, 5, 0.01) (bench.py:45-46's
+   size) on the host's CPU. Its launches count on the Gaussian's row.
 10. the eager backend on the card with the fused ARMA kernel, and the unfused
    proposal path. (a) The fused ARMA value and gradient (K5, models.arma.GROUP
    lanes a particle) against its plain version in the same order at 1, 513,
@@ -1220,21 +1240,30 @@ def main_path_phase(smi):
     return launches + counts["arma"]
 
 
+def band_errors(final_mean, final_var, ref_mean, ref_var):
+    """The MC mean of the runs' final estimates (R, D), and |MC mean -
+    reference| and |MC var - reference| beside their bands, those of
+    `smcnuts_torch.utils.parity` (experiments/parity_summary.py:45-54)."""
+    from smcnuts_torch.utils.parity import mean_band, var_band
+
+    m = final_mean.double().cpu().numpy()
+    v = final_var.double().cpu().numpy()
+    ref_mean = torch.as_tensor(ref_mean).double().cpu().numpy()
+    ref_var = torch.as_tensor(ref_var).double().cpu().numpy()
+    r = m.shape[0]
+    return (m.mean(0), abs(m.mean(0) - ref_mean), mean_band(m.std(0, ddof=1), r, ref_var),
+            abs(v.mean(0) - ref_var), var_band(v.std(0, ddof=1), r, ref_var))
+
+
 def parity_bands(label, name, final_mean, final_var):
-    """The PARITY verdict of experiments/parity_summary.py:45-54 over the
-    runs' final estimates (R, D): |MC mean - truth| <= 3 MC se + 0.1
-    posterior sd, and for the variances <= 3 MC se + 40%."""
+    """The PARITY verdict of `smcnuts_torch.utils.parity` over the runs'
+    final estimates (R, D): |MC mean - truth| <= 3 MC se + 0.1 posterior sd,
+    and for the variances <= 3 MC se + 40%."""
     from smcnuts_torch.models import ground_truth
 
-    gt_mean, gt_var = (torch.as_tensor(v, dtype=torch.float64)
-                       for v in ground_truth(name))
-    m, v = final_mean.double().cpu(), final_var.double().cpu()
-    r = m.shape[0]
-    mean_err = (m.mean(0) - gt_mean).abs()
-    mean_band = 3.0 * m.std(0) / r ** 0.5 + 0.1 * gt_var.sqrt()
-    var_err = (v.mean(0) - gt_var).abs()
-    var_band = 3.0 * v.std(0) / r ** 0.5 + 0.40 * gt_var.abs()
-    print(f"{label}: MC mean {[round(float(a), 4) for a in m.mean(0)]}")
+    mc_mean, mean_err, mean_band, var_err, var_band = band_errors(
+        final_mean, final_var, *ground_truth(name))
+    print(f"{label}: MC mean {[round(float(a), 4) for a in mc_mean]}")
     print(f"{label}: |MC mean - truth| / band "
           f"{[round(float(a), 3) for a in mean_err / mean_band]}")
     print(f"{label}: |MC var - truth| / band "
@@ -1242,6 +1271,12 @@ def parity_bands(label, name, final_mean, final_var):
     if not (bool((mean_err <= mean_band).all()) and bool((var_err <= var_band).all())):
         raise AssertionError(f"{label}: outside the PARITY bands")
 
+
+# The runs' final estimates (mean, variance), each (RUNS, D), of the six
+# parity configurations, by (model, strategy directory of
+# smcnuts_torch.utils.parity.STRATEGIES): forwards from phase 6, the
+# asymptotic and Gaussian L-kernels from phase 9. Phase `parity` reads them.
+PARITY_FINALS = {}
 
 WORKLOADS = (  # label, model, adapted
     ("arma", "arma", False),
@@ -1423,6 +1458,9 @@ def batched_phase(smi):
                 raise AssertionError(f"{label}: step size moves after warmup")
             print(f"{label}: step size constant over iterations {w}..{K} of "
                   f"every run")
+        else:
+            PARITY_FINALS[(name, "forward_lkernel")] = (
+                final_mean, res.variance_estimate[:, K].cpu())
         for b in (0, RUNS - 1):
             diff = single_run_diff(run_smc(model, cfg, SEEDS[b], "cuda"), res, b)
             if diff:
@@ -1824,15 +1862,10 @@ def one_model_phase(name):
 
 def estimates_band(label, got_mean, got_var, ref_mean, ref_var):
     """The PARITY bands of `parity_bands` against a reference run's moments."""
-    m, v = got_mean.double().cpu(), got_var.double().cpu()
-    ref_mean, ref_var = ref_mean.double().cpu(), ref_var.double().cpu()
-    r = m.shape[0]
-    mean_err = (m.mean(0) - ref_mean).abs()
-    mean_band = 3.0 * m.std(0) / r ** 0.5 + 0.1 * ref_var.sqrt()
-    var_err = (v.mean(0) - ref_var).abs()
-    var_band = 3.0 * v.std(0) / r ** 0.5 + 0.40 * ref_var.abs()
-    print(f"{label}: MC mean {[round(float(a), 4) for a in m.mean(0)]}, "
-          f"reference {[round(float(a), 4) for a in ref_mean]}")
+    mc_mean, mean_err, mean_band, var_err, var_band = band_errors(
+        got_mean, got_var, ref_mean, ref_var)
+    print(f"{label}: MC mean {[round(float(a), 4) for a in mc_mean]}, "
+          f"reference {[round(float(a), 4) for a in torch.as_tensor(ref_mean).cpu()]}")
     print(f"{label}: |MC mean - reference| / band "
           f"{[round(float(a), 3) for a in mean_err / mean_band]}, variances "
           f"{[round(float(a), 3) for a in var_err / var_band]}")
@@ -1967,8 +2000,9 @@ def strategies_phase(smi):
             res, n, n_cont = strategy_run(label, name, get_model(name), cfg, smi,
                                           profiled=True)
             add(name, n, n_cont)
-            parity_bands(label, name, res.mean_estimate[:, K].cpu(),
-                         res.variance_estimate[:, K])
+            final = (res.mean_estimate[:, K].cpu(), res.variance_estimate[:, K].cpu())
+            parity_bands(label, name, *final)
+            PARITY_FINALS[(name, "asymptotic_lkernel" if asym else "gaussian_lkernel")] = final
 
     for name, c in AUTODIFF_MODELS.items():
         cfg = SMCConfig(n_particles=c["n"], n_iterations=c["k"], step_size=c["step"],
@@ -2017,6 +2051,138 @@ def strategies_phase(smi):
                            mean, var, ref.mean_estimate[REF_K],
                            ref.variance_estimate[REF_K])
     return launches, cont
+
+
+def parity_summary_phase():
+    """The six parity configurations' summary: phases 6 and 9's final
+    estimates through `smcnuts_torch.utils.parity`, one <model>_summary.json
+    object a model (experiments/parity_summary_torch.py's keys), printed
+    as a JSON line; fails unless both pass. No device time."""
+    from smcnuts_torch.models import ground_truth
+    from smcnuts_torch.utils.parity import STRATEGIES, strategy_entry, summary
+
+    phase(f"parity. the six parity configurations of phases 6 and 9, {RUNS} runs each")
+    failed = []
+    for model in ("arma", "prmwcd"):
+        gt_mean, gt_var = ground_truth(model)
+        entries = {s: strategy_entry(*(v.double().numpy() for v in PARITY_FINALS[(model, s)]),
+                                     gt_mean, gt_var)
+                   for s in STRATEGIES}
+        out = summary(model, RUNS, entries)
+        print(json.dumps(out))
+        print(f"{model}: " + ", ".join(f"{s} {'pass' if e['pass'] else 'FAIL'}"
+                                       for s, e in entries.items()))
+        if not out["pass"]:
+            failed.append(model)
+    if failed:
+        raise AssertionError(f"the parity summary of {failed} does not pass")
+
+
+# ---- phase oracle: the card against the serial NumPy oracle, the card's
+# counterpart of tests/test_oracle_crossval.py:17-55 (its model, config and
+# tolerances); the oracle runs on the host's CPU.
+
+ORACLE_GAUSSIAN = dict(mean=(1.0, -2.0), var=(0.5, 2.0), prior_var=(1.0, 1.0))
+ORACLE_N, ORACLE_K, ORACLE_STEP, ORACLE_SEEDS = 192, 8, 0.5, (0, 1, 2)
+ORACLE_STRATEGIES = (("forwardsLKernel", False), ("asymptoticLKernel", True))
+# bench.py:45-46: the size at which bench.py times the serial baseline.
+BASELINE_N, BASELINE_K = 64, 5
+
+
+def oracle_run(lkernel, tempering, seed):
+    """In a worker process: the serial NumPy oracle over NumpyModelAdapter of
+    the oracle phase's Gaussian on the CPU; returns (final mean estimate,
+    seconds)."""
+    from smcnuts_torch.baselines.numpy_smc import NumpyModelAdapter, run_numpy_smc
+    from smcnuts_torch.models import make_gaussian
+
+    torch.set_num_threads(1)
+    adapter = NumpyModelAdapter(make_gaussian(**ORACLE_GAUSSIAN))
+    t0 = time.perf_counter()
+    out = run_numpy_smc(adapter, ORACLE_N, ORACLE_K, ORACLE_STEP, lkernel=lkernel,
+                        tempering=tempering, seed=seed)
+    return out["mean_estimate"][-1].tolist(), time.perf_counter() - t0
+
+
+def oracle_phase(smi):
+    """The Gaussian of tests/test_oracle_crossval.py (D=2) on the card through
+    K6a, 3 seeds a strategy in one run_smc_batched call (run b equals run_smc
+    with seed b), forwards without tempering and asymptotic with it; the
+    serial NumPy oracle on the same model on the host's CPU, its six runs in
+    worker processes meanwhile. The test's tolerances: each MC mean within
+    0.3 of the truth, the two within 0.4 of each other. Then one run of the
+    serial baseline at bench.py's size, timed on the host's CPU. Returns the
+    Gaussian kernel's launches."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    import numpy as np
+
+    phase("oracle. the card against the serial NumPy oracle (tests/test_oracle_crossval.py)")
+    started = time.perf_counter()
+    try:
+        import scipy
+    except ImportError as e:
+        raise AssertionError("scipy is missing on this machine: the serial NumPy "
+                             "oracle (smcnuts_torch.baselines.numpy_smc) needs it") from e
+    print(f"host: numpy {np.__version__}, scipy {scipy.__version__}, "
+          f"{os.cpu_count()} CPU cores")
+    from smcnuts_torch import SMCConfig, run_smc_batched
+    from smcnuts_torch.baselines.numpy_smc import NumpyArmaModel, run_numpy_smc
+    from smcnuts_torch.models import make_gaussian
+    from smcnuts_torch.utils.timing import CudaTimer
+
+    truth = np.asarray(ORACLE_GAUSSIAN["mean"])
+    launches = 0
+    with ProcessPoolExecutor(len(ORACLE_STRATEGIES) * len(ORACLE_SEEDS),
+                             mp_context=multiprocessing.get_context("spawn")) as procs:
+        oracle = {(lk, seed): procs.submit(oracle_run, lk, temp, seed)
+                  for lk, temp in ORACLE_STRATEGIES for seed in ORACLE_SEEDS}
+        card = {}
+        for lkernel, tempering in ORACLE_STRATEGIES:
+            cfg = SMCConfig(n_particles=ORACLE_N, n_iterations=ORACLE_K,
+                            step_size=ORACLE_STEP, lkernel=lkernel, tempering=tempering)
+            model = make_gaussian(**ORACLE_GAUSSIAN)
+            reset_counts()
+            with CudaTimer() as t:
+                res = run_smc_batched(model, cfg, list(ORACLE_SEEDS), "cuda")
+                card[lkernel] = res.mean_estimate[:, ORACLE_K].double().cpu().numpy()
+            counts, plain_calls = read_counts()
+            label = f"oracle {lkernel}{' tempered' if tempering else ''}"
+            if (counts["gaussian"] != ORACLE_K or sum(counts.values()) != ORACLE_K
+                    or plain_calls != 0):
+                raise AssertionError(f"{label}: {counts} dispatches, {plain_calls} plain "
+                                     f"calls; expected {ORACLE_K} and 0")
+            gaussian_entry_check(label, model, ORACLE_K)
+            check_series(label, res, ORACLE_K)
+            launches += counts["gaussian"]
+            print(f"{label}: {len(ORACLE_SEEDS)} runs x N={ORACLE_N} x K={ORACLE_K} on the "
+                  f"card in {t.ms:.1f} ms (CUDA events) ({smi})")
+        for lkernel, tempering in ORACLE_STRATEGIES:
+            label = f"oracle {lkernel}{' tempered' if tempering else ''}"
+            runs = [oracle[(lkernel, seed)].result() for seed in ORACLE_SEEDS]
+            cm = card[lkernel].mean(0)
+            nm = np.mean([r[0] for r in runs], axis=0)
+            print(f"{label}: MC mean of {len(ORACLE_SEEDS)} runs, card {cm.tolist()}, "
+                  f"NumPy oracle {nm.tolist()} (its runs {[round(r[1], 3) for r in runs]} s "
+                  f"on the host CPU, one process each), truth {truth.tolist()}")
+            print(f"{label}: max |card - truth| {float(abs(cm - truth).max()):.4f}, "
+                  f"|oracle - truth| {float(abs(nm - truth).max()):.4f} (tolerance 0.3), "
+                  f"|card - oracle| {float(abs(cm - nm).max()):.4f} (tolerance 0.4)")
+            np.testing.assert_allclose(cm, truth, atol=0.3, err_msg=f"{label}: card")
+            np.testing.assert_allclose(nm, truth, atol=0.3, err_msg=f"{label}: oracle")
+            np.testing.assert_allclose(cm, nm, atol=0.4, err_msg=f"{label}: card vs oracle")
+    t0 = time.perf_counter()
+    run_numpy_smc(NumpyArmaModel(), BASELINE_N, BASELINE_K, 0.01,
+                  lkernel="forwardsLKernel", tempering=False, seed=0)
+    seconds = time.perf_counter() - t0
+    print(f"serial NumPy baseline, arma N={BASELINE_N} K={BASELINE_K} step 0.01 forwards "
+          f"(bench.py:45-46's size), one run: {seconds:.3f} s on the host CPU of this "
+          f"card's machine, {BASELINE_N * BASELINE_K / seconds:.1f} particle-iterations/s "
+          f"(the host's, not the card's)")
+    print(f"oracle phase: {time.perf_counter() - started:.1f} s")
+    return launches
+
 
 # ---- phase 10: the eager backend with the fused ARMA kernel (K5), the
 # unfused proposal path on the whole-tree kernel (K1u), a wide eager run.
@@ -4584,9 +4750,11 @@ def partial_run(only, smi, stan_prep, solvers_prep, tile_prep):
               "solvers": lambda smi: solvers_phase(smi, solvers_prep),
               "lv_rk45": lv_rk45_phase,
               "tile_programs": lambda smi: tile_programs_phase(smi, tile_prep),
-              "mesh": mesh_phase}
+              "mesh": mesh_phase, "oracle": oracle_phase}
     for key in only:
         phases[key](smi)
+    if len(PARITY_FINALS) == 6:  # `--only batched,strategies`
+        parity_summary_phase()
     print(f"\nchip_smoke: partial run of {only} passed; no result line")
 
 
@@ -4612,6 +4780,8 @@ def main():
     autodiff, witnesses = autodiff_kernels_phase(smi)
     strategies, strategies_cont = strategies_phase(smi)
     strategies["eightschools"] += schools_cli
+    parity_summary_phase()
+    strategies["gaussian"] += oracle_phase(smi)
     k5, k5_w1, k1u = fused_phase(smi)
     k7f, k7r, k7f_witnesses, k7r_w2 = generated_phase(smi)
     tally = runner_phase(smi)

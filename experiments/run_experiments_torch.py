@@ -16,12 +16,15 @@ are saved under the reference's names, output/<model>/<strategy>/*_<run>.csv
         -N 32 -K 3 --device cpu
 
 timings.json beside the CSVs holds each strategy's wall time (CUDA events on
-the card, the host clock on the CPU) with the device it ran on.
+the card, the host clock on the CPU) with the device it ran on, and on the
+card its name and power limit as `nvidia-smi --query-gpu=name,power.limit
+--format=csv,noheader` gives them.
 """
 
 import argparse
 import json
 import os
+import subprocess
 import sys
 import time
 
@@ -56,6 +59,18 @@ def _wall_seconds(fn, device):
     return out, time.perf_counter() - t0
 
 
+def card_line(device):
+    """nvidia-smi's name and power limit of the card `device` is on."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader",
+             "-i", str(index)], capture_output=True, text=True, timeout=60)
+    except (OSError, subprocess.TimeoutExpired) as e:
+        return f"nvidia-smi failed: {e}"
+    return out.stdout.strip() or f"nvidia-smi failed: {out.stderr.strip()}"
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -83,6 +98,7 @@ def main(argv=None):
         os.path.dirname(os.path.abspath(__file__)), "output", args.model)
     os.makedirs(output_dir, exist_ok=True)
     where = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
+    smi = card_line(device) if device.type == "cuda" else None
     print(f"Model: {args.model}  N={args.particles}  K={args.iterations}  "
           f"step_size={step_size}  runs={args.runs}  device: {where}")
 
@@ -107,6 +123,8 @@ def main(argv=None):
             "device": where, "runs": args.runs, "wall_s": seconds,
             "particle_iters_per_s": args.runs * args.particles * args.iterations / seconds,
         }
+        if smi is not None:
+            timings[name]["nvidia_smi"] = smi
         print(f"{name}: {args.runs} runs batched in {seconds:.3f} s ({where})")
     with open(os.path.join(output_dir, "timings.json"), "w") as f:
         json.dump(timings, f, indent=1)

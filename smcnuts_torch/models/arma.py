@@ -7,8 +7,8 @@ Priors: mu ~ N(0, 10), beta ~ N(0, 2), theta ~ N(0, 2), sigma ~ Cauchy(0, 2.5)
 err_1 = y_1 - (mu + beta*mu), err_t = y_t - (mu + beta*y_{t-1} + theta*err_{t-1}),
 err_t ~ N(0, sigma), scaled by the temperature phi.
 
-The data are read by path from the JAX package's asset file; reading the
-file imports nothing of that package.
+The data and the ground truth come from the port's own copy of the JAX
+package's asset file (`smcnuts_torch/assets/`, the same bytes).
 
 `make_arma(fused=...)` takes the likelihood's value and gradient from the
 fused function of `ops/arma_fused.py` (the JAX model's `loglik_vg`): "cuda"
@@ -48,9 +48,7 @@ BLOCK = 64
 BLOCKS_PER_SM = 12
 
 ASSET = os.path.join(
-    os.path.dirname(os.path.abspath(__file__)),
-    "..", "..", "smcnuts_tpu", "assets", "arma.npz",
-)
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "assets", "arma.npz")
 
 _LOG_PI = float(math.log(math.pi))
 _LOG_10 = float(math.log(10.0))

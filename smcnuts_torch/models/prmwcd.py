@@ -8,8 +8,8 @@ M - 1 non-intercept betas, log p += -log(Gamma) - |Beta_i / Gamma|^q; the
 intercept is flat. Likelihood: y_i ~ Poisson(exp(eta_i)) with
 eta = Beta_1 + X @ Beta_2..M, scaled by the temperature phi.
 
-The data are read by path from the JAX package's asset file; reading the file
-imports nothing of that package.
+The data and the ground truth come from the port's own copy of the JAX
+package's asset file (`smcnuts_torch/assets/`, the same bytes).
 """
 
 from __future__ import annotations
@@ -38,9 +38,7 @@ BLOCK = 64
 BLOCKS_PER_SM = 6
 
 ASSET = os.path.join(
-    os.path.dirname(os.path.abspath(__file__)),
-    "..", "..", "smcnuts_tpu", "assets", "prmwcd.npz",
-)
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "assets", "prmwcd.npz")
 
 
 def load_asset() -> dict:

@@ -30,7 +30,8 @@ _MODULES = (
     "smcnuts_torch.stan.compiler", "smcnuts_torch.parallel",
     "smcnuts_torch.parallel.sharding", "smcnuts_torch.parallel.runs",
     "smcnuts_torch.parallel.multihost", "smcnuts_torch.parallel.elastic",
-    "smcnuts_torch.parallel.gang",
+    "smcnuts_torch.parallel.gang", "smcnuts_torch.baselines",
+    "smcnuts_torch.baselines.numpy_smc", "smcnuts_torch.utils.parity",
 )
 
 
@@ -66,8 +67,17 @@ def test_imports_with_jax_blocked():
         "s.logp_and_grad(torch.zeros(2, 9)); s.tile_model.logp_and_grad(torch.zeros(2, 9))\n"
         "compile_stan_file('examples/stan/gq_rng.stan', data='examples/stan/gq_rng.json')\\\n"
         "    .constrain(torch.zeros(2, 1))\n"
+        "from smcnuts_torch.baselines.numpy_smc import NumpyArmaModel, NumpyModelAdapter\n"
+        "import numpy as np\n"
+        "NumpyArmaModel().logpdfgrad(np.zeros(4))\n"
+        "NumpyModelAdapter(get_model('arma')).logpdfgrad(np.zeros((2, 4)))\n"
+        "from smcnuts_torch.utils.parity import summarize\n"
+        "assert summarize('arma', 'examples', 25)['pass'] is False\n"
+        "from smcnuts_torch.models import ground_truth\n"
+        "ground_truth('arma'); ground_truth('prmwcd')\n"
         "sys.path.insert(0, 'experiments')\n"
         "import run_experiments_torch, stan_step_sizes_torch, generated_loop_unroll_torch\n"
+        "import run_parity_torch, parity_summary_torch, plot_experiments_torch\n"
         "print('ok')\n"
     )
     env = dict(os.environ, PYTHONPATH=_REPO, OMP_NUM_THREADS="2")
@@ -175,3 +185,56 @@ def test_loop_unroll_script_imports_neither():
     assert not [n for n in names
                 if n.split(".")[0] in ("jax", "jaxlib", "smcnuts_tpu")]
     assert any(n.startswith("smcnuts_torch") for n in names)
+
+
+@pytest.mark.parametrize("script", ["run_parity_torch.py", "parity_summary_torch.py",
+                                    "plot_experiments_torch.py"])
+def test_parity_scripts_import_neither(script):
+    """The port's parity pipeline names jax and smcnuts_tpu in no import."""
+    names = _imported_names(os.path.join(_REPO, "experiments", script))
+    assert not [n for n in names
+                if n.split(".")[0] in ("jax", "jaxlib", "smcnuts_tpu")]
+    assert any(n.startswith("smcnuts_torch") for n in names)
+
+
+def _strings_outside_docstrings(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    docs = {
+        id(node.body[0].value) for node in ast.walk(tree)
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef, ast.AsyncFunctionDef))
+        and node.body and isinstance(node.body[0], ast.Expr)
+        and isinstance(node.body[0].value, ast.Constant)
+    }
+    return [(node.lineno, node.value) for node in ast.walk(tree)
+            if isinstance(node, ast.Constant) and isinstance(node.value, str)
+            and id(node) not in docs]
+
+
+def test_no_source_builds_a_path_into_the_jax_package():
+    """No module of the port, and no script of its parity pipeline, names
+    smcnuts_tpu in a string its code uses (a path it joins, a file it
+    opens); docstrings may cite the reference's lines."""
+    scripts = [os.path.join(_REPO, "experiments", f) for f in (
+        "run_parity_torch.py", "parity_summary_torch.py", "plot_experiments_torch.py",
+        "run_experiments_torch.py")]
+    hits = [(path, line, text) for path in [*_py_files(), *scripts]
+            for line, text in _strings_outside_docstrings(path)
+            if "smcnuts_tpu" in text]
+    assert not hits
+
+
+@pytest.mark.parametrize("name", ["arma.npz", "arma_meta.json", "prmwcd.npz",
+                                  "prmwcd_meta.json"])
+def test_assets_are_the_jax_package_files_byte_for_byte(name):
+    """The port's data and ground truths are its own copy of the JAX
+    package's asset files, the same bytes, and its models read that copy."""
+    from smcnuts_torch.models import arma, prmwcd
+
+    with open(os.path.join(_PKG, "assets", name), "rb") as f:
+        ours = f.read()
+    with open(os.path.join(_REPO, "smcnuts_tpu", "assets", name), "rb") as f:
+        assert ours == f.read()
+    for module in (arma, prmwcd):
+        assert os.path.dirname(os.path.realpath(module.ASSET)) == os.path.join(
+            os.path.realpath(_PKG), "assets")
